@@ -1,0 +1,11 @@
+"""PyTorch/CUDA port of the TPU-native Rainbow-IQN Ape-X framework.
+
+A package of its own beside ``rainbow_iqn_apex_tpu`` (the JAX reference),
+importing torch, numpy and the standard library only.  Its device hot path
+runs through hand-written Hopper kernels (``csrc/``, bound in ``kernels/``).
+Entry points run on ``cuda:0`` unless the caller passes ``device="cpu"``.
+
+Ported so far: the serving path (``serving.PolicyServer``) at full Atari
+width, with the model (``models/``), the weight converter (``convert.py``)
+and the act step (``ops/act.py``).
+"""

@@ -1,0 +1,514 @@
+"""Flat configuration for the PyTorch/CUDA port of Rainbow-IQN Ape-X.
+
+A verbatim copy of ``rainbow_iqn_apex_tpu/config.py`` (the port imports
+nothing from the JAX package), so one JSON config such as
+``configs/serve_defaults.json`` loads into either package with the same
+fields and defaults.  Field comments that speak of XLA, jit or the TPU
+describe the JAX package's use of the field; the port reads the subset its
+ported modules need.
+
+Hyperparameter defaults follow the Rainbow / IQN / Ape-X papers
+(arXiv:1710.02298, arXiv:1806.06923, arXiv:1803.00933) and the SABER protocol
+(arXiv:1908.04683), which are the reference's own sources (SURVEY.md §2).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+from typing import Any, Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    # ---- experiment / bookkeeping -------------------------------------------------
+    run_id: str = "run0"
+    seed: int = 123
+    results_dir: str = "results"
+    checkpoint_dir: str = "checkpoints"
+    checkpoint_interval: int = 100_000  # learner steps between Orbax saves
+    metrics_interval: int = 1_000  # learner steps between JSONL metric rows
+    resume: str = ""  # "" = fresh start; "true" = restore latest step (raise
+    # on corruption); "auto" = preemption-safe: restore the newest VALID
+    # checkpoint, falling back past corrupt steps, fresh start when none —
+    # the mode an auto-restarting scheduler should use (docs/RESILIENCE.md).
+    # Legacy bool configs (resume=True/False) keep working.
+    snapshot_replay: bool = False  # persist replay contents next to checkpoints
+    # (parity: the reference's replay survives restarts via Redis persistence;
+    # off by default — Atari-scale buffers are ~7GB/host on disk)
+
+    # ---- observability (obs/; docs/OBSERVABILITY.md) ------------------------------
+    trace_dir: str = ""  # arm a one-shot jax profiler capture (xplane/
+    # TensorBoard format, utils/profiling.device_trace) around the learn-step
+    # window [trace_start_step, trace_start_step + trace_num_steps); "" = off
+    trace_start_step: int = 50  # past warmup/compile so the capture is steady-state
+    trace_num_steps: int = 10
+    obs_http_port: int = 0  # serve /metrics + /healthz on this port; 0 = off
+    trace_sample_every: int = 0  # pipeline tracing (obs/pipeline_trace.py):
+    # every Nth unit of work (env tick, learn step, publish, request) emits
+    # causal `span_link` rows — trace_export.py turns them into a Perfetto
+    # timeline, obs_report into a `critical_path:` verdict.  0 (default) =
+    # spans off; the always-on lag_* metrics cost a few histogram writes per
+    # batch either way and change no numerics (off-path stays bitwise).
+
+    # ---- live fleet telemetry plane (obs/net/; docs/OBSERVABILITY.md) -------------
+    obs_net: bool = False  # relay gate: attach an ObsRelay to this process's
+    # MetricsLogger — every row it logs (and periodic registry snapshots)
+    # streams to the lease-discovered obs collector through a bounded
+    # non-blocking spool.  False (default) = no relay machinery runs and
+    # every code path is bitwise the pre-plane behaviour (tier-1 asserted).
+    # Telemetry is never load-bearing: a dead collector sheds rows, the
+    # local JSONL continues untouched.
+    obs_net_host: str = ""  # bind address for this process's ObsCollector
+    # ("" = no collector in this process, the default; the collector
+    # process sets it and registers an `obs_collector` lease carrying
+    # addr:port, same discovery as the replay/serving planes)
+    obs_net_port: int = 0  # collector listen port; 0 = ephemeral — the
+    # lease payload advertises whatever was bound
+    obs_net_advertise: str = ""  # address relays dial ("" = the bind host;
+    # set it when binding a wildcard or behind NAT)
+    obs_net_http_port: int = 0  # collector's aggregated /metrics + /fleetz
+    # HTTP port; 0 = ephemeral (the lease advertises it as `http_port`)
+    obs_net_spool: int = 2048  # relay spool capacity in rows: the buffering
+    # horizon an unreachable collector is ridden out over; a FULL spool
+    # sheds the NEWEST row with a counted, rate-limited reasoned row — the
+    # env/learn loop never blocks on telemetry
+    obs_net_snapshot_s: float = 5.0  # tier-2 cost knob: seconds between
+    # relay registry snapshots (counters/gauges/histograms shipped as one
+    # frame).  0 = rows-only (tier 1): the relay costs one deque append per
+    # logged row and nothing else
+    obs_net_stale_s: float = 10.0  # collector: a host whose stream has been
+    # silent this long degrades the fleet with reason `stale_host`
+    obs_net_resolution_s: float = 1.0  # time-series store bucket width —
+    # points landing in the same bucket downsample to last-write-wins
+    obs_net_window: int = 600  # ring-buffered points kept per series
+    obs_net_tick_s: float = 2.0  # collector fold cadence: fleet health +
+    # SLO alert evaluation + `fleet_health` row emission interval
+    obs_net_learn_floor: float = 0.0  # SLO alert: fleet learner steps/s
+    # below this floor fires `slo_learn_floor`; 0 = rule off
+    obs_net_shed_ceiling: float = 0.0  # SLO alert: shed rate (rows/s over
+    # the window, from health shed_total) above this fires
+    # `slo_shed_spike`; 0 = rule off
+
+    # ---- resilience (utils/faults.py + parallel/supervisor.py; RESILIENCE.md) ----
+    fault_spec: str = ""  # chaos injection, e.g. "nan_loss@5,checkpoint_write@1"
+    # (point@n = fire on n-th call, point:p = seeded probability, bare point =
+    # always; RIA_FAULTS env var overrides)
+    fault_stall_s: float = 0.0  # injected stall duration for 'stalled_step'
+    max_nan_strikes: int = 3  # consecutive non-finite learn steps before abort
+    guard_snapshot_interval: int = 500  # learner steps between last-good
+    # in-memory state snapshots (the NaN-guard rollback target)
+    stall_timeout_s: float = 300.0  # watchdog: no completed learn step for
+    # this long -> 'stalled_step' fault row; 0 disables
+    io_retry_attempts: int = 3  # checkpoint/replay-snapshot IO tries (total)
+    io_retry_base_s: float = 0.05  # backoff base; doubles per retry + jitter
+    io_retry_max_s: float = 2.0
+    heartbeat_interval_s: float = 0.0  # per-host liveness file cadence; 0 off
+    heartbeat_timeout_s: float = 30.0  # peer file older than this = dead host
+    lease_skew_tolerance_s: float = 0.0  # extra staleness grace absorbing
+    # cross-host wall-clock skew: lease freshness compares the READER's clock
+    # against the WRITER's mtime, so a reader running 2s ahead inflates every
+    # age by 2s and can false-evict a healthy host.  Freshness becomes
+    # age <= heartbeat_timeout_s + this.  0 (default) = the exact pre-skew
+    # comparison, bitwise the previous PR
+    net_chaos_spec: str = ""  # seeded network-fault interposer over every
+    # plane socket (netcore/chaos.py), e.g.
+    # "delay_ms=50±20@p=1.0,corrupt_frame@p=0.01,partition=learner->replay1@t=10..12"
+    # — clauses: delay_ms / corrupt_frame / torn_write / blackhole /
+    # partition=src->dst / slow_read_bps, each taking @p=<prob> and
+    # @t=<a>..<b> windows.  RIA_NET_CHAOS env overrides; RIA_NET_CHAOS_SITE
+    # names this process for partition matching.  "" (default) = sockets are
+    # returned unwrapped — the off path is bitwise the previous PR
+
+    # ---- elasticity (parallel/elastic.py; docs/RESILIENCE.md "heal") --------------
+    max_weight_lag: int = 0  # actor staleness fence: pause acting (shed
+    # frames, 'actor_fenced' rows) once the adopted weight version trails the
+    # published one by more than this many publishes; 0 disables fencing but
+    # keeps the weight_version_lag gauge live (IMPACT, arXiv:1912.00167:
+    # unboundedly stale actors corrupt learning silently)
+    respawn_attempts: int = 3  # RoleSupervisor: restarts per dead actor role
+    # before permanent eviction ('actor_evicted' fault row)
+    respawn_base_s: float = 0.2  # respawn backoff base (doubles per attempt,
+    # deterministic jitter — the shared RetryPolicy schedule)
+    respawn_max_s: float = 5.0  # respawn backoff ceiling
+    # ---- learner failover (parallel/failover.py; docs/RESILIENCE.md) --------------
+    failover_standby: bool = False  # run a hot-standby learner: tail the
+    # active learner's lease and, on expiry, claim the learner role at
+    # learner_epoch+1 via the O_EXCL per-epoch claim file, restore the newest
+    # VALID checkpoint (+ CRC'd replay snapshot) and resume training at
+    # weight versions strictly above the deceased learner's.  Off (default)
+    # = no standby machinery runs; the training loop is bitwise the
+    # pre-failover path (tier-1 asserted).
+    failover_warm: bool = False  # warm standby: additionally tail the
+    # WeightMailbox so takeover starts from the freshest published params
+    # (restore only replays the delta since the last checkpoint).  Requires
+    # failover_standby.
+    failover_poll_s: float = 0.5  # standby lease-poll cadence in seconds
+    # (bounds claim latency at ~poll + heartbeat_timeout_s)
+    failover_takeover_deadline_s: float = 120.0  # how long a standby treats
+    # a claim marker ABOVE every learner-role lease as "takeover in
+    # progress" (a sibling won the race and is mid-restore) before presuming
+    # the claimant died without ever leasing the role and reopening the
+    # claim race.  A winner that advertises its lease immediately (the
+    # run_standby path) never runs this clock out; the deadline is the
+    # fallback for a winner killed between its O_EXCL claim and its first
+    # lease beat.
+
+    # ---- environment (SURVEY §2 row 2) -------------------------------------------
+    env_id: str = "toy:catch"  # "toy:catch", "toy:chain", or "atari:<Game>"
+    # ---- multi-game Ape-X (multitask/; docs/MULTITASK.md) -------------------------
+    games: str = ""  # comma-separated env ids ("toy:catch,toy:chain" or
+    # "atari:Pong,atari:Breakout"): run N games concurrently in ONE apex pod —
+    # a task-conditioned learner (game-id embedding into the IQN torso, one
+    # jitted dispatch for every game), per-game actor lanes, per-game replay
+    # shard blocks behind a game-interleaved sample schedule, and per-game
+    # eval/obs rows.  "" (default) = single-game `env_id`, bitwise-identical
+    # to the pre-multitask path (tier-1 asserted).  Single-host only.
+    multitask_schedule: str = "uniform"  # per-game learner-batch quota:
+    # "uniform" (equal rows per alive game), "loss" (proportional to each
+    # game's EMA of retired |TD| — games the learner struggles on get more
+    # replay), "mass" (proportional to per-game priority mass — the single
+    # global-tree distribution, and the only schedule the device sample
+    # frontier composes with, since its HBM draw IS mass-proportional)
+    history_length: int = 4  # frame-stack depth
+    frame_height: int = 84
+    frame_width: int = 84
+    action_repeat: int = 4  # with max over the last 2 raw frames
+    sticky_actions: float = 0.25  # SABER: repeat-previous-action probability
+    max_episode_frames: int = 108_000  # SABER 30-minute cap (raw frames)
+    full_action_set: bool = True  # SABER: all 18 ALE actions
+    terminal_on_life_loss: bool = False  # SABER: episode ends on game over only
+    reward_clip: float = 1.0  # clip rewards to [-c, c]; 0 disables
+
+    # ---- model (SURVEY §2 row 3) --------------------------------------------------
+    architecture: str = "iqn"  # "iqn" | "r2d2" (recurrent stretch goal)
+    hidden_size: int = 512
+    num_cosines: int = 64  # cosine tau-embedding features
+    noisy_sigma0: float = 0.5  # NoisyLinear initial sigma
+    dueling: bool = True
+    compute_dtype: str = "bfloat16"  # MXU-friendly compute; params stay fp32
+    # R2D2 (stretch) ----------------------------------------------------------------
+    lstm_size: int = 512
+    r2d2_burn_in: int = 40
+    r2d2_seq_len: int = 80  # trained steps per sequence (after burn-in)
+    r2d2_overlap: int = 40  # stride = burn_in + seq_len - overlap
+    r2d2_eta: float = 0.9  # sequence priority: eta*max|td| + (1-eta)*mean|td|
+    value_rescale_eps: float = 1e-3  # h(x) epsilon (R2D2 value rescaling)
+
+    # ---- IQN tau sampling (SURVEY §3.4) -------------------------------------------
+    num_tau_samples: int = 64  # N  : online-net tau draws in the loss
+    num_tau_prime_samples: int = 64  # N' : target-net tau draws in the loss
+    num_quantile_samples: int = 32  # K  : tau draws used for acting
+    kappa: float = 1.0  # Huber threshold
+
+    # ---- agent / optimisation (SURVEY §2 row 4) -----------------------------------
+    gamma: float = 0.99
+    multi_step: int = 3  # n-step return length
+    batch_size: int = 32
+    sample_groups: int = 1  # anakin learner: stratified draws of batch_size
+    # consumed per learn step (one [G*B] GEMM, per-group IS normalisation,
+    # G-sequential priority write-back order) — the batch-64/128 TPU knob
+    # that keeps the reference's batch-32 PER stratum width (SURVEY §7
+    # "prioritized sampling throughput"; docs/SCALING.md)
+    learning_rate: float = 6.25e-5
+    adam_eps: float = 1.5e-4
+    max_grad_norm: float = 10.0  # 0 disables clipping
+    target_update_period: int = 8_000  # learner steps between hard target copies
+    learn_start: int = 20_000  # transitions stored before learning begins
+    frames_per_learn: int = 4  # env frames per SAMPLED learner batch (the
+    # single-process / apex interleave cadence; was named `replay_ratio`
+    # originally — renamed because that name now means batch REUSE below,
+    # matching the literature's updates-per-sample sense)
+    replay_ratio: int = 1  # learner passes per sampled batch (K).  1
+    # (default) = the PR-11 path, bitwise: one SGD pass per sample.  K > 1
+    # re-uses each device-staged batch K times inside ONE fori_loop'd XLA
+    # executable (no K-fold dispatch), with an IMPACT-style clip
+    # (arXiv:1912.00167) on reuse passes 2..K: per-row importance ratios of
+    # the current Boltzmann policy (softmax over mean-of-tau q-values at the
+    # taken action) against the pass-1 behavior snapshot — evaluated under
+    # one shared ratio key, so zero parameter drift means ratio == 1 exactly
+    # — are clipped to [1/reuse_clip, reuse_clip] and scale the IS weights,
+    # so stale re-consumption can't blow up the IQN loss.  Priorities and
+    # the finite guard come from the FINAL pass, written back once per
+    # sample, so the WritebackRing still sees one entry per sample.  This is
+    # the actor-bound -> device-bound knob: learn_steps/s scales ~K at fixed
+    # env-frames/s (docs/PERFORMANCE.md "Replay reuse"; RUNBOOK verdict
+    # map).  Implemented for the single-process and apex IQN loops
+    # (multitask included); the r2d2/anakin loops reject K > 1.
+    reuse_clip: float = 2.0  # IMPACT clip bound c for reuse passes: per-row
+    # ratios outside [1/c, c] are clipped (and counted — learn rows carry
+    # the per-sample mean clip fraction, the K-too-high early warning)
+    t_max: int = 200_000_000  # total env frames of training budget
+
+    # ---- prioritized replay (SURVEY §2 rows 5-6) ----------------------------------
+    memory_capacity: int = 1_000_000
+    prefetch_depth: int = 2  # learner batch pipeline depth; 0 disables
+    writeback_depth: int = 2  # priority write-back ring depth K: step t's
+    # priorities are materialized + written to the replay only while step
+    # t+K executes on device (utils/writeback.py), and the NaN/Inf guard is
+    # checked at the same boundary — the learner hot path issues zero
+    # blocking device->host transfers per step.  Priorities (and the guard)
+    # lag by exactly K steps, the staleness Ape-X already tolerates
+    # (arXiv:1803.00933).  0 = seed behaviour: one blocking sync per step.
+    # docs/PERFORMANCE.md has tuning guidance.
+    device_sampling: bool = False  # device-resident sample frontier
+    # (replay/frontier.py): mirror every replay shard's tree-space priority
+    # vector into HBM, draw stratified index batches + IS weights with one
+    # fused XLA kernel, assemble frames host-side at those indices via the
+    # sample-ahead pusher, and retire priority write-backs directly into the
+    # mirror (host sum-trees become the cold path, reconciled at ring
+    # drains).  Off (default) keeps the PR-5 host sampling path bitwise
+    # intact.  Single-host apex/apex_r2d2 loops only (multi-host falls back
+    # to host sampling with a logged notice).  docs/PERFORMANCE.md.
+    sample_ahead_depth: int = 2  # ready batches the sample-ahead pusher
+    # stages ahead of the learner (its bounded queue depth); 0 disables the
+    # frontier exactly like device_sampling=false
+    priority_exponent: float = 0.5  # omega
+    priority_weight: float = 0.4  # beta_0, annealed to 1 over training
+    priority_eps: float = 1e-6
+    replay_shards: int = 1  # host-DRAM shards (Redis-shard equivalent)
+    use_native_sumtree: bool = True  # C++ core; falls back to NumPy if unbuilt
+
+    # ---- Ape-X topology (SURVEY §2 rows 7-8) --------------------------------------
+    role: str = "single"  # "single" | "apex" | "anakin" (HBM-resident replay)
+    num_actors: int = 1  # actor loops (vector-env lanes per loop below)
+    actor_id: int = 0
+    num_envs_per_actor: int = 16  # batched vector-env width per actor loop
+    weight_publish_interval: int = 400  # learner steps between weight publishes
+    weight_poll_interval: int = 400  # actor frames between weight pulls
+    device_frame_stack: bool = True  # apex actors: keep the frame stack on
+    # device (ship one [L,H,W] frame/tick, shift+reset inside the jitted act
+    # step) instead of host-side FrameStacker shifting — 4x less transfer
+    # and no strided host copy; bit-identical stacks (tested)
+    fused_env: bool = True  # anakin + jaxgame:* envs: compile the env INTO
+    # the act->append->learn graph (zero per-tick host traffic); turn off to
+    # drive jax games through the host loop instead
+    anakin_segment_ticks: int = 64  # env ticks per fused-graph dispatch
+    pipelined_actor: bool = False  # overlap device inference with env stepping
+    # (one-tick action lag: the action executed at tick t was computed from
+    # the observation at t-1 — Podracer/SEED-style; replay stores the action
+    # actually executed, so transitions stay valid and only the behaviour
+    # policy is one tick stale)
+    initial_priority_from_actor: bool = True  # Ape-X: actors compute initial TD
+
+    # ---- device mesh / sharding (TPU-native; replaces Redis TCP, SURVEY §5) -------
+    mesh_shape: str = ""  # e.g. "dp=8" or "dp=4,actor=4"; "" = all devices dp
+    learner_devices: int = 0  # 0 = all devices are learner devices
+    bf16_weight_sync: bool = True  # cast params to bf16 for the actor broadcast
+    # ---- multi-host (jax.distributed over DCN; replaces remote Redis actors) ------
+    process_count: int = 1  # pod hosts running this SPMD program
+    process_id: int = 0  # this host's index in [0, process_count)
+    coordinator_address: str = ""  # host:port of process 0 (the Redis-host flag's heir)
+
+    # ---- serving (serving/; batched low-latency inference, docs/SERVING.md) ------
+    serve_batch_buckets: str = "8,16,32,64"  # padded batch sizes; one XLA
+    # executable per bucket (rounded up to actor-device multiples at runtime)
+    serve_deadline_ms: float = 5.0  # max coalescing wait past the oldest request
+    serve_queue_bound: int = 256  # bounded request queue; full = shed
+    serve_swap_poll_s: float = 2.0  # checkpoint-watcher poll interval (hot-swap)
+    serve_mode: str = "greedy"  # "greedy" (noise off) | "noisy" (eval_noisy-style)
+    serve_metrics_interval_s: float = 5.0  # seconds between 'serve' JSONL rows
+
+    # ---- quantized inference + compressed weight distribution -----------------
+    # (utils/quantize.py; QuaRL arXiv:1910.01055; docs/PERFORMANCE.md
+    # "quantization", docs/SERVING.md config table)
+    serve_quantize: str = "off"  # "off" | "int8" | "fp8": quantized policy
+    # inference in serving/ engines AND the apex actor lanes.  int8 =
+    # symmetric per-channel weight quantization, dequantized inside each
+    # bucket's XLA executable (params ship/live int8); fp8 = e4m3 cast
+    # (needs ml_dtypes).  Guarded by the greedy-action agreement gate below;
+    # "off" (default) keeps today's fp32/bf16 paths bitwise intact.
+    quant_agreement_min: float = 0.99  # quantized params serve traffic only
+    # when their greedy actions agree with the fp32 policy on at least this
+    # fraction of the calibration batch; below -> fp32 fallback + one
+    # reasoned 'quant_fallback' row per failed gate
+    quant_calib_batch: int = 64  # calibration observations for the gate
+    # (serving engines synthesize frames unless handed real ones; apex
+    # actors draw the batch from replay observation statistics)
+    publish_compression: str = "off"  # "off" | "int8_delta": weight
+    # DISTRIBUTION compression (WeightMailbox / FleetRollout): a periodic
+    # full base snapshot (bf16 under ml_dtypes, else fp32) plus int8
+    # per-tensor-scaled deltas against the last reconstruction —
+    # subscribers rebuild bit-exact; >=3x fewer bytes/publish than fp32
+    # full (gated in `make perf-smoke`).  "off" = today's full publishes.
+    publish_base_interval: int = 10  # publishes between full base snapshots
+    # (the delta chain a late joiner replays is at most this long)
+
+    # ---- serving fleet (serving/fleet/; docs/SERVING.md "fleet") ------------------
+    fleet_min_engines: int = 1  # autoscaler floor
+    fleet_max_engines: int = 4  # autoscaler ceiling
+    fleet_max_inflight: int = 512  # router global inflight bound (admission
+    # backstop; per-class caps are shares of this)
+    fleet_qos_classes: str = "gold:50:0.5,std:200:0.35,batch:1000:0.15"
+    # priority-ordered deadline tiers, name:deadline_ms:inflight_share —
+    # a class is capped at its share of fleet_max_inflight AND lower classes
+    # cannot consume headroom still reserved by higher ones, so the shed
+    # order under global pressure is strictly lowest-class-first
+    fleet_default_class: str = "std"  # tenants with no explicit class
+    fleet_tenant_rate: float = 0.0  # per-tenant token-bucket refill
+    # (requests/s); 0 = unlimited — rate isolation off
+    fleet_tenant_burst: int = 64  # per-tenant token-bucket capacity
+    fleet_lease_interval_s: float = 0.5  # engine lease renewal cadence
+    fleet_lease_timeout_s: float = 3.0  # lease older than this = dead engine
+    fleet_scale_up_depth: float = 0.75  # mean engine queue fill -> scale OUT
+    fleet_scale_down_depth: float = 0.2  # ... -> scale IN
+    fleet_scale_p99_ms: float = 0.0  # p99 latency scale-out trigger; 0 = off
+    fleet_scale_patience: int = 3  # consecutive breaches before acting
+    fleet_scale_cooldown_s: float = 10.0  # hold after any scale action
+
+    # ---- cross-host serving plane (serving/net/; docs/SERVING.md "cross-host") ----
+    serve_net_host: str = ""  # bind address for this engine's framed-socket
+    # TransportServer ("" = cross-host serving OFF, the default: the fleet
+    # stays in-process and every code path is bitwise the pre-net behaviour;
+    # "0.0.0.0" binds all interfaces and advertises serve_net_advertise)
+    serve_net_port: int = 0  # listen port; 0 = ephemeral — the engine's
+    # lease payload advertises whatever was bound, so routers discover the
+    # endpoint through the lease files they already watch
+    serve_net_advertise: str = ""  # address peers dial ("" = the bind host;
+    # set it when binding a wildcard or behind NAT)
+    serve_net_max_frame_mb: int = 64  # frames declaring more than this are
+    # rejected BEFORE allocation with a reasoned error (serving/net/framing)
+    serve_net_probe_timeout_s: float = 0.5  # bounded per-probe budget for
+    # registry transport-liveness pings — one hung remote can never stall
+    # the discovery/eviction sweep past this
+    serve_net_probe_interval_s: float = 1.0  # per-engine probe cadence
+    serve_net_gossip_port: int = 0  # router-federation UDP bind; 0 = ephemeral
+    serve_net_gossip_peers: str = ""  # comma "host:port" list of peer
+    # routers; "" = solo router, federation off (no gossip socket at all)
+    serve_net_gossip_interval_s: float = 1.0  # snapshot broadcast cadence
+
+    # ---- cross-host replay plane (replay/net/; docs/RESILIENCE.md) ----------------
+    replay_net_host: str = ""  # bind address for this process's replay shard
+    # server ("" = no shard server in this process, the default; a shard
+    # server process sets it and registers a `replay_shard` lease carrying
+    # addr:port + shard range + epoch)
+    replay_net_port: int = 0  # listen port; 0 = ephemeral — the lease payload
+    # advertises whatever was bound, same discovery as serve_net_port
+    replay_net_advertise: str = ""  # address peers dial ("" = the bind host;
+    # set it when binding a wildcard or behind NAT)
+    replay_net_remote: bool = False  # learner/actor client gate: True swaps
+    # the in-process ShardedReplay for the cross-host plane (appends spool to
+    # AppendClients, samples pipeline through a SampleClient, priorities ride
+    # batched update frames).  False — the default — keeps replay in-process
+    # and every code path bitwise the pre-plane behaviour (tier-1 asserted).
+    replay_net_max_frame_mb: int = 64  # frames declaring more than this are
+    # rejected BEFORE allocation with a reasoned error (netcore/framing)
+    replay_net_spool: int = 4096  # actor-side spool capacity in ticks: the
+    # buffering horizon an unreachable shard server is ridden out over; a
+    # FULL spool sheds the newest tick with a reasoned row (actors never
+    # block on the wire)
+    replay_net_inflight: int = 4  # bounded in-flight append blocks per
+    # AppendClient — the backpressure window between spool and wire
+    replay_net_probe_timeout_s: float = 0.5  # bounded per-probe budget for
+    # plane liveness pings (one hung shard server never stalls the sweep)
+    replay_net_shard_base: int = 0  # first GLOBAL shard id this process's
+    # shard server owns — multitask pins game-major shard blocks to servers
+    # by spacing bases (shards-per-game apart), the multi-host multi-game
+    # composition
+    replay_net_shard_count: int = 0  # shards this server owns; 0 = all
+    # `replay_shards` (the single-server topology)
+    replay_net_ring_depth: int = 2  # server-side sample-ahead: pre-assembled,
+    # pre-ENCODED batches kept per connected sampler so `sample` answers
+    # from the event loop instead of queueing behind appends; 0 disables
+    # (every sample assembles on demand).  Staleness bound: a ring entry's
+    # priorities are at most ring_depth samples old.
+    replay_net_sample_many: int = 4  # batches per sample RPC once codec v2 is
+    # negotiated (one frame carries N pre-assembled batches, amortizing
+    # header/syscall/queue-wait costs); clamped to [1, 16] server-side
+    replay_net_depth_min: int = 1  # floor of the SampleClient's ADAPTIVE
+    # pipeline depth (in batches)
+    replay_net_depth_max: int = 8  # ceiling of the adaptive pipeline depth:
+    # the depth tracks ceil(rtt / consume-gap)+1 between these bounds, so a
+    # fast loopback link stops parking depth_max batches of staleness while
+    # a slow WAN link pipelines deep enough to never starve the learner
+    replay_net_shm_mb: int = 64  # per-sampler-connection shared-memory arena
+    # (replay/net/shm.py): colocated samplers receive batches as zero-copy
+    # views over a memfd the server writes once, skipping both socket
+    # kernel copies.  0 disables arenas (AF_UNIX byte path still applies);
+    # only consulted when `replay_net_local_fastpath` is on.
+    replay_net_local_fastpath: bool = True  # same-host fast path: the server
+    # listens on an abstract AF_UNIX socket beside its TCP port and local
+    # clients (host in {127.0.0.1, ::1, localhost}) dial it first, falling
+    # back to TCP on any miss.  Off = every connection uses TCP (bitwise
+    # the cross-host wire path, useful for debugging)
+
+    # ---- league / population-based training (league/; docs/LEAGUE.md) -------------
+    league_dir: str = ""  # shared league state directory (genomes, per-member
+    # weight mailboxes, exploit directives).  "" = league OFF everywhere — the
+    # default: no league code runs and every training loop is bitwise the
+    # pre-league path (tier-1 asserted).  The CONTROLLER (league/controller.py)
+    # and every MEMBER trainer point at the same directory.
+    league_population: int = 0  # members the league controller supervises
+    # (controller side; each member is a RoleSupervisor role with its own
+    # lease, genome, and mailbox pair).  0 = off; >= 2 required when on —
+    # a 1-member population has nobody to exploit (check_league_config).
+    league_member_id: int = -1  # THIS trainer process is league member k
+    # (trainer side: genome overlay at loop start, outbox weight publishes,
+    # exploit-directive polls at drain boundaries).  < 0 = not a member.
+    league_fitness_window: int = 4  # eval rows per member in the windowed
+    # human-normalized fitness (league/fitness.py); NaN/missing evals are
+    # skipped, a member with zero windowed evals has fitness None and is
+    # excluded from exploit on BOTH sides (missing-eval tolerance)
+    league_exploit_interval_s: float = 30.0  # controller seconds between
+    # truncation exploit/explore sweeps (bottom quantile copies a top-
+    # quantile member's weights bit-exactly + perturbs its genome)
+    league_bottom_quantile: float = 0.25  # fraction of ranked members that
+    # EXPLOIT (copy weights, perturb genome) each sweep
+    league_top_quantile: float = 0.25  # fraction of ranked members eligible
+    # as copy SOURCES; bottom + top must not overlap (<= 1.0)
+    league_perturb_factor: float = 1.2  # explore: continuous genes multiply
+    # or divide by this (seeded coin); must be > 0 (check_league_config)
+    league_resample_prob: float = 0.1  # explore: probability a perturbed
+    # gene is instead resampled fresh from its prior range
+
+    # ---- evaluation (SURVEY §2 row 9) ---------------------------------------------
+    eval_episodes: int = 10
+    eval_interval: int = 50_000  # learner steps between in-training evals; 0 = off
+    eval_noisy: bool = False  # noise off at eval time (§8 open question: default off)
+
+    # -------------------------------------------------------------------------------
+    @property
+    def state_shape(self) -> Tuple[int, int, int]:
+        """Observation shape fed to the network: HWC with stacked history as C.
+
+        NHWC is the TPU-native conv layout (XLA tiles the trailing C dim onto
+        the 128-lane axis), unlike the reference's NCHW torch layout.
+        """
+        return (self.frame_height, self.frame_width, self.history_length)
+
+    def replace(self, **kwargs: Any) -> "Config":
+        return dataclasses.replace(self, **kwargs)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+
+    @staticmethod
+    def from_json(text: str) -> "Config":
+        return Config(**json.loads(text))
+
+
+def _add_args(parser: argparse.ArgumentParser) -> None:
+    """Expose every Config field as a ``--flag`` (underscores become dashes)."""
+    for field in dataclasses.fields(Config):
+        name = "--" + field.name.replace("_", "-")
+        if field.type == "bool" or isinstance(field.default, bool):
+            parser.add_argument(
+                name,
+                type=lambda s: s.lower() in ("1", "true", "yes", "on"),
+                default=field.default,
+                metavar="BOOL",
+            )
+        else:
+            parser.add_argument(name, type=type(field.default), default=field.default)
+
+
+def parse_config(argv: Optional[list] = None, **overrides: Any) -> Config:
+    """Build a Config from CLI args (mirrors the reference's single argparse)."""
+    parser = argparse.ArgumentParser(description="TPU-native Rainbow-IQN Ape-X")
+    _add_args(parser)
+    ns = parser.parse_args(argv)
+    cfg = Config(**vars(ns))
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    return cfg

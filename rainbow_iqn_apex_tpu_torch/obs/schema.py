@@ -1,0 +1,232 @@
+"""The one JSONL row schema every role emits (docs/OBSERVABILITY.md).
+
+Every row written through ``utils.logging.MetricsLogger`` — train loops, apex
+drivers, serving, supervisor fault rows, obs timing/health/span rows — carries
+the same envelope:
+
+    t       seconds since the logger opened (monotone within a run)
+    ts      absolute wall-clock epoch seconds (satellite: cross-run alignment)
+    host    process index (multi-host attribution; 0 single-host)
+    run     run id
+    kind    row kind (the tables below)
+    schema  this module's SCHEMA_VERSION
+
+and is strict JSON: non-finite floats are sanitized BEFORE serialisation
+(``json.dumps(float("nan"))`` emits bare ``NaN``, which is not JSON and broke
+every downstream parser on the fault rows — NaN -> null, +/-inf -> the
+string sentinels "inf"/"-inf").
+
+Consumers (scripts/obs_report.py, scripts/lint_jsonl.py, the golden-schema
+test) validate against REQUIRED_KEYS; adding a key is backward-compatible,
+removing or renaming one means bumping SCHEMA_VERSION.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List
+
+SCHEMA_VERSION = 1
+
+# Envelope keys stamped by MetricsLogger on every row.
+ENVELOPE_KEYS = frozenset({"t", "ts", "host", "run", "kind", "schema"})
+
+# Per-kind required payload keys (beyond the envelope).  Kinds not listed
+# here are free-form but still get the envelope + sanitisation.
+REQUIRED_KEYS: Dict[str, frozenset] = {
+    "notice": frozenset({"event"}),  # reasoned one-shot operational notices
+    # (quant_fallback_multihost, device_sampling_fallback, ... — a path
+    # declined a feature and says why; counted, never health-degrading)
+    "actor": frozenset({"tick"}),  # chaos-soak actor-child cadence row
+    # (acted/lag/weight_version/produced/shed_frames — scripts/chaos_soak.py)
+    "adopt": frozenset({"tick", "version"}),  # out-of-process weight
+    # adoption (MailboxSubscriber consumers: version/prev_version/checksum/
+    # chain_len/resyncs — the bit-exactness witness chaos_soak asserts)
+    "learn": frozenset({"step", "frames", "loss"}),  # per-interval train row
+    # (replay-reuse runs — cfg.replay_ratio > 1 — additionally carry
+    # `replay_ratio`, `reuse_index` (last completed pass of the newest
+    # retired sample) and `clip_frac` (mean fraction of rows the IMPACT
+    # clip bounded per reuse pass); optional so K=1 rows stay byte-stable)
+    "eval": frozenset({"step", "score_mean"}),
+    "fault": frozenset({"event"}),  # supervisor/chaos events
+    "serve": frozenset({"requests", "batches", "shed"}),
+    "swap": frozenset(),  # rare load-bearing events; payload varies by source
+    "resume": frozenset({"step", "frames"}),
+    "health": frozenset({"status", "step"}),  # obs/health.py aggregator
+    "timing": frozenset({"step"}),  # StepTimer + span aggregates
+    "span": frozenset({"name", "span_id", "parent_id", "dur_ms"}),
+    "trace": frozenset({"event", "step"}),  # --trace-dir window open/close
+    # elasticity rows (parallel/elastic.py; docs/RESILIENCE.md "heal"):
+    "host_alive": frozenset({"alive_host", "epoch"}),  # lease revival edge
+    "shard_readmit": frozenset({"shard", "epoch"}),  # drop_shard reversed
+    "actor_fenced": frozenset({"lag", "max_lag"}),  # staleness fence edge
+    # (``action`` is "fence" or "resume"; frames shed ride in the gauges)
+    # serving-fleet rows (serving/fleet/; docs/SERVING.md "fleet"):
+    "route": frozenset({"accepted", "shed"}),  # router admission window
+    # (carries per-tenant accept/shed, shed_by_reason, per-engine
+    # depth/version snapshot, rerouted/lost counts)
+    "scale": frozenset({"action", "engines"}),  # one autoscaler decision
+    "rollout": frozenset({"event", "version"}),  # fleet weight rollout
+    # (event: publish/sync/converged/refused_backward)
+    # cross-host serving plane rows (serving/net/; docs/SERVING.md
+    # "cross-host"):
+    "net": frozenset({"event"}),  # transport lifecycle + stats (event:
+    # connect/disconnect/reconnect/probe_timeout/bad_frame carry `peer` and
+    # `engine`; event "stats" is the periodic per-peer snapshot with
+    # rtt_ms/reconnects/bytes_sent/bytes_recv — obs_report's `net:` input.
+    # RunHealth folds the flap events as window-degraded: a reconnect storm
+    # is capacity silently coming and going)
+    # cross-host replay plane rows (replay/net/; docs/RESILIENCE.md):
+    "replay_net": frozenset({"event"}),  # replay transport lifecycle +
+    # stats (event: connect/disconnect/reconnect/probe_timeout/bad_frame/
+    # spool_shed/peer_discovered/peer_dead/peer_readmit/stale_lease_ignored/
+    # snapshot/snapshot_failed/restored/restore_failed carry `peer`/`server`;
+    # event "stats" is the periodic plane snapshot with peers/dead_peers/
+    # size/rtt_ms/spool_depth/acked_rows/shed_ticks/fenced_rows/batches/
+    # updates_sent — obs_report's `replaynet:` input.  RunHealth folds the
+    # flap + shed events as window-degraded, same story as `net`)
+    "gossip": frozenset({"peers"}),  # router-federation health: declared
+    # peers vs fresh/stale snapshot counts + sent/received/bad_frames —
+    # a federated router whose peers all read stale is dispatching blind
+    # quantization rows (utils/quantize.py; docs/PERFORMANCE.md "quant"):
+    "publish": frozenset({"version", "bytes"}),  # one weight publish
+    # (carries bytes_fp32 + mode ("int8"/"fp8"/"bf16"/"fp32") + quant_active
+    # so bytes-saved is computable per row)
+    "quant": frozenset({"event"}),  # agreement-gate outcome (event "gate"
+    # carries agreement/threshold/mode/active)
+    "quant_fallback": frozenset({"reason"}),  # the gate REFUSED quantized
+    # params (reason e.g. agreement_below_min; carries agreement/threshold)
+    # pipeline tracing rows (obs/pipeline_trace.py; docs/OBSERVABILITY.md
+    # "tracing"):
+    "span_link": frozenset({"stage", "trace_id", "span_id", "parent_id",
+                            "t0", "dur_ms"}),  # one sampled causal span
+    # (trace_id is "<kind><host>-<unit>", identical across processes for the
+    # same logical unit — the cross-host flow key scripts/trace_export.py
+    # turns into Perfetto flow arrows; optional `links` lists other trace
+    # ids this span consumed, e.g. a learn step's sampled append ticks)
+    # multi-game rows (multitask/; docs/MULTITASK.md):
+    "games": frozenset({"step", "games"}),  # periodic per-game breakdown
+    # (per-game learn share / replay occupancy / latest eval score keyed by
+    # env id, plus suite hn_median/hn_mean aggregates; `eval` rows carry a
+    # ``game`` key per game in multi-game runs)
+    "eval_mt": frozenset({"step", "hn_median", "hn_mean"}),  # one suite
+    # aggregate per multi-game eval pass (human-normalized median/mean over
+    # the played games — the Atari-57 reporting convention)
+    # league rows (league/; docs/LEAGUE.md):
+    "league": frozenset({"event"}),  # population-based training events +
+    # status.  event "status" is the periodic per-member table (members=
+    # {id: {fitness, generation, exploits, restarts, state, ...}}, alive,
+    # exploit_events, collapsed — obs_report's `league:` input; RunHealth
+    # degrades on collapsed=True); event "exploit" is one weight copy
+    # (member/source/generation/digest/genome); "adopt" is the loser-side
+    # confirmation (digest-asserted); "exploit_skipped"/"adopt_refused"
+    # carry a reasoned `reason`; "evicted" is a member's permanent death
+    # learner-failover rows (parallel/failover.py; docs/RESILIENCE.md
+    # "learner failover"):
+    "failover": frozenset({"event"}),  # standby/takeover lifecycle (event:
+    # claim/holdoff/takeover/restore/fenced_stale/zombie_exit.  "claim" is
+    # one O_EXCL role-epoch race outcome — carries epoch + won, losers add
+    # a reasoned `reason` and re-arm; "holdoff" is a standby deferring to a
+    # sibling's claimed-but-not-yet-leased takeover (epoch/lease_epoch/
+    # deadline_s — the dual-takeover guard, once per episode); "restore"
+    # carries restore_s (+ step/warm) for the recovery-latency split;
+    # "takeover" carries epoch/mttr_s/warm — RunHealth folds it
+    # window-degraded until the first clean post-takeover learn row;
+    # "fenced_stale" carries `surface` (publish/mailbox/writeback/
+    # replay_net/league) + the refused epoch — the zombie-learner refusal
+    # witness obs_report's `failover:` section counts; "zombie_exit" is the
+    # terminal edge — the superseded incarnation observed the successor's
+    # claim (fence_epoch) and exited its train loop)
+    "lag": frozenset({"step"}),  # periodic lag-attribution row: per-metric
+    # window percentiles of the always-on lag_* histograms (sample age at
+    # learn time, ring retirement, router dispatch, batcher slot wait) plus
+    # publish_adopt_ms_by_consumer and the max_weight_lag-derived
+    # publish_adopt_budget_ms RunHealth folds breaches against
+    # live fleet telemetry rows (obs/net/; docs/OBSERVABILITY.md "Live
+    # fleet telemetry"):
+    "obs_net": frozenset({"event"}),  # telemetry-plane lifecycle + stats
+    # (relay side: connect/disconnect/reconnect/spool_shed carry `relay` +
+    # `collector`, "stats" is the periodic spool/sent/shed snapshot;
+    # collector side: relay_hello/relay_gone/collector_stop carry
+    # `collector`: true.  RunHealth folds the relay flap + shed events as
+    # window-degraded, same story as `net`/`replay_net` — live visibility
+    # is churning even though the local JSONL is untouched)
+    "alert": frozenset({"alert", "state"}),  # one SLO edge from the
+    # collector's alert engine (obs/net/alerts.py): state firing/resolved,
+    # `target` is "host/role", `value`/`limit`/`why` make the row
+    # self-contained — alert rows are incidents, not levels
+    "fleet_health": frozenset({"status", "hosts"}),  # the collector's
+    # periodic fleet fold: aggregate status (worst host wins), per-target
+    # status/reasons/staleness under `hosts`, offenders NAMED per
+    # host/role, hosts_total/hosts_stale/alerts_firing gauges riding along
+    "net_chaos": frozenset({"fault"}),  # one injected network fault edge
+    # from the netcore/chaos.py interposer (delay/corrupt/torn_write/
+    # blackhole/partition/slow_read), carrying `site` (this process's
+    # logical name), `peer` (the far end) and `n` (cumulative count for
+    # that fault/peer pair; rows rate-limited to power-of-two counts) —
+    # soak assertions match recoveries to the faults that CAUSED them
+}
+
+HEALTH_STATUSES = ("ok", "degraded", "failing")
+
+# THE registry of known row kinds.  Every ``kind`` this repo emits must be
+# a REQUIRED_KEYS entry (free-form payloads register with an empty set) —
+# the config-drift analyzer (analysis/configcheck.py) enforces the
+# emission side statically, and lint_jsonl enforces the consumption side
+# with ``require_known_kind=True``, so a new kind can never be valid in
+# one place and unknown in the other.
+KNOWN_KINDS = frozenset(REQUIRED_KEYS)
+
+
+def sanitize(value: Any) -> Any:
+    """Recursively make ``value`` strict-JSON serialisable: non-finite floats
+    become null (NaN) or the "inf"/"-inf" string sentinels, numpy scalars
+    collapse to Python scalars, arrays to lists.  Idempotent."""
+    if isinstance(value, float):
+        if math.isnan(value):
+            return None
+        if math.isinf(value):
+            return "inf" if value > 0 else "-inf"
+        return value
+    if isinstance(value, (str, int, bool)) or value is None:
+        return value
+    if isinstance(value, dict):
+        return {str(k): sanitize(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [sanitize(v) for v in value]
+    # numpy scalars / 0-d arrays expose item(); ndarrays expose tolist()
+    item = getattr(value, "item", None)
+    if item is not None and getattr(value, "ndim", 0) == 0:
+        return sanitize(item())
+    tolist = getattr(value, "tolist", None)
+    if tolist is not None:
+        return sanitize(tolist())
+    return str(value)  # last resort: never let dumps() raise mid-run
+
+
+def validate_row(
+    row: Dict[str, Any], require_known_kind: bool = False
+) -> List[str]:
+    """Schema errors for one parsed row ([] = valid).  Checks the envelope,
+    the schema version, and the kind's required payload keys.
+    ``require_known_kind=True`` (lint_jsonl) additionally rejects kinds
+    absent from KNOWN_KINDS — the registry IS the valid set."""
+    errors = []
+    for key in ("kind", "schema", "ts", "host", "run"):
+        if key not in row:
+            errors.append(f"missing envelope key '{key}'")
+    if row.get("schema") not in (None, SCHEMA_VERSION):
+        errors.append(f"unknown schema version {row.get('schema')!r}")
+    kind = row.get("kind")
+    if require_known_kind and kind not in KNOWN_KINDS:
+        errors.append(
+            f"unknown row kind {kind!r} (not registered in "
+            f"obs/schema.py REQUIRED_KEYS)"
+        )
+    for key in REQUIRED_KEYS.get(kind, frozenset()):
+        if key not in row:
+            errors.append(f"'{kind}' row missing required key '{key}'")
+    if kind == "health" and row.get("status") not in HEALTH_STATUSES:
+        errors.append(f"health status {row.get('status')!r} not in "
+                      f"{HEALTH_STATUSES}")
+    return errors
