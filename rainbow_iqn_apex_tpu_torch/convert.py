@@ -12,6 +12,13 @@ Layouts:
 - biases are the same [out] vectors.
 The trunk's flatten order (H, W, C) is kept by ``ConvTrunk`` itself, so no
 weight after it needs permuting.
+
+A whole learner state crosses too: ``from_flax_train_state`` takes the JAX
+``TrainState``'s pieces (params, target params, the optax
+``ScaleByAdamState`` moments ``mu`` / ``nu`` and ``count``, and ``step``,
+all as numpy) and returns the port's host state (``ops.learn.host_state``
+form, for ``ops.learn.load_host_state``); ``to_flax_train_state`` goes back.
+The Adam moments have the params' layout, so they convert as params do.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ _NOISY_HEADS = ("value_hidden", "value_out", "advantage_hidden", "advantage_out"
 
 
 def _t(a: Any) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True, order="C"))
 
 
 def _n(t: torch.Tensor) -> np.ndarray:
@@ -81,3 +88,29 @@ def to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
                 "b_sigma": _n(state[f"{name}.b_sigma"]),
             }
     return out
+
+
+def from_flax_train_state(params: Mapping[str, Any], target_params: Mapping[str, Any],
+                          mu: Mapping[str, Any], nu: Mapping[str, Any], count: Any,
+                          step: Any) -> Dict[str, Any]:
+    """The JAX learner state's pieces -> the port's host state."""
+    return {
+        "params": from_flax(params),
+        "target_params": from_flax(target_params),
+        "adam": {"mu": from_flax(mu), "nu": from_flax(nu), "count": int(np.asarray(count))},
+        "step": int(np.asarray(step)),
+    }
+
+
+def to_flax_train_state(host: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's host state -> {params, target_params, mu, nu, count, step}
+    with flax layouts and numpy leaves (count and step int32)."""
+    adam = host["adam"]
+    return {
+        "params": to_flax(host["params"]),
+        "target_params": to_flax(host["target_params"]),
+        "mu": to_flax(adam["mu"]),
+        "nu": to_flax(adam["nu"]),
+        "count": np.asarray(adam["count"], np.int32),
+        "step": np.asarray(host["step"], np.int32),
+    }

@@ -5,6 +5,11 @@
 //   q[b, a]            = mean_t quantiles[b, t, a]
 //   action[b]          = argmax_a q[b, a], the first index on ties
 //
+// Gather mode (the learner, given actions[b]): z[b, t] = quantiles[b, t, actions[b]]
+// and q; neither quantiles nor the argmax is written.  This is the
+// take_along_axis of rainbow_iqn_apex_tpu/ops/learn.py (:140, :152) fused
+// into the combine; its backward is csrc/dueling_head_bwd.cu.
+//
 // Replaces the dueling combine of rainbow_iqn_apex_tpu/models/iqn.py
 // (:94-101) and q_values / greedy_action (:105-111), XLA-fused on the TPU.
 // Everything is fp32, as in the JAX model.  The argmax keeps the first
@@ -25,7 +30,9 @@ __global__ void dueling_head_kernel(const float* __restrict__ value,  // [B*T] o
                                     const float* __restrict__ adv,    // [B*T, A]
                                     float* __restrict__ quantiles,    // [B*T, A]
                                     float* __restrict__ q,            // [B, A]
-                                    int* __restrict__ action,         // [B]
+                                    int* __restrict__ action,         // [B] or null
+                                    const int* __restrict__ take,     // [B] or null
+                                    float* __restrict__ z,            // [B*T] (gather)
                                     int T, int A) {
     extern __shared__ float smem[];  // [T*A] quantiles of this row, then [A] means
     float* qs = smem;
@@ -35,22 +42,26 @@ __global__ void dueling_head_kernel(const float* __restrict__ value,  // [B*T] o
 
     for (int t = threadIdx.x; t < T; t += blockDim.x) {
         const float* ar = adv + (row0 + t) * A;
-        float* out = quantiles + (row0 + t) * A;
+        float* out = quantiles == nullptr ? nullptr : quantiles + (row0 + t) * A;
         if (value != nullptr) {
             float s = 0.f;
             for (int a = 0; a < A; ++a) s += ar[a];
             const float mean = s / (float)A;
             const float v = value[row0 + t];
             for (int a = 0; a < A; ++a) {
-                const float z = (v + ar[a]) - mean;
-                qs[t * A + a] = z;
-                out[a] = z;
+                const float zq = (v + ar[a]) - mean;
+                qs[t * A + a] = zq;
+                if (out != nullptr) out[a] = zq;
             }
         } else {
             for (int a = 0; a < A; ++a) {
                 qs[t * A + a] = ar[a];
-                out[a] = ar[a];
+                if (out != nullptr) out[a] = ar[a];
             }
+        }
+        if (take != nullptr) {  // an action out of range gathers NaN, as jnp's fill mode does
+            const int a = take[b];
+            z[row0 + t] = (a >= 0 && a < A) ? qs[t * A + a] : __int_as_float(0x7fc00000);
         }
     }
     __syncthreads();
@@ -62,7 +73,7 @@ __global__ void dueling_head_kernel(const float* __restrict__ value,  // [B*T] o
         q[(size_t)b * A + a] = mean;
     }
     __syncthreads();
-    if (threadIdx.x == 0) {
+    if (threadIdx.x == 0 && action != nullptr) {
         int best = 0;
         float best_v = qm[0];
         for (int a = 1; a < A; ++a) {
@@ -79,13 +90,15 @@ __global__ void dueling_head_kernel(const float* __restrict__ value,  // [B*T] o
 }  // namespace
 
 PORT_API int port_dueling_head(const void* value, const void* adv, void* quantiles, void* q,
-                               void* action, int B, int T, int A, void* stream) {
+                               void* action, const void* take, void* z, int B, int T, int A,
+                               void* stream) {
     int threads = T > A ? T : A;
     threads = ((threads + 31) / 32) * 32;
     if (threads > 256) threads = 256;
     const size_t smem = (size_t)(T * A + A) * sizeof(float);
     dueling_head_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(value), static_cast<const float*>(adv),
-        static_cast<float*>(quantiles), static_cast<float*>(q), static_cast<int*>(action), T, A);
+        static_cast<float*>(quantiles), static_cast<float*>(q), static_cast<int*>(action),
+        static_cast<const int*>(take), static_cast<float*>(z), T, A);
     return (int)cudaGetLastError();
 }

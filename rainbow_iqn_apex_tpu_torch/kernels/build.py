@@ -29,7 +29,8 @@ import torch
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
-SOURCES = ("tau_embed.cu", "noisy_linear.cu", "dueling_head.cu")
+SOURCES = ("tau_embed.cu", "noisy_linear.cu", "dueling_head.cu", "quantile_huber.cu",
+           "tau_embed_bwd.cu", "noisy_linear_bwd.cu", "dueling_head_bwd.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -37,9 +38,13 @@ NVCC_FLAGS = (
 )
 
 launches: Dict[str, int] = {
+    "K1_quantile_huber": 0,
     "K2_tau_embed": 0,
+    "K2_tau_embed_bwd": 0,
     "K3_noisy_linear": 0,
+    "K3_noisy_linear_bwd": 0,
     "K4_dueling_head": 0,
+    "K4_dueling_head_bwd": 0,
 }
 
 _lock = threading.Lock()

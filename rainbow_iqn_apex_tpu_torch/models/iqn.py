@@ -5,7 +5,9 @@ conv trunk -> phi(s); tau ~ U[0, 1) -> 64-cosine embedding -> psi(tau);
 Hadamard phi * psi folded to [B*N, F]; dueling NoisyLinear value/advantage
 heads; Z_tau(s, a) per sampled tau.  The forward runs through the port's
 kernels: K2 (embedding + merge), K3 (the four NoisyLinear GEMMs) and K4 (the
-dueling combine with the tau-mean and the greedy argmax).
+dueling combine with the tau-mean and the greedy argmax).  The learner's
+``gather`` runs the same network to the quantiles at given actions (K4's
+gather mode), differentiably: K2-bwd, K3-bwd and K4-bwd are the backward.
 
 The bf16 rounding points are the JAX model's: obs * (1/255), the conv
 outputs, the cos features, the embedding and its bias add and phi * psi
@@ -20,7 +22,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from rainbow_iqn_apex_tpu_torch.kernels.dueling_head import dueling_head
+from rainbow_iqn_apex_tpu_torch.kernels.dueling_head import DuelingGatherFn, dueling_head
 from rainbow_iqn_apex_tpu_torch.models.layers import (
     ConvTrunk,
     CosineTauEmbedding,
@@ -47,6 +49,8 @@ class RainbowIQN(nn.Module):
     noise:  with ``use_noise``, a dict layer name -> (eps_in, eps_out)
             standard normals to override the draw (tests), else drawn from
             ``generator`` per NoisyLinear per call
+    noisy:  overrides ``use_noise`` for this call (the learner's module
+            acts with noise off at evaluation)
     """
 
     def __init__(self, num_actions: int, state_shape: Tuple[int, int, int],
@@ -90,11 +94,12 @@ class RainbowIQN(nn.Module):
     def sample_noise(self, generator: Optional[torch.Generator]) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
         return {name: getattr(self, name).sample_noise(generator) for name in self.noisy_names}
 
-    def forward(self, obs: torch.Tensor, num_taus: int,
-                taus: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None,
-                noise: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
-                ) -> IQNOutput:
+    def _heads(self, obs: torch.Tensor, num_taus: int, taus: Optional[torch.Tensor],
+               generator: Optional[torch.Generator],
+               noise: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]],
+               noisy: Optional[bool]):
+        """Trunk, K2 and the K3 heads: (value [B*N, 1] or None, adv [B*N, A], taus).
+        Draws taus, then each layer's noise, from ``generator``."""
         batch = obs.shape[0]
         if obs.dtype == torch.uint8:
             obs = obs.to(self.compute_dtype) * self.inv255
@@ -102,20 +107,39 @@ class RainbowIQN(nn.Module):
         if taus is None:
             taus = torch.rand((batch, num_taus), generator=generator, device=obs.device)
         h = self.tau_embed(taus, phi)  # K2: [B*N, F]
-        if self.use_noise and noise is None:
+        use_noise = self.use_noise if noisy is None else noisy
+        if use_noise and noise is None:
             noise = self.sample_noise(generator)
-        eps = noise if self.use_noise else {}
+        eps = noise if use_noise else {}
 
         def head(name: str) -> torch.Tensor:
             hidden = getattr(self, f"{name}_hidden")(h, eps.get(f"{name}_hidden"), relu=True)
             return getattr(self, f"{name}_out")(hidden, eps.get(f"{name}_out"))
 
         if self.dueling:
-            value, adv = head("value"), head("advantage")
-        else:
-            value, adv = None, head("q")
+            return head("value"), head("advantage"), taus
+        return None, head("q"), taus
+
+    def forward(self, obs: torch.Tensor, num_taus: int,
+                taus: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
+                noisy: Optional[bool] = None) -> IQNOutput:
+        value, adv, taus = self._heads(obs, num_taus, taus, generator, noise, noisy)
         quantiles, q, action = dueling_head(value, adv, num_taus)  # K4
         return IQNOutput(quantiles, taus, q, action)
+
+    def gather(self, obs: torch.Tensor, num_taus: int, actions: torch.Tensor,
+               taus: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None,
+               noise: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The quantiles at ``actions`` [B] int32: (z [B, N], q [B, A], taus
+        [B, N]); z is differentiable in the parameters (K4 gather + K4-bwd),
+        q is not.  The learner's ``take_along_axis`` (ops/learn.py)."""
+        value, adv, taus = self._heads(obs, num_taus, taus, generator, noise, None)
+        z, q = DuelingGatherFn.apply(value, adv, actions, num_taus)
+        return z, q, taus
 
 
 def q_values(quantiles: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,10 @@ fp32 accumulation and fp32 NoisyLinear biases, fp32 parameters.
   H, W, C order, so the weights after it line up with the JAX model's.
 - The heavy parts run through the kernels of ``kernels/``: the tau
   embedding with its Hadamard merge (K2) and the NoisyLinear GEMMs (K3).
+  With gradients on (the learner) they run through ``torch.autograd``
+  Functions whose backward is a kernel too (K2-bwd, K3-bwd); acting under
+  ``no_grad`` / ``inference_mode`` calls the forward kernels directly.
+  The convolutions' backward is cuDNN's, by autograd.
 """
 
 from __future__ import annotations
@@ -21,8 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rainbow_iqn_apex_tpu_torch.kernels.noisy_linear import noisy_linear
-from rainbow_iqn_apex_tpu_torch.kernels.tau_embed import tau_embed
+from rainbow_iqn_apex_tpu_torch.kernels.noisy_linear import NoisyLinearFn, noisy_linear
+from rainbow_iqn_apex_tpu_torch.kernels.tau_embed import TauEmbedFn, tau_embed
 
 Noise = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -32,6 +36,11 @@ CONV_SPECS = ((32, 8, 4), (64, 4, 2), (64, 3, 1))  # (features, kernel, stride)
 def _f(x: torch.Tensor) -> torch.Tensor:
     """Factorised-noise squashing f(x) = sign(x) * sqrt(|x|)."""
     return torch.sign(x) * torch.sqrt(torch.abs(x))
+
+
+def _tracked(*tensors: torch.Tensor) -> bool:
+    """True when autograd records this call (the learner's online pass)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 class NoisyLinear(nn.Module):
@@ -65,10 +74,13 @@ class NoisyLinear(nn.Module):
         cdt = self.compute_dtype
         xc = x.to(cdt)
         if eps is None:
-            return noisy_linear(xc, self.w_mu.to(cdt), self.b_mu, relu=relu)
-        return noisy_linear(
-            xc, self.w_mu.to(cdt), self.b_mu, self.w_sigma.to(cdt), self.b_sigma,
-            _f(eps[0]), _f(eps[1]), relu=relu)
+            args = (xc, self.w_mu.to(cdt), self.b_mu, None, None, None, None)
+        else:
+            args = (xc, self.w_mu.to(cdt), self.b_mu, self.w_sigma.to(cdt), self.b_sigma,
+                    _f(eps[0]), _f(eps[1]))
+        if _tracked(x, self.w_mu):
+            return NoisyLinearFn.apply(*args, relu)
+        return noisy_linear(*args, relu=relu)
 
 
 class CosineTauEmbedding(nn.Module):
@@ -87,7 +99,10 @@ class CosineTauEmbedding(nn.Module):
 
     def forward(self, taus: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
         cdt = self.compute_dtype
-        return tau_embed(taus, self.embed.weight.to(cdt), self.embed.bias, phi.to(cdt))
+        args = (taus, self.embed.weight.to(cdt), self.embed.bias, phi.to(cdt))
+        if _tracked(phi, self.embed.weight):
+            return TauEmbedFn.apply(*args)
+        return tau_embed(*args)
 
 
 def trunk_features(height: int, width: int) -> int:

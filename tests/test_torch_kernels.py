@@ -1,5 +1,7 @@
 """The port's kernels (rainbow_iqn_apex_tpu_torch.kernels): K2 tau embed,
-K3 noisy linear, K4 dueling head.
+K3 noisy linear, K4 dueling head, and the learner's K1 quantile-Huber and
+the backward kernels of K2, K3 and K4 (their twins are held against
+jax.grad in tests/test_torch_learn.py and tests/test_torch_losses.py).
 
 On the CPU each wrapper must run its plain twin (and count no launch), and
 each plain twin must match its JAX counterpart: K2 against
@@ -14,7 +16,11 @@ the card and skip where there is none.  Tolerances: fp32 paths 1e-5 abs/rel
 2^-8 relative); on the card, K2's bf16 output within 1e-2 abs/rel (a
 different fp32 accumulation order can move a bf16 rounding by one ulp),
 K3's fp32 output within 2e-3 abs/rel (tensor-core fp32 accumulation over up
-to 3136 terms in another order), K4 within 1e-5.
+to 3136 terms in another order), K4 within 1e-5.  The learner's kernels on
+the card: K1 1e-5 (fp32, summation order); K2-bwd and K3-bwd 1e-2 abs/rel
+on their bf16 results (fp32 sums in another order move a bf16 rounding by
+one ulp; K3-bwd splits the fp32 dy into two bf16 halves, exact to ~2^-17);
+K4's gather mode and K4-bwd 1e-6 (one fp32 product and subtraction).
 """
 
 import numpy as np
@@ -32,9 +38,27 @@ try:  # the JAX reference; where JAX is not installed only the cuda tests run
 except ImportError:
     jax = None
 from rainbow_iqn_apex_tpu_torch.kernels import launches
-from rainbow_iqn_apex_tpu_torch.kernels.dueling_head import dueling_head, dueling_head_plain
-from rainbow_iqn_apex_tpu_torch.kernels.noisy_linear import noisy_linear, noisy_linear_plain
-from rainbow_iqn_apex_tpu_torch.kernels.tau_embed import tau_embed, tau_embed_plain
+from rainbow_iqn_apex_tpu_torch.kernels.dueling_head import (
+    dueling_gather,
+    dueling_gather_bwd,
+    dueling_gather_bwd_plain,
+    dueling_gather_plain,
+    dueling_head,
+    dueling_head_plain,
+)
+from rainbow_iqn_apex_tpu_torch.kernels.noisy_linear import (
+    noisy_linear,
+    noisy_linear_bwd,
+    noisy_linear_bwd_plain,
+    noisy_linear_plain,
+)
+from rainbow_iqn_apex_tpu_torch.kernels.quantile_huber import quantile_huber, quantile_huber_plain
+from rainbow_iqn_apex_tpu_torch.kernels.tau_embed import (
+    tau_embed,
+    tau_embed_bwd,
+    tau_embed_bwd_plain,
+    tau_embed_plain,
+)
 from rainbow_iqn_apex_tpu_torch.models.layers import _f
 
 FP32 = dict(atol=1e-5, rtol=1e-5)
@@ -90,6 +114,33 @@ def test_wrappers_run_plain_twin_on_cpu_without_counting():
     for got, want in zip(dueling_head(v, a, 8), dueling_head_plain(v, a, 8)):
         assert torch.equal(got, want)
     assert dict(launches) == before  # the CPU path launched no kernel
+
+
+def test_learner_wrappers_run_plain_twins_on_cpu_without_counting():
+    before = dict(launches)
+    r = _rng(9)
+    o, t, tg = (_t(r.standard_normal((3, 8))), _t(r.random((3, 8))), _t(r.standard_normal((3, 6))))
+    for got, want in zip(quantile_huber(o, t, tg, 1.0), quantile_huber_plain(o, t, tg, 1.0)):
+        assert torch.equal(got, want)
+    taus, w, b, phi = _k2_inputs()
+    dh = _t(r.standard_normal((taus.size, w.shape[1])))
+    k2 = (_t(taus), _t(w.T), _t(b), _t(phi), dh)
+    for got, want in zip(tau_embed_bwd(*k2), tau_embed_bwd_plain(*k2)):
+        assert torch.equal(got, want)
+    x, p, e_in, e_out = _k3_inputs()
+    g = _t(r.standard_normal((x.shape[0], p["w_mu"].shape[1])))
+    k3 = (g, None, _t(x), _t(p["w_mu"].T), _t(p["w_sigma"].T), _f(_t(e_in)), _f(_t(e_out)))
+    for got, want in zip(noisy_linear_bwd(*k3), noisy_linear_bwd_plain(*k3)):
+        assert torch.equal(got, want)
+    v, a = _t(r.standard_normal((16, 1))), _t(r.standard_normal((16, 5)))
+    take = torch.tensor([1, 4], dtype=torch.int32)
+    for got, want in zip(dueling_gather(v, a, 8, take), dueling_gather_plain(v, a, 8, take)):
+        assert torch.equal(got, want)
+    dz = _t(r.standard_normal((2, 8)))
+    for got, want in zip(dueling_gather_bwd(dz, take, 5, True),
+                         dueling_gather_bwd_plain(dz, take, 5, True)):
+        assert torch.equal(got, want)
+    assert dict(launches) == before
 
 
 # --------------------------------------------- plain twins vs the JAX package
@@ -230,3 +281,80 @@ def test_kernels_refuse_fp32_operands_on_the_card(cuda):
     w = torch.zeros((4, 16), device=cuda)
     with pytest.raises(TypeError):
         noisy_linear(x, w, torch.zeros(4, device=cuda))
+
+
+# -------------------------------- the learner's kernels on the card vs twins
+def _counted(name, fn):
+    before = launches[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert launches[name] == before + 1
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,n_t", [(32, 64, 64), (3, 8, 5), (4, 100, 33)])
+@pytest.mark.parametrize("kappa", [0.5, 1.0])
+def test_k1_kernel_matches_plain(cuda, b, n, n_t, kappa):
+    r = _rng(20)
+    online, target = _t(r.standard_normal((b, n))).to(cuda), _t(r.standard_normal((b, n_t))).to(cuda)
+    target[0, :1] = online[0, :1]  # u == 0
+    target[-1, :1] = online[-1, :1] + kappa  # |u| == kappa: the quadratic branch
+    args = (online, _t(r.random((b, n))).to(cuda), target, kappa)
+    got = _counted("K1_quantile_huber", lambda: quantile_huber(*args))
+    for g, w in zip(got, quantile_huber_plain(*args)):
+        torch.testing.assert_close(g, w, **FP32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n,feat,cos", [(32, 64, 3136, 64), (5, 8, 256, 16),
+                                              (3, 7, 200, 32)])
+def test_k2_bwd_kernel_matches_plain(cuda, batch, n, feat, cos):
+    taus, w, b, phi = _k2_inputs(batch, n, feat, cos)
+    bf = torch.bfloat16
+    dh = _t(_rng(21).standard_normal((batch * n, feat)), bf).to(cuda)
+    args = (_t(taus).to(cuda), _t(w.T, bf).to(cuda), _t(b).to(cuda), _t(phi, bf).to(cuda), dh)
+    got = _counted("K2_tau_embed_bwd", lambda: tau_embed_bwd(*args))
+    for g, w_ in zip(got, tau_embed_bwd_plain(*args)):
+        torch.testing.assert_close(g.float(), w_.float(), **BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(2048, 3136, 512), (2048, 512, 18), (2048, 512, 1),
+                                   (40, 256, 20), (33, 40, 70)])
+@pytest.mark.parametrize("use_noise", [False, True], ids=["greedy", "noisy"])
+@pytest.mark.parametrize("relu", [False, True])
+def test_k3_bwd_kernel_matches_plain(cuda, m, k, n, use_noise, relu):
+    x, p, e_in, e_out = _k3_inputs(m, k, n)
+    bf = torch.bfloat16
+    xc, w_mu = _t(x, bf).to(cuda), _t(p["w_mu"].T, bf).to(cuda)
+    g = _t(_rng(22).standard_normal((m, n))).to(cuda)
+    y = noisy_linear_plain(xc, w_mu, _t(p["b_mu"]).to(cuda), relu=True) if relu else None
+    args = [g, y, xc, w_mu]
+    if use_noise:
+        args += [_t(p["w_sigma"].T, bf).to(cuda), _f(_t(e_in)).to(cuda), _f(_t(e_out)).to(cuda)]
+    got = _counted("K3_noisy_linear_bwd", lambda: noisy_linear_bwd(*args))
+    for g_, w_ in zip(got, noisy_linear_bwd_plain(*args)):
+        if w_ is None:
+            assert g_ is None
+        else:
+            torch.testing.assert_close(g_.float(), w_.float(), **BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dueling", [True, False])
+def test_k4_gather_and_bwd_kernels_match_plain(cuda, dueling):
+    r = _rng(23)
+    v = _t(r.standard_normal((32 * 64, 1))).to(cuda) if dueling else None
+    a = _t(r.standard_normal((32 * 64, 18))).to(cuda)
+    take = torch.from_numpy(r.integers(0, 18, 32).astype(np.int32)).to(cuda)
+    got = _counted("K4_dueling_head", lambda: dueling_gather(v, a, 64, take))
+    for g, w in zip(got, dueling_gather_plain(v, a, 64, take)):
+        torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
+    dz = _t(r.standard_normal((32, 64))).to(cuda)
+    got = _counted("K4_dueling_head_bwd", lambda: dueling_gather_bwd(dz, take, 18, dueling))
+    for g, w in zip(got, dueling_gather_bwd_plain(dz, take, 18, dueling)):
+        if w is None:
+            assert g is None
+        else:
+            torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
