@@ -27,7 +27,19 @@ and runs every phase, in this order:
 - ``learn_parity``: one full-width learn step on the card against the same
   step through the plain twins on the CPU;
 - ``train``: ``python -m rainbow_iqn_apex_tpu_torch.train`` on ``toy:catch``
-  for 4,000 frames, held to an evaluation score above 0.2.
+  for 4,000 frames, held to an evaluation score above 0.2;
+- ``kernels_replay``: the device replay's kernels (K5 PER draw over
+  1,000,000 priorities, K6 write-back, K7 append of 16 lanes of 84x84, K8
+  assembly at B 32, h 4, n 3) against their twins, timed the same way;
+- ``anakin``: ``DeviceReplay`` at the reference config's uncut 1,000,000
+  slots (16 lanes x 62,500, 7.06 GB of frames in device memory) filled
+  through K7 with synthetic frames, then 200 full-width fused
+  sample -> learn -> write-back steps (``build_device_learn``) under
+  ``forbid_host_sync()`` with exact launch counts per step, and a profile;
+- ``anakin_parity``: one fused step on the card against the same step
+  through the plain twins on the CPU;
+- ``train_anakin``: ``python -m rainbow_iqn_apex_tpu_torch.train --role
+  anakin`` on ``toy:catch`` for 4,000 frames, held to the same bar.
 
 One JSON object per line; the line before the last is the card's name and
 power limit from ``nvidia-smi``, and the last line is
@@ -67,6 +79,8 @@ K2B_TOL = dict(atol=1e-2, rtol=1e-2)  # bf16 results of fp32 sums in another ord
 K3B_TOL = dict(atol=1e-2, rtol=1e-2)  # bf16 dx / dW (fp32 sums, split dy); db fp32
 K4B_TOL = dict(atol=1e-6, rtol=1e-6)  # fp32, one product and one subtraction per element
 SERVE_KERNELS = ("K2_tau_embed", "K3_noisy_linear", "K4_dueling_head")  # the serving path's
+LEARN_KERNELS = ("K1_quantile_huber", "K2_tau_embed", "K2_tau_embed_bwd", "K3_noisy_linear",
+                 "K3_noisy_linear_bwd", "K4_dueling_head", "K4_dueling_head_bwd")  # a learn step's
 LEARN_STEPS = 200  # steady-state learn steps of the `learn` phase
 LEARN_WARMUP = 10  # steps before it (first-call costs, pinned buffers)
 LEARN_LANES = 16  # replay lanes, as configs/reference_atari_defaults.json
@@ -79,6 +93,17 @@ PROFILE_STEPS = 20
 LEARN_PATH_TOL = dict(rtol=2e-2, atol=PATH_TOL)
 LEARN_GNORM_RTOL = 2e-2  # the gradient's global norm, bf16 cotangents
 LEARN_UPDATE_RTOL = 5e-2  # each tensor's Adam update, relative L2 (bf16 gradients)
+REPLAY_REL = 1e-6  # K8's f32 reward, prob and weight; K6 at omega != 0.5 (powf vs torch.pow)
+K5_BOUNDARY = 1e-6  # K5 vs an fp64 cdf: ids may differ only within this * sum p of a boundary
+REPLAY_BATCH = 32  # B of the replay kernels, as the reference config
+ANAKIN_STEPS = 200  # fused steps of the `anakin` phase
+ANAKIN_FILL = 2000  # append ticks of 16 lanes before it (32,000 transitions)
+ANAKIN_FRAME_POOL = 64  # distinct synthetic ticks cycled through the fill
+# per fused step at sample_groups 1: one K5, K8 and K6 plus the learn step's kernels
+ANAKIN_PER_STEP = {"K1_quantile_huber": 1, "K2_tau_embed": 3, "K2_tau_embed_bwd": 1,
+                   "K3_noisy_linear": 12, "K3_noisy_linear_bwd": 4, "K4_dueling_head": 3,
+                   "K4_dueling_head_bwd": 1, "K5_replay_draw": 1, "K6_replay_writeback": 1,
+                   "K7_replay_append": 0, "K8_replay_assemble": 1}
 
 
 def emit(obj) -> None:
@@ -481,8 +506,8 @@ def phase_learn(torch, cfg):
     check(agent.device.type == "cuda", "the agent did not pick the card by default")
     sup = TrainSupervisor(cfg)
     ring = WritebackRing(cfg.writeback_depth)
-    committer = RingCommitter(ring, memory.update_priorities, sup, agent.load_snapshot)
     prefetcher = make_replay_prefetcher(memory, cfg, lambda: priority_beta(cfg, 0), agent.device)
+    committer = RingCommitter(ring, prefetcher.update_priorities, sup, agent.load_snapshot)
     losses, finite = [], []
 
     def one_step():
@@ -532,8 +557,8 @@ def phase_learn(torch, cfg):
               "losses_finite": bool(all(np.isfinite(losses)) and all(finite)),
               "retired": len(losses), "target_copies": copies, "target_moved": target_moved,
               "rollbacks": sup.rollbacks, "replay_fill_s": fill_s, "cuts": cuts})
-        for name, n in counts.items():
-            check(n > 0, f"{name} was never launched on the learn path")
+        for name in LEARN_KERNELS:
+            check(counts[name] > 0, f"{name} was never launched on the learn path")
         check(all(np.isfinite(losses)) and all(finite) and len(losses) >= LEARN_STEPS,
               "a non-finite loss in the learn phase")
         check(copies >= 1 and target_moved, "no target copy happened in the learn phase")
@@ -571,6 +596,23 @@ def profile_learn(torch, agent, prefetcher, ring, committer):
                   for k, t, c in rows[:15]]})
 
 
+def _learn_draws(torch, cfg, net, g):
+    """The taus and noise of one learn step's select, target and online
+    forwards, drawn on the CPU from ``g``: (for the CPU, for the card)."""
+    dev = torch.device("cuda", 0)
+    draws = {}
+    for name, n in (("select", cfg.num_quantile_samples), ("target", cfg.num_tau_prime_samples),
+                    ("online", cfg.num_tau_samples)):
+        taus = torch.rand((cfg.batch_size, n), generator=g)
+        noise = {k: (torch.randn(layer.in_features, generator=g),
+                     torch.randn(layer.out_features, generator=g))
+                 for k, layer in ((k, getattr(net, k)) for k in net.noisy_names)}
+        draws[name] = (taus, noise)
+    on_card = {k: (t.to(dev), {n: (a.to(dev), b.to(dev)) for n, (a, b) in nz.items()})
+               for k, (t, nz) in draws.items()}
+    return draws, on_card
+
+
 def phase_learn_parity(torch, cfg):
     """One full-width learn step through the kernels on the card against the
     same step through the plain twins on the CPU: same state (a few steps
@@ -596,17 +638,7 @@ def phase_learn_parity(torch, cfg):
     host = host_state(card)
     plain = load_host_state(init_train_state(cfg, 18, cfg.seed, device="cpu"), host)
     sample = memory.sample(cfg.batch_size, 0.4)
-    g = torch.Generator().manual_seed(SEED + 1)
-    draws = {}
-    for name, n in (("select", cfg.num_quantile_samples), ("target", cfg.num_tau_prime_samples),
-                    ("online", cfg.num_tau_samples)):
-        taus = torch.rand((cfg.batch_size, n), generator=g)
-        noise = {k: (torch.randn(layer.in_features, generator=g),
-                     torch.randn(layer.out_features, generator=g))
-                 for k, layer in ((k, getattr(plain.net, k)) for k in plain.net.noisy_names)}
-        draws[name] = (taus, noise)
-    on_card = {k: (t.to(dev), {n: (a.to(dev), b.to(dev)) for n, (a, b) in nz.items()})
-               for k, (t, nz) in draws.items()}
+    draws, on_card = _learn_draws(torch, cfg, plain.net, torch.Generator().manual_seed(SEED + 1))
     card, k_info = step(card, to_device_batch(sample, dev), draws=on_card)
     t0 = time.perf_counter()
     plain, p_info = step(plain, to_device_batch(sample, cpu), draws=draws)
@@ -643,37 +675,452 @@ def phase_train(torch):
     """The port's training CLI, in process: toy:catch with the scenario of
     tests/test_train_integration.py (_cfg), bf16 (the card's path takes no
     other compute dtype), 4,000 frames; the JAX test's own bar."""
+    _train_catch(torch, "single", "train")
+
+
+def _train_catch(torch, role, phase):
+    """``role``'s catch scenario (``catch_bar.argv``) at seed 7 through the
+    trainer's CLI entry, held to the JAX test's bar."""
     import contextlib
     import io
     import tempfile
 
+    from rainbow_iqn_apex_tpu_torch import catch_bar
     from rainbow_iqn_apex_tpu_torch.train import main as train_main
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_", dir=ROOT) as tmp:
-        argv = ["--role", "single", "--env-id", "toy:catch", "--compute-dtype", "bfloat16",
-                "--frame-height", "80", "--frame-width", "80", "--history-length", "2",
-                "--hidden-size", "128", "--num-cosines", "32", "--num-tau-samples", "8",
-                "--num-tau-prime-samples", "8", "--num-quantile-samples", "8",
-                "--batch-size", "32", "--learning-rate", "1e-3", "--adam-eps", "1e-8",
-                "--multi-step", "3", "--gamma", "0.9", "--memory-capacity", "8192",
-                "--learn-start", "512", "--frames-per-learn", "2",
-                "--target-update-period", "200", "--num-envs-per-actor", "8",
-                "--metrics-interval", "200", "--eval-interval", "0",
-                "--checkpoint-interval", "0", "--eval-episodes", "40", "--seed", "7",
-                "--results-dir", os.path.join(tmp, "results"),
-                "--checkpoint-dir", os.path.join(tmp, "ckpt"), "--max-frames", "4000"]
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{phase}_", dir=ROOT) as tmp:
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
-            summary = train_main(argv)
+            summary = train_main(catch_bar.argv(role, 7, tmp))
         elapsed = time.perf_counter() - t0
-    emit({"phase": "train", "env": "toy:catch", "frames": summary["frames"],
-          "learn_steps": summary["learn_steps"], "seconds": elapsed,
-          "frames_per_s": summary["frames"] / elapsed,
-          "learn_steps_per_s": summary["learn_steps"] / elapsed,
-          "eval_score_mean": summary["eval_score_mean"],
-          "train_return_mean": summary["train_return_mean"], "rollbacks": summary["rollbacks"]})
-    check(summary["eval_score_mean"] > 0.2, f"catch eval mean {summary['eval_score_mean']} <= 0.2")
-    check(summary["learn_steps"] > 1500, f"only {summary['learn_steps']} learn steps")
+    row = {"phase": phase, "env": "toy:catch", "frames": summary["frames"],
+           "learn_steps": summary["learn_steps"], "seconds": elapsed,
+           "frames_per_s": summary["frames"] / elapsed,
+           "learn_steps_per_s": summary["learn_steps"] / elapsed,
+           "eval_score_mean": summary["eval_score_mean"],
+           "train_return_mean": summary["train_return_mean"]}
+    if "rollbacks" in summary:
+        row["rollbacks"] = summary["rollbacks"]
+    emit(row)
+    check(summary["eval_score_mean"] > catch_bar.BAR,
+          f"{phase}: catch eval mean {summary['eval_score_mean']} <= {catch_bar.BAR}")
+    check(summary["learn_steps"] > catch_bar.MIN_LEARN_STEPS,
+          f"{phase}: only {summary['learn_steps']} learn steps")
+
+
+# ------------------------------------------------------------ device replay
+def _replay_ticks(np, rng, ticks, lanes, frame, p_term=0.05, p_trunc=0.02):
+    """Seeded synthetic experience for ``ticks`` append ticks, made in bulk:
+    (frames [ticks, L, H, W] uint8, actions, rewards, terminals,
+    truncations, actor |TD|)."""
+    terms = rng.random((ticks, lanes)) < p_term
+    return (rng.integers(0, 256, (ticks, lanes, *frame), dtype=np.uint8),
+            rng.integers(0, 18, (ticks, lanes)).astype(np.int32),
+            rng.normal(size=(ticks, lanes)).astype(np.float32), terms,
+            (rng.random((ticks, lanes)) < p_trunc) & ~terms,
+            (rng.random((ticks, lanes)) * 2).astype(np.float32))
+
+
+def _replay_of(cfg, seg, device):
+    from rainbow_iqn_apex_tpu_torch.replay.device import DeviceReplay
+
+    return DeviceReplay(
+        lanes=cfg.num_envs_per_actor, seg=seg, frame_shape=(cfg.frame_height, cfg.frame_width),
+        history=cfg.history_length, n_step=cfg.multi_step, gamma=cfg.gamma,
+        priority_exponent=cfg.priority_exponent, priority_eps=cfg.priority_eps, device=device)
+
+
+def phase_kernels_replay(torch, cfg):
+    """K5-K8 against their twins (on the same card tensors) at the replay's
+    full-size shapes: K5 over the config's 1,000,000 priorities (G 1 and 4,
+    B 32), K6 at B 32 with G 1 and 4, duplicate ids and zero slots, K7 with
+    16 lanes of 84x84 over a wrapping ring, K8 at B 32, h 4, n 3 (G 1 and 4,
+    young and wrapped rings).  The kernels line takes the main path's shapes
+    (G 1)."""
+    import numpy as np
+
+    from rainbow_iqn_apex_tpu_torch.kernels.replay_append import (
+        replay_append,
+        replay_append_plain,
+    )
+    from rainbow_iqn_apex_tpu_torch.kernels.replay_assemble import (
+        replay_assemble,
+        replay_assemble_plain,
+    )
+    from rainbow_iqn_apex_tpu_torch.kernels.replay_draw import replay_draw, replay_draw_plain
+    from rainbow_iqn_apex_tpu_torch.kernels.replay_writeback import (
+        replay_writeback,
+        replay_writeback_plain,
+    )
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    n, batch = cfg.memory_capacity, REPLAY_BATCH
+    eps, omega = cfg.priority_eps, cfg.priority_exponent
+    lanes, h, n_step = cfg.num_envs_per_actor, cfg.history_length, cfg.multi_step
+    hw = cfg.frame_height * cfg.frame_width
+    results = {}
+
+    # K5 ------------------------------------------------------------------
+    k = torch.arange(batch, device=dev, dtype=torch.float32)
+    for groups in (1, 4):
+        dyadic = torch.randint(0, 9, (n,), generator=gen, device=dev).float() / 8
+        u = torch.rand((groups, batch), generator=gen, device=dev)
+        u[-1, -1] = 1.0 - 2.0 ** -24  # rounds u up to the total: clipped onto N - 1
+        idx, total = replay_draw(dyadic, u)
+        want, want_total = replay_draw_plain(dyadic, u)
+        exact = bool(torch.equal(idx, want)) and float(total) == float(want_total)
+        clipped = int(idx[-1, -1]) == n - 1
+        dyadic_zero = not bool((dyadic[idx.reshape(-1)[:-1].long()] > 0).all())
+        p = torch.rand((n,), generator=gen, device=dev)
+        p[torch.rand((n,), generator=gen, device=dev) < 0.3] = 0.0
+        u = torch.rand((groups, batch), generator=gen, device=dev)
+        idx, total = replay_draw(p, u)
+        twin, _ = replay_draw_plain(p, u)
+        u_abs = (k + u) / batch * total
+        cdf64 = torch.cumsum(p.double(), 0)
+        ref = torch.searchsorted(cdf64, u_abs.double(), right=True).clamp(0, n - 1)
+        differ = idx.long() != ref
+        lo = torch.minimum(idx.long(), ref)[differ]
+        near = (u_abs.double()[differ] - cdf64[lo]).abs() <= K5_BOUNDARY * float(total)
+        random_zero = not bool((p[idx.long()] > 0).all())
+        torch.cuda.synchronize()
+        ok = exact and clipped and not dyadic_zero and not random_zero and bool(near.all())
+        nbytes = n * 4 + 2 * groups * batch * 4 + 4
+        bms, by = bound_ms(nbytes, n, FP32_FLOPS)
+        k_ms = time_ms(torch, lambda: replay_draw(p, u))
+        p_ms = time_ms(torch, lambda: replay_draw_plain(p, u))
+        lib_ms = time_ms(torch, lambda: torch.searchsorted(torch.cumsum(p, 0), u_abs, right=True))
+        emit({"phase": "kernels_replay", "kernel": "K5_replay_draw", "shape": [n, groups, batch],
+              "dyadic_exact": exact, "clip_to_last": clipped,
+              "zero_slot_drawn": dyadic_zero or random_zero,
+              "fp64_mismatches": int(differ.sum()),
+              "fp64_mismatches_near_boundary": int(near.sum()),
+              "twin_mismatches": int((idx != twin).sum()), "boundary_tol": K5_BOUNDARY,
+              "ok": ok, "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+              "bound_ms": bms, "bound_by": by})
+        check(ok, f"K5 (G={groups}) disagrees: dyadic exact {exact}, clip {clipped}, zero slot "
+                  f"drawn {dyadic_zero or random_zero}, far mismatches {int((~near).sum())}")
+        if groups == 1:
+            results["K5_replay_draw"] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms,
+                                             library_ms=lib_ms, bound_ms=bms, bound_by=by)
+
+    # K6 ------------------------------------------------------------------
+    base = torch.rand((n,), generator=gen, device=dev)
+    ids = torch.randint(0, 64, (4, batch), generator=gen, device=dev, dtype=torch.int32)
+    base[ids[0, :6].long()] = 0.0  # fenced slots, several of them drawn again
+    td = torch.rand((4 * batch,), generator=gen, device=dev) * 3
+    for groups in (4, 1):
+        got, got_max = base.clone(), torch.tensor(1.5, device=dev)
+        want, want_max = base.clone(), torch.tensor(1.5, device=dev)
+        args = (ids[:groups].contiguous(), td[:groups * batch].contiguous(), eps, omega)
+        replay_writeback(got, got_max, *args)
+        replay_writeback_plain(want, want_max, *args)
+        torch.cuda.synchronize()
+        ok = (bool(torch.equal(got, want)) and bool(torch.equal(got_max, want_max))
+              and bool((got[base == 0] == 0).all()))
+        nbytes = groups * batch * 4 * 4 + 8
+        bms, by = bound_ms(nbytes, 2 * groups * batch, FP32_FLOPS)
+        k_ms = time_ms(torch, lambda: replay_writeback(got, got_max, *args))
+        p_ms = time_ms(torch, lambda: replay_writeback_plain(want, want_max, *args))
+        emit({"phase": "kernels_replay", "kernel": "K6_replay_writeback",
+              "shape": [groups, batch],
+              "repeated_ids": int(groups * batch - ids[:groups].unique().numel()),
+              "exact": ok, "ok": ok, "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+              "bound_ms": bms, "bound_by": by})
+        check(ok, f"K6 (G={groups}) disagrees with its twin or resurrected a zero slot")
+        if groups == 1:
+            results["K6_replay_writeback"] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms,
+                                                  library_ms=None, bound_ms=bms, bound_by=by)
+
+    # K7 over a small wrapping ring of the config's lanes and frames --------
+    seg = 64
+    ring = _replay_of(cfg, seg, dev)
+    got, want = ring.init_state(), ring.init_state()
+    rng = np.random.default_rng(SEED + 12)
+    ticks = 2 * seg + 5
+    data = [torch.from_numpy(a).to(dev) for a in _replay_ticks(
+        np, rng, ticks, lanes, (cfg.frame_height, cfg.frame_width))]
+    for t in range(ticks):
+        tick = [a[t] for a in data]
+        if t % 3 == 0:
+            tick[-1] = None  # max-priority insertion on every third tick
+        ring.append(got, *tick)
+        replay_append_plain(want, *tick, want.pos, want.filled, h, n_step, eps, omega)
+        want.pos, want.filled = (want.pos + 1) % seg, min(want.filled + 1, seg)
+    torch.cuda.synchronize()
+    differing = [name for name in ("frames", "actions", "rewards", "terminals", "cuts",
+                                   "priority", "max_priority")
+                 if not torch.equal(getattr(got, name), getattr(want, name))]
+    tick = [a[0] for a in data]
+    pos, filled = got.pos, got.filled
+    k_ms = time_ms(torch, lambda: replay_append(got, *tick, pos, filled, h, n_step, eps, omega))
+    p_ms = time_ms(torch, lambda: replay_append_plain(want, *tick, pos, filled, h, n_step, eps,
+                                                      omega))
+    nbytes = lanes * (2 * hw + 2 * (4 + 4 + 1 + 1) + 4 + (h + 2) * 4 + 4)
+    bms, by = bound_ms(nbytes, lanes * 8, FP32_FLOPS)
+    emit({"phase": "kernels_replay", "kernel": "K7_replay_append",
+          "shape": [lanes, seg, cfg.frame_height, cfg.frame_width], "ticks": ticks,
+          "fields_differing": differing, "ok": not differing, "kernel_ms": k_ms,
+          "plain_ms": p_ms, "library_ms": None, "bound_ms": bms, "bound_by": by})
+    check(not differing, f"K7 disagrees with its twin on {differing}")
+    results["K7_replay_append"] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms,
+                                       library_ms=None, bound_ms=bms, bound_by=by)
+
+    # K8 on that (wrapped) ring and on a young one ---------------------------
+    young = ring.init_state()
+    for t in range(20):
+        ring.append(young, *[a[t] for a in data])
+    worst = 0.0
+    for name, state, groups in (("wrapped", got, 1), ("wrapped", got, 4), ("young", young, 1)):
+        ids = torch.randint(0, lanes * seg, (groups * batch,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        _, total = replay_draw(state.priority, state.priority.new_empty((0, 1)))
+        args = (state, ids, total, ring._gammas, 0.6, state.filled, h, n_step, batch)
+        a, b = replay_assemble(*args), replay_assemble_plain(*args)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(getattr(a, f), getattr(b, f))
+                    for f in ("obs", "next_obs", "action", "discount"))
+        rel = max(float(((getattr(a, f) - getattr(b, f)).abs()
+                         / getattr(b, f).abs().clamp_min(1e-30)).max())
+                  for f in ("reward", "prob", "weight"))
+        abs_err = max(float((getattr(a, f) - getattr(b, f)).abs().max())
+                      for f in ("reward", "prob", "weight"))
+        worst = max(worst, abs_err)
+        ok = exact and rel <= REPLAY_REL
+        m = groups * batch
+        frames_read = min(2 * h, h + n_step)  # obs and next_obs share h - n frames
+        nbytes = m * (frames_read * hw + 2 * h * hw + 4 + n_step * (4 + 1) + 2 * (h - 1)
+                      + 4 + 4 * 4 + 4)
+        bms, by = bound_ms(nbytes, m * n_step * 4, FP32_FLOPS)
+        k_ms = time_ms(torch, lambda: replay_assemble(*args))
+        p_ms = time_ms(torch, lambda: replay_assemble_plain(*args))
+        emit({"phase": "kernels_replay", "kernel": "K8_replay_assemble", "ring": name,
+              "shape": [groups, batch, cfg.frame_height, cfg.frame_width, h], "n_step": n_step,
+              "stacks_exact": exact, "max_rel_err": rel, "max_abs_err": abs_err,
+              "rel_tol": REPLAY_REL, "ok": ok, "kernel_ms": k_ms, "plain_ms": p_ms,
+              "library_ms": None, "bound_ms": bms, "bound_by": by})
+        check(ok, f"K8 ({name}, G={groups}) disagrees with its twin: stacks exact {exact}, "
+                  f"max rel {rel}")
+        if groups == 1 and name == "wrapped":
+            results["K8_replay_assemble"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=None,
+                                                 bound_ms=bms, bound_by=by)
+    results["K8_replay_assemble"]["max_abs_err"] = worst
+    return results
+
+
+def _anakin_cfg(cfg):
+    """The reference config with the `anakin` phases' one cut (printed)."""
+    return cfg.replace(target_update_period=LEARN_TARGET_PERIOD, role="anakin")
+
+
+def phase_anakin(torch, cfg):
+    """The full-width Anakin learner through the port's entry points:
+    ``DeviceReplay`` at the config's uncut capacity filled through
+    ``append`` (K7), then ANAKIN_STEPS ``build_device_learn`` steps under
+    ``forbid_host_sync()`` with the launch counts of every step, then a
+    profile of PROFILE_STEPS more."""
+    import numpy as np
+
+    from rainbow_iqn_apex_tpu_torch.agents.agent import put_frames
+    from rainbow_iqn_apex_tpu_torch.kernels import launches, reset_launches
+    from rainbow_iqn_apex_tpu_torch.ops.learn import init_train_state
+    from rainbow_iqn_apex_tpu_torch.replay.device import build_device_learn
+    from rainbow_iqn_apex_tpu_torch.train import priority_beta
+    from rainbow_iqn_apex_tpu_torch.utils import hostsync
+
+    cfg = _anakin_cfg(cfg)
+    lanes = cfg.num_envs_per_actor
+    seg = cfg.memory_capacity // lanes
+    frame = (cfg.frame_height, cfg.frame_width)
+    dev = torch.device("cuda", 0)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    replay = _replay_of(cfg, seg, None)  # cuda:0 by default
+    check(replay.device.type == "cuda", "the device replay did not pick the card by default")
+    ds = replay.init_state()
+    ring_bytes = torch.cuda.memory_allocated() - mem0
+    rng = np.random.default_rng(SEED + 13)
+    pool = rng.integers(0, 256, (ANAKIN_FRAME_POOL, lanes, *frame), dtype=np.uint8)
+    # per-tick scalars for every tick; the frames cycle through the pool
+    _, actions, rewards, terms, truncs, _ = _replay_ticks(np, rng, ANAKIN_FILL, lanes, (1, 1),
+                                                          p_term=0.01, p_trunc=0.002)
+    stored = ANAKIN_FILL * lanes
+    cuts = {"frames": "synthetic seeded uint8 (no emulator on the machine)",
+            "target_update_period": cfg.target_update_period,
+            "filled": f"{stored} of {cfg.memory_capacity} slots ({ANAKIN_FILL} ticks)",
+            "learn_start": f"{cfg.learn_start} (met: {stored} stored)"}
+
+    reset_launches()  # the main path: the fill, the warm-up and the steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(ANAKIN_FILL):
+        replay.append(ds, put_frames(pool[t % ANAKIN_FRAME_POOL], dev),
+                      put_frames(actions[t], dev), put_frames(rewards[t], dev),
+                      put_frames(terms[t], dev), put_frames(truncs[t], dev))
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    check(ds.filled == ANAKIN_FILL and launches["K7_replay_append"] == ANAKIN_FILL,
+          "the fill did not append every tick through K7")
+
+    ts = init_train_state(cfg, 18, cfg.seed)  # cuda:0 by default
+    fused = build_device_learn(cfg, 18, replay)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    beta = priority_beta(cfg, stored)
+    for _ in range(LEARN_WARMUP):
+        ts, ds, info = fused(ts, ds, gen, beta)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        target_before = torch.cat([p.flatten() for p in ts.target.parameters()])
+    step0 = ts.step
+    before = dict(launches)
+    losses, finite, lat_ms = [], [], []
+    t_run = time.perf_counter()
+    try:
+        with hostsync.forbid_host_sync():
+            for _ in range(ANAKIN_STEPS):
+                t = time.perf_counter()
+                ts, ds, info = fused(ts, ds, gen, beta)
+                losses.append(info["loss"])
+                finite.append(info["finite"])
+                lat_ms.append((time.perf_counter() - t) * 1e3)
+    except RuntimeError as e:  # CUDA's sync debug mode, or a HostSyncError
+        raise SmokeFailure(f"a host sync in the fused anakin steps: {e}")
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t_run
+    counts = dict(launches)
+    per_step = {name: (counts[name] - before[name]) / ANAKIN_STEPS for name in counts}
+    loss_t = torch.stack(losses)
+    all_finite = bool(torch.isfinite(loss_t).all()) and bool(torch.stack(finite).all())
+    with torch.no_grad():
+        target_after = torch.cat([p.flatten() for p in ts.target.parameters()])
+    copies = ts.step // cfg.target_update_period - step0 // cfg.target_update_period
+    target_moved = not torch.equal(target_before, target_after)
+    lat = np.sort(np.asarray(lat_ms))
+    emit({"phase": "anakin", "steps": ANAKIN_STEPS, "batch": cfg.batch_size,
+          "capacity": cfg.memory_capacity, "lanes": lanes, "seg": seg,
+          "ring_bytes": ring_bytes, "memory_allocated": torch.cuda.memory_allocated(),
+          "append_ticks": ANAKIN_FILL, "append_us_per_tick": fill_s / ANAKIN_FILL * 1e6,
+          "learn_steps_per_s": ANAKIN_STEPS / elapsed, "seconds": elapsed,
+          "step_host_p50_ms": float(lat[len(lat) // 2]),
+          "step_host_p99_ms": float(lat[int(0.99 * (len(lat) - 1))]),
+          "launches": counts, "launches_per_step": per_step,
+          "losses_finite": all_finite, "loss_last": float(loss_t[-1]),
+          "target_copies": copies, "target_moved": target_moved, "cuts": cuts})
+    check(per_step == {k: float(v) for k, v in ANAKIN_PER_STEP.items()},
+          f"launches per fused step {per_step}, want {ANAKIN_PER_STEP}")
+    check(all_finite, "a non-finite loss in the anakin phase")
+    check(copies >= 1 and target_moved, "no target copy happened in the anakin phase")
+    profile_anakin(torch, fused, ts, ds, gen, beta)
+    del ds, replay, ts, fused
+    torch.cuda.empty_cache()
+    return counts
+
+
+def profile_anakin(torch, fused, ts, ds, gen, beta):
+    """Where the time of a full-width fused anakin step goes: device time by
+    kernel name from torch.profiler over PROFILE_STEPS steps, and the
+    device's idle share of the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            ts, ds, _info = fused(ts, ds, gen, beta)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = device_rows(torch, prof)
+    device_us = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    emit({"phase": "profile_anakin", "steps": PROFILE_STEPS,
+          "wall_us_per_step": wall_us / PROFILE_STEPS,
+          "device_us_per_step": device_us / PROFILE_STEPS if rows else "not measured",
+          "device_idle_share": 1.0 - device_us / wall_us if rows else "not measured",
+          "top": [{"name": k[:80], "us_per_step": t / PROFILE_STEPS,
+                   "calls_per_step": c / PROFILE_STEPS} for k, t, c in rows[:15]]})
+
+
+def phase_anakin_parity(torch, cfg):
+    """One full-width fused step on the card (kernels) against the same
+    step on the CPU (plain twins): same train state (a few steps in), replay
+    state, sampler uniforms, taus and noise.  The ring is 16 lanes x 1,024
+    (a CPU copy of the 1,000,000-slot ring would only slow the twin), and
+    its eligible priorities are set to multiples of 1/8 before the step, so
+    that both sides' fp32 cdfs are exact and draw the same slots; K5 on
+    random priorities is held to an fp64 cdf in `kernels_replay`."""
+    import numpy as np
+
+    from rainbow_iqn_apex_tpu_torch.ops.learn import host_state, init_train_state, load_host_state
+    from rainbow_iqn_apex_tpu_torch.replay.device import build_device_learn
+
+    cfg = _anakin_cfg(cfg)
+    dev, cpu = torch.device("cuda", 0), torch.device("cpu")
+    seg = 1024
+    replay, cpu_replay = _replay_of(cfg, seg, dev), _replay_of(cfg, seg, cpu)
+    lanes = replay.lanes
+    ds = replay.init_state()
+    rng = np.random.default_rng(SEED + 14)
+    data = [torch.from_numpy(a).to(dev) for a in _replay_ticks(
+        np, rng, 300, lanes, (cfg.frame_height, cfg.frame_width))]
+    for t in range(300):
+        replay.append(ds, *[a[t] for a in data[:5]])
+    card = init_train_state(cfg, 18, cfg.seed)
+    fused = build_device_learn(cfg, 18, replay)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for _ in range(3):  # warm the Adam moments
+        card, ds, _ = fused(card, ds, gen, 0.4)
+    g = torch.Generator().manual_seed(SEED + 1)
+    dyadic = torch.randint(1, 9, ds.priority.shape, generator=g).float() / 8
+    ds.priority.copy_(torch.where(ds.priority.cpu() > 0, dyadic, 0.0).to(dev))
+    host = host_state(card)
+    plain = load_host_state(init_train_state(cfg, 18, cfg.seed, device="cpu"), host)
+    ds_cpu = ds.to(cpu)
+    beta = 0.5
+    u = torch.rand((1, cfg.batch_size), generator=g)
+    draws, on_card = _learn_draws(torch, cfg, plain.net, g)
+
+    # the sample alone: the same slots, stacks and scalars
+    idx_k, batch_k, prob_k = replay.sample(ds, cfg.batch_size, beta, u=u.to(dev))
+    idx_p, batch_p, prob_p = cpu_replay.sample(ds_cpu, cfg.batch_size, beta, u=u)
+    same_idx = bool(torch.equal(idx_k.cpu(), idx_p))
+    same_batch = all(torch.equal(getattr(batch_k, f).cpu(), getattr(batch_p, f))
+                     for f in ("obs", "next_obs", "action", "discount"))
+    scalar_rel = max(float(((a.cpu() - b).abs() / b.abs().clamp_min(1e-30)).max())
+                     for a, b in ((batch_k.reward, batch_p.reward),
+                                  (batch_k.weight, batch_p.weight), (prob_k, prob_p)))
+    # the fused step
+    card, ds, k_info = fused(card, ds, None, beta, u=u.to(dev), draws=on_card)
+    t0 = time.perf_counter()
+    plain, ds_cpu, p_info = build_device_learn(cfg, 18, cpu_replay)(
+        plain, ds_cpu, None, beta, u=u, draws=draws)
+    cpu_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    errs = {}
+    for key, got, want in (("loss", k_info["loss"], p_info["loss"]),
+                           ("priorities", k_info["priorities"], p_info["priorities"]),
+                           ("replay_priority", ds.priority, ds_cpu.priority),
+                           ("max_priority", ds.max_priority, ds_cpu.max_priority)):
+        got, want = got.cpu().double(), want.double()
+        err = (got - want).abs()
+        errs[key] = float(err.max())
+        check(bool(torch.all(err <= LEARN_PATH_TOL["atol"] + LEARN_PATH_TOL["rtol"] * want.abs())),
+              f"anakin_parity: {key} differs by {errs[key]}")
+    emit({"phase": "anakin_parity", "batch": cfg.batch_size, "ring": [lanes, seg],
+          "same_idx": same_idx, "same_stacks_actions_discounts": same_batch,
+          "reward_weight_prob_max_rel_err": scalar_rel, "rel_tol": REPLAY_REL,
+          "max_abs_err": errs, "tol": LEARN_PATH_TOL,
+          "finite": [bool(k_info["finite"]), bool(p_info["finite"])], "cpu_step_s": cpu_s})
+    check(same_idx and same_batch, "anakin_parity: the card and the CPU sampled different batches")
+    check(scalar_rel <= REPLAY_REL, f"anakin_parity: reward/weight/prob differ by {scalar_rel} rel")
+    check(bool(k_info["finite"]) and bool(p_info["finite"]), "anakin_parity: a non-finite step")
+
+
+def phase_train_anakin(torch):
+    """The port's training CLI with ``--role anakin``, in process: toy:catch
+    with the scenario of tests/test_anakin.py (test_anakin_learns_catch),
+    bf16, 4,000 frames; the JAX test's own bar."""
+    _train_catch(torch, "anakin", "train_anakin")
 
 
 def device_rows(torch, prof):
@@ -872,6 +1319,10 @@ def main() -> int:
             dueling_head,
             noisy_linear,
             quantile_huber,
+            replay_append,
+            replay_assemble,
+            replay_draw,
+            replay_writeback,
             tau_embed,
         )
     except ImportError as e:
@@ -900,7 +1351,7 @@ def main() -> int:
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "library": os.path.relpath(build.library_path(), ROOT), "ptxas": ptxas})
 
-        results, counts = {}, {"serve": {}, "learn": {}}
+        results, counts = {}, {"serve": {}, "learn": {}, "anakin": {}}
         with open(os.path.join(ROOT, "configs", "serve_defaults.json")) as f:
             serve_cfg = Config.from_json(f.read())
         with open(os.path.join(ROOT, "configs", "reference_atari_defaults.json")) as f:
@@ -911,12 +1362,17 @@ def main() -> int:
         counts["learn"] = phase_learn(torch, learn_cfg)
         phase_learn_parity(torch, learn_cfg)
         phase_train(torch)
+        results.update(phase_kernels_replay(torch, learn_cfg))
+        counts["anakin"] = phase_anakin(torch, learn_cfg)
+        phase_anakin_parity(torch, learn_cfg)
+        phase_train_anakin(torch)
     except SmokeFailure as e:
         emit({"ok": False, "error": str(e)})
         return 1
 
     rows = {}
-    for mod in (tau_embed, noisy_linear, dueling_head, quantile_huber):
+    for mod in (tau_embed, noisy_linear, dueling_head, quantile_huber, replay_draw,
+                replay_writeback, replay_append, replay_assemble):
         rows[mod.NAME] = (mod.SOURCE, mod.REPLACES)
         if hasattr(mod, "NAME_BWD"):
             rows[mod.NAME_BWD] = (mod.SOURCE_BWD, mod.REPLACES_BWD)

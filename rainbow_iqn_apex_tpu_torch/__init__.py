@@ -7,5 +7,7 @@ Entry points run on ``cuda:0`` unless the caller passes ``device="cpu"``.
 
 Ported so far: the serving path (``serving.PolicyServer``) at full Atari
 width, with the model (``models/``), the weight converter (``convert.py``)
-and the act step (``ops/act.py``).
+and the act step (``ops/act.py``); ``--role single`` training
+(``train.py``, ``ops/learn.py``); ``--role anakin`` with host envs
+(``train_anakin.py``) on the device-resident replay (``replay/device.py``).
 """

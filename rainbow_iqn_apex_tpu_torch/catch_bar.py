@@ -1,0 +1,113 @@
+"""The catch learning bar of the port's two trainers, over several seeds.
+
+``chip_smoke.py`` holds each trainer to the JAX package's own bar: an
+evaluation mean above 0.2 after 4,000 frames of ``toy:catch`` at seed 7
+(``tests/test_train_integration.py``, ``tests/test_anakin.py``).  One such
+run is one draw from a spread of outcomes.  This module defines the two
+scenarios once (``argv``) and runs them over several seeds, a few processes
+at a time, so that the spread can be read:
+
+    python -m rainbow_iqn_apex_tpu_torch.catch_bar --role single --seeds 1-9 --parallel 4
+
+Each run is one ``rainbow_iqn_apex_tpu_torch.train`` process with cuDNN's
+deterministic algorithms, as ``chip_smoke.py`` sets them, so a seed gives
+the same run every time.  It prints one JSON line per run, then one with
+the evaluation means and how many of them are at or below the bar.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List
+
+BAR = 0.2  # evaluation mean a run must exceed
+MIN_LEARN_STEPS = 1500
+FRAMES = 4000
+
+_COMMON = ["--env-id", "toy:catch", "--compute-dtype", "bfloat16", "--frame-height", "80",
+           "--frame-width", "80", "--history-length", "2", "--hidden-size", "128",
+           "--num-cosines", "32", "--num-tau-samples", "8", "--num-tau-prime-samples", "8",
+           "--batch-size", "32", "--learning-rate", "1e-3", "--multi-step", "3",
+           "--gamma", "0.9", "--memory-capacity", "8192", "--learn-start", "512",
+           "--frames-per-learn", "2", "--target-update-period", "200",
+           "--num-envs-per-actor", "8", "--eval-interval", "0", "--checkpoint-interval", "0",
+           "--eval-episodes", "40", "--max-frames", str(FRAMES)]
+_ROLE = {
+    # tests/test_train_integration.py's _cfg (bf16: the card takes no other dtype)
+    "single": ["--role", "single", "--num-quantile-samples", "8", "--adam-eps", "1e-8",
+               "--metrics-interval", "200"],
+    # tests/test_anakin.py's test_anakin_learns_catch
+    "anakin": ["--role", "anakin", "--num-quantile-samples", "4", "--metrics-interval", "100"],
+}
+
+_BOOT = ("import sys, torch; torch.backends.cudnn.deterministic = True; "
+         "torch.backends.cudnn.benchmark = False; "
+         "from rainbow_iqn_apex_tpu_torch.train import main; main(sys.argv[1:])")
+
+
+def argv(role: str, seed: int, workdir: str) -> List[str]:
+    """The trainer's CLI arguments of ``role``'s catch scenario at ``seed``,
+    writing results and checkpoints under ``workdir``."""
+    return [*_COMMON, *_ROLE[role], "--seed", str(seed),
+            "--results-dir", os.path.join(workdir, "results"),
+            "--checkpoint-dir", os.path.join(workdir, "ckpt")]
+
+
+def run(role: str, seed: int, device: str) -> Dict:
+    """One scenario run in its own process; its summary."""
+    with tempfile.TemporaryDirectory(prefix="catch_bar_") as tmp:
+        proc = subprocess.run(
+            [sys.executable, "-c", _BOOT, *argv(role, seed, tmp), "--device", device],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    out: Dict = {"role": role, "seed": seed, "rc": proc.returncode}
+    if proc.returncode != 0:
+        out["error"] = proc.stderr[-2000:]
+        return out
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    out.update(eval_score_mean=summary["eval_score_mean"],
+               train_return_mean=summary["train_return_mean"],
+               learn_steps=summary["learn_steps"])
+    return out
+
+
+def _seeds(text: str) -> List[int]:
+    seeds: List[int] = []
+    for part in text.split(","):
+        lo, _, hi = part.partition("-")
+        seeds += list(range(int(lo), int(hi or lo) + 1))
+    return seeds
+
+
+def main(args=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--role", choices=sorted(_ROLE), action="append",
+                   help="scenario (repeatable; default both)")
+    p.add_argument("--seeds", default="1-9", help="e.g. 1-9 or 7,7,7")
+    p.add_argument("--parallel", type=int, default=4, help="runs at a time")
+    p.add_argument("--device", default="cuda:0")
+    a = p.parse_args(args)
+    jobs = [(role, seed) for role in (a.role or sorted(_ROLE)) for seed in _seeds(a.seeds)]
+
+    def one(job):
+        result = run(*job, device=a.device)
+        print(json.dumps(result), flush=True)
+        return result
+
+    with ThreadPoolExecutor(a.parallel) as pool:
+        results = list(pool.map(one, jobs))
+    failed_runs = any(r["rc"] != 0 for r in results)
+    for role in sorted({r["role"] for r in results}):
+        evals = [r["eval_score_mean"] for r in results if r["role"] == role and r["rc"] == 0]
+        print(json.dumps({"role": role, "bar": BAR, "evals": evals,
+                          "at_or_below_bar": sum(e <= BAR for e in evals)}), flush=True)
+    return 1 if failed_runs else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

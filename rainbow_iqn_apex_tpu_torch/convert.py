@@ -19,11 +19,16 @@ A whole learner state crosses too: ``from_flax_train_state`` takes the JAX
 all as numpy) and returns the port's host state (``ops.learn.host_state``
 form, for ``ops.learn.load_host_state``); ``to_flax_train_state`` goes back.
 The Adam moments have the params' layout, so they convert as params do.
+
+``from_jax_device_replay_state`` takes a JAX ``DeviceReplayState`` with
+numpy leaves (``jax.device_get`` of one) and returns the port's
+``replay.device.DeviceReplayState``: the same arrays (no layout changes),
+``pos`` and ``filled`` as host ints.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Union
 
 import numpy as np
 import torch
@@ -114,3 +119,19 @@ def to_flax_train_state(host: Mapping[str, Any]) -> Dict[str, Any]:
         "count": np.asarray(adam["count"], np.int32),
         "step": np.asarray(host["step"], np.int32),
     }
+
+
+def from_jax_device_replay_state(state: Any, device: Union[str, torch.device] = "cpu"):
+    """A JAX ``DeviceReplayState`` (numpy leaves) -> the port's, on ``device``."""
+    from rainbow_iqn_apex_tpu_torch.replay.device import DeviceReplayState
+
+    def put(name: str, dtype: Any) -> torch.Tensor:
+        arr = np.array(getattr(state, name), dtype=dtype, copy=True, order="C")
+        return torch.from_numpy(arr).to(device)
+
+    return DeviceReplayState(
+        frames=put("frames", np.uint8), actions=put("actions", np.int32),
+        rewards=put("rewards", np.float32), terminals=put("terminals", np.bool_),
+        cuts=put("cuts", np.bool_), priority=put("priority", np.float32),
+        max_priority=put("max_priority", np.float32),
+        pos=int(np.asarray(state.pos)), filled=int(np.asarray(state.filled)))

@@ -1,13 +1,15 @@
 """Evaluation of the port (counterpart of ``rainbow_iqn_apex_tpu/eval.py``
-``evaluate``): run E episodes on a fresh env with greedy acting (noise off
-unless ``cfg.eval_noisy``), report raw mean/median scores plus normalised
-scores when baselines are known."""
+``evaluate`` and ``evaluate_state``): run E episodes on a fresh env with
+greedy acting (noise off unless ``cfg.eval_noisy``), report raw mean/median
+scores plus normalised scores when baselines are known."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import functools
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from rainbow_iqn_apex_tpu_torch.agents.agent import Agent, FrameStacker
 from rainbow_iqn_apex_tpu_torch.atari57 import ATARI57_BASELINES
@@ -76,3 +78,24 @@ def evaluate(
     if hn is not None:
         out["human_normalized"] = hn
     return out
+
+
+@functools.lru_cache(maxsize=4)
+def _cached_eval_agent(cfg: Config, num_actions: int, frame_shape: Tuple[int, int],
+                       device: torch.device) -> Agent:
+    """One eval Agent per (cfg, env, device), reused across eval intervals."""
+    return Agent(cfg, num_actions, cfg.seed + 1, train=False,
+                 state_shape=(*frame_shape, cfg.history_length), device=device)
+
+
+def evaluate_state(cfg: Config, env, state, seed: int = 0) -> Dict[str, Any]:
+    """Evaluate a learner's current ``TrainState`` (its online network) on a
+    cached eval Agent on the same device.  The Agent's generator is reseeded
+    on every call, so two evals of the same params draw the same taus and
+    noise."""
+    device = next(state.net.parameters()).device
+    agent = _cached_eval_agent(cfg, env.num_actions, tuple(env.frame_shape), device)
+    with torch.no_grad():
+        agent.state.net.load_state_dict(state.net.state_dict())
+    agent.generator.manual_seed(cfg.seed + 1)
+    return evaluate(cfg, agent, seed=seed)

@@ -13,6 +13,10 @@ and which tests and ``chip_smoke.py`` hold the kernel against.
     K4  dueling_head.dueling_head              dueling combine, tau-mean, greedy argmax
         dueling_head.dueling_gather            the combine gathered at given actions
         dueling_head.dueling_gather_bwd        its backward
+    K5  replay_draw.replay_draw                stratified proportional PER draw
+    K6  replay_writeback.replay_writeback      fenced priority write-back
+    K7  replay_append.replay_append            one append tick into the replay ring
+    K8  replay_assemble.replay_assemble        n-step assembly, stack gathers, IS weights
 
 Each backward has a ``torch.autograd.Function`` beside it in the same
 module (``TauEmbedFn``, ``NoisyLinearFn``, ``DuelingGatherFn``,

@@ -30,7 +30,8 @@ PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 SOURCES = ("tau_embed.cu", "noisy_linear.cu", "dueling_head.cu", "quantile_huber.cu",
-           "tau_embed_bwd.cu", "noisy_linear_bwd.cu", "dueling_head_bwd.cu")
+           "tau_embed_bwd.cu", "noisy_linear_bwd.cu", "dueling_head_bwd.cu", "replay_draw.cu",
+           "replay_writeback.cu", "replay_append.cu", "replay_assemble.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -45,6 +46,10 @@ launches: Dict[str, int] = {
     "K3_noisy_linear_bwd": 0,
     "K4_dueling_head": 0,
     "K4_dueling_head_bwd": 0,
+    "K5_replay_draw": 0,
+    "K6_replay_writeback": 0,
+    "K7_replay_append": 0,
+    "K8_replay_assemble": 0,
 }
 
 _lock = threading.Lock()

@@ -7,10 +7,13 @@ guard with rollback, checkpoints, JSONL metrics and periodic eval, with the
 priority write-back pipelined through the depth-K ring so the learn loop
 issues no blocking device->host read per step.
 
+``--role anakin`` (``architecture='iqn'``) runs ``train_anakin.train_anakin``
+instead: the learner with its replay on the device.
+
 Not ported (each raises NotImplementedError; ROADMAP.md lists them):
 league membership (``league_dir``), ``replay_ratio > 1``, ``obs_net``,
 ``trace_dir`` device traces, multi-game ids, ``architecture='r2d2'`` and
-every role other than ``single``.
+every role other than ``single`` and ``anakin``.
 
 Run it as ``python -m rainbow_iqn_apex_tpu_torch.train --env-id toy:catch``
 (any Config field is a ``--flag``; ``--device cpu`` runs on the CPU, the
@@ -71,7 +74,9 @@ def check_single_role(cfg: Config) -> None:
     """Raise for the parts of the JAX loop the port does not run yet."""
     check_supported(cfg)
     if cfg.role != "single":
-        raise NotImplementedError(f"role={cfg.role!r}: only 'single' is ported yet")
+        raise NotImplementedError(
+            f"role={cfg.role!r}: only 'single' (train) and 'anakin' "
+            "(train_anakin.train_anakin) are ported yet")
     if cfg.league_dir or cfg.league_member_id >= 0:
         raise NotImplementedError("league membership (league_dir) is not ported yet")
     if cfg.games:
@@ -81,7 +86,12 @@ def check_single_role(cfg: Config) -> None:
 def train(cfg: Config, max_frames: Optional[int] = None,
           device: DeviceLike = None) -> Dict[str, Any]:
     """Runs training on ``device`` (``cuda:0`` unless named); returns a
-    summary dict (final eval, steps, fault counts)."""
+    summary dict (final eval, steps, fault counts).  ``--role anakin`` goes
+    to ``train_anakin.train_anakin``."""
+    if cfg.role == "anakin":
+        from rainbow_iqn_apex_tpu_torch.train_anakin import train_anakin
+
+        return train_anakin(cfg, max_frames=max_frames, device=device)
     check_single_role(cfg)
     device = resolve_device(device)
     total_frames = max_frames or cfg.t_max
@@ -128,7 +138,20 @@ def train(cfg: Config, max_frames: Optional[int] = None,
     # happen only at ring boundaries (snapshot/eval/checkpoint cadence) and
     # on retirement of K-old steps
     ring = WritebackRing(cfg.writeback_depth, registry=obs_run.registry)
-    committer = RingCommitter(ring, memory.update_priorities, sup, agent.load_snapshot)
+
+    def _settle() -> None:
+        # the loop's own replay writes wait for the worker's queue, so a
+        # seeded run draws the same batches (utils/prefetch.py)
+        if prefetcher is not None:
+            prefetcher.settle()
+
+    def _write_back(idx, td_abs) -> None:
+        if prefetcher is not None:  # on the worker, in order with its samples
+            prefetcher.update_priorities(idx, td_abs)
+        else:
+            memory.update_priorities(idx, td_abs)
+
+    committer = RingCommitter(ring, _write_back, sup, agent.load_snapshot)
     last_scalars = committer.scalars
     _commit, _drain = committer.commit, committer.drain
     reuse_k = agent.reuse_k
@@ -143,6 +166,7 @@ def train(cfg: Config, max_frames: Optional[int] = None,
             new_obs, rewards, terminals, truncs, ep_returns = env.step(actions)
             # store the pre-step frame with the transition's reward/terminal;
             # truncations cut stack/n-step windows but never fake a terminal
+            _settle()
             memory.append_batch(obs, actions, rewards, terminals, truncations=truncs)
             stacker.reset_lanes(terminals | truncs)
             obs = new_obs
@@ -224,6 +248,7 @@ def train(cfg: Config, max_frames: Optional[int] = None,
                             ckpt, step, agent.state,
                             {"frames": frames, **rng_extra(agent.generator)},
                         )
+                        _settle()
                         sup.save_replay(cfg, memory)
         # end of run: retire the in-flight tail before the final eval/save
         _drain()

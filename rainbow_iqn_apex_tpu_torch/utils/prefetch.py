@@ -15,6 +15,17 @@ priority updates race later samples through Redis).  The write-back side of
 that overlap is the depth-K ring in utils/writeback.py: together they make
 the steady-state learn loop issue zero blocking host<->device transfers per
 step (docs/PERFORMANCE.md has the sync-point inventory).
+
+Unlike the JAX package's worker, which samples whenever its queue has room
+and so sees whichever appends and write-backs the main thread happened to
+finish first, this one works through one queue in the order the consumer
+fills it: a sample request at the start (``depth`` of them) and at every
+``get()``, and each priority write-back (``call()``).  The consumer calls
+``settle()`` before its own writes (the appends), which waits until the
+queue is worked off.  A batch therefore sees exactly the appends and
+write-backs made before the ``get()`` that asked for it, a seeded run draws
+the same batches whatever the threads' timing, and the learner thread does
+no replay work but the appends.
 """
 
 from __future__ import annotations
@@ -26,14 +37,18 @@ from typing import Any, Callable, Optional
 
 import torch
 
+_STOP = object()
+
 
 class BatchPrefetcher:
-    """Background sampler: ``sample_fn()`` -> item, produced ahead of use.
+    """Background sampler: ``stage_fn(sample_fn(request_fn()))`` -> item,
+    produced ahead of use.
 
-    The GIL is the synchronisation story, matching the replay's in-process
-    single-writer discipline (appends happen on the main thread between
-    get() calls; NumPy ops release the GIL only inside C loops that don't
-    observe partial Python-level state).
+    ``request_fn`` runs on the consumer's thread when a batch is asked for
+    (its result, e.g. the IS exponent, goes to ``sample_fn``); ``sample_fn``
+    and ``stage_fn`` run on the worker, as does each ``call(fn, *args)``, in
+    the order they were asked for.  ``settle()`` waits for every
+    ``sample_fn`` and ``call`` asked for so far, not for the staging.
 
     When an obs MetricRegistry is attached, the pipeline exports its own
     health onto it (role "prefetch"), so obs_report can tell learner
@@ -47,15 +62,21 @@ class BatchPrefetcher:
 
     def __init__(
         self,
-        sample_fn: Callable[[], Any],
+        sample_fn: Callable[[Any], Any],
         depth: int = 2,
         registry=None,
         role: str = "prefetch",
+        request_fn: Callable[[], Any] = lambda: None,
+        stage_fn: Callable[[Any], Any] = lambda item: item,
     ):
         self.sample_fn = sample_fn
+        self.request_fn = request_fn
+        self.stage_fn = stage_fn
         self.depth = depth
-        self._q: queue.Queue = queue.Queue(maxsize=depth)
-        self._stop = threading.Event()
+        self._work: queue.Queue = queue.Queue()  # (fn, args, stage) in asked order
+        self._q: queue.Queue = queue.Queue()  # at most `depth` items: one per request
+        self._done = threading.Condition()
+        self._n_asked = self._n_done = 0
         self._exc: Optional[BaseException] = None
         self._g_depth = self._c_empty = self._h_wait = None
         if registry is not None:
@@ -64,26 +85,52 @@ class BatchPrefetcher:
             self._h_wait = registry.histogram("prefetch_empty_wait_s", role)
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
+        for _ in range(depth):
+            self._ask(self.sample_fn, (self.request_fn(),), True)
+
+    def _ask(self, fn: Callable, args: tuple, stage: bool) -> None:
+        self._n_asked += 1
+        self._work.put((fn, args, stage))
+
+    def call(self, fn: Callable, *args) -> None:
+        """Run ``fn(*args)`` on the worker after everything asked so far
+        (a write to what ``sample_fn`` reads); returns at once."""
+        self._ask(fn, args, False)
 
     def _worker(self) -> None:
-        while not self._stop.is_set():
-            try:
-                batch = self.sample_fn()
-            except BaseException as e:  # surfaced on the consumer thread
-                self._exc = e
-                self._q.put(None)
+        while True:
+            work = self._work.get()
+            if work is _STOP:
                 return
-            # block while the queue is full (bounded staleness)
-            while not self._stop.is_set():
-                try:
-                    self._q.put(batch, timeout=0.1)
+            fn, args, stage = work
+            try:
+                out = fn(*args)
+                with self._done:
+                    self._n_done += 1
+                    self._done.notify_all()
+                if stage:
+                    self._q.put(self.stage_fn(out))
                     if self._g_depth is not None:
                         self._g_depth.set(self._q.qsize())
-                    break
-                except queue.Full:
-                    continue
+            except BaseException as e:  # surfaced on the consumer thread
+                with self._done:
+                    self._exc = e
+                    self._done.notify_all()
+                self._q.put(None)
+                return
+
+    def settle(self, timeout: float = 60.0) -> None:
+        """Wait until every sample and call asked for so far has run: call
+        before writing to what ``sample_fn`` reads.  A worker failure is
+        raised by the next ``get()``."""
+        with self._done:
+            done = self._done.wait_for(
+                lambda: self._n_done >= self._n_asked or self._exc is not None, timeout)
+        if not done:
+            raise TimeoutError(f"prefetch worker did not settle in {timeout}s")
 
     def get(self, timeout: float = 60.0):
+        """The oldest staged item; asks for the next one."""
         if self._exc is not None and self._q.empty():
             # repeated get() after a surfaced failure: fail fast, don't hang
             raise RuntimeError("prefetch worker failed") from self._exc
@@ -104,21 +151,22 @@ class BatchPrefetcher:
                 self._h_wait.observe(time.monotonic() - t0)
         if item is None and self._exc is not None:
             raise RuntimeError("prefetch worker failed") from self._exc
+        self._ask(self.sample_fn, (self.request_fn(),), True)
         return item
 
     def close(self) -> None:
-        self._stop.set()
-        try:
-            while True:
-                self._q.get_nowait()
-        except queue.Empty:
-            pass
+        """Stop the worker after the work asked so far (at most ``depth``
+        samples and the pending calls): the replay then ends in the same
+        state on every run."""
+        self._work.put(_STOP)
         self._thread.join(timeout=5)
 
 
 class ReplayPrefetcher(BatchPrefetcher):
     """Replay sampling staged on a side CUDA stream: items are ``(idx,
-    Batch)``; ``get()`` orders the consumer's stream after the upload."""
+    Batch)``; ``get()`` orders the consumer's stream after the upload.  The
+    IS exponent ``beta_fn()`` is read when a batch is asked for, and
+    ``update_priorities`` writes back on the worker, in order."""
 
     def __init__(self, memory, cfg, beta_fn: Callable[[], float], device: torch.device,
                  registry=None):
@@ -127,8 +175,7 @@ class ReplayPrefetcher(BatchPrefetcher):
         self.device = device
         self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
-        def _sample():
-            s = memory.sample(cfg.batch_size, beta_fn())
+        def _stage(s):
             if self.stream is None:
                 return s.idx, to_device_batch(s, device), None
             with torch.cuda.stream(self.stream):
@@ -137,7 +184,13 @@ class ReplayPrefetcher(BatchPrefetcher):
                 staged.record(self.stream)
             return s.idx, batch, staged
 
-        super().__init__(_sample, depth=cfg.prefetch_depth, registry=registry)
+        self._memory = memory
+        super().__init__(lambda beta: memory.sample(cfg.batch_size, beta),
+                         depth=cfg.prefetch_depth, registry=registry,
+                         request_fn=beta_fn, stage_fn=_stage)
+
+    def update_priorities(self, idx, td_abs) -> None:
+        self.call(self._memory.update_priorities, idx, td_abs)
 
     def get(self, timeout: float = 60.0):
         idx, batch, staged = super().get(timeout=timeout)

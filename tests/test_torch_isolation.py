@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: rainbow_iqn_apex_tpu_torch and
 chip_smoke.py import no JAX-family package and nothing of the JAX package
-rainbow_iqn_apex_tpu, the whole port imports, serves, takes a learn step and
-trains with those blocked, and nothing falls back to the CPU unless the
-caller asks for it.
+rainbow_iqn_apex_tpu, the whole port imports, serves, takes a learn step,
+trains and takes a fused Anakin step (device replay) with those blocked,
+and nothing falls back to the CPU unless the caller asks for it.
 """
 
 import ast
@@ -97,6 +97,18 @@ with tempfile.TemporaryDirectory() as tmp:
                                 results_dir=tmp + "/r", checkpoint_dir=tmp + "/c"),
                     max_frames=200, device="cpu")
 assert summary["frames"] == 200 and summary["learn_steps"] > 0
+
+from rainbow_iqn_apex_tpu_torch.replay.device import DeviceReplay, build_device_learn
+replay = DeviceReplay(2, 24, (44, 44), history=2, n_step=3, device="cpu")
+ds = replay.init_state()
+for t in range(30):
+    replay.append(ds, torch.full((2, 44, 44), t, dtype=torch.uint8),
+                  torch.tensor([t % 3, 1], dtype=torch.int32), torch.ones(2),
+                  torch.tensor([t % 7 == 6, False]), torch.zeros(2, dtype=torch.bool))
+state = init_train_state(cfg, 3, seed=0, device="cpu")
+before = ds.priority.clone()
+state, ds, info = build_device_learn(cfg, 3, replay)(state, ds, torch.Generator().manual_seed(0), 0.5)
+assert state.step == 1 and bool(info["finite"]) and not torch.equal(before, ds.priority)
 print("OK", len(mods))
 """
 

@@ -1,0 +1,310 @@
+"""The device replay's kernels (rainbow_iqn_apex_tpu_torch.kernels): K5 PER
+draw, K6 fenced write-back, K7 append, K8 assembly.  Torch only, so that
+the ``cuda`` tests run on a machine without JAX
+(``python -m pytest tests/test_torch_replay_kernels.py -m cuda --noconftest``);
+the twins are held against the JAX DeviceReplay in
+tests/test_torch_device_replay.py.
+
+On the CPU each wrapper runs its plain twin and counts no launch, and the
+twins keep the replay's rules against small oracles written out in Python:
+the clip of a u that rounds up to the total, zero slots never drawn, the
+last occurrence of a duplicate id written, group order, the fence.
+
+The ``cuda``-marked tests hold each kernel against its twin on the card:
+slot ids exactly on dyadic priorities (an exact cdf in any summation
+order), and on random priorities against an fp64 cdf, where an id may
+differ only when u lies within 1e-6 * sum p of a cdf boundary; uint8
+frames, ids, actions and flags exactly; the priority vector exactly against
+the twin run on the same card tensors (the same fp32 square root and the
+same fence; torch's CPU square root can round the last bit the other way);
+f32 reward, prob and weight to 1e-6 relative (powf against torch.pow, a
+different summation order of the priorities).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from rainbow_iqn_apex_tpu_torch.kernels import launches
+from rainbow_iqn_apex_tpu_torch.kernels.replay_append import replay_append, replay_append_plain
+from rainbow_iqn_apex_tpu_torch.kernels.replay_assemble import (
+    replay_assemble,
+    replay_assemble_plain,
+)
+from rainbow_iqn_apex_tpu_torch.kernels.replay_draw import replay_draw, replay_draw_plain
+from rainbow_iqn_apex_tpu_torch.kernels.replay_writeback import (
+    replay_writeback,
+    replay_writeback_plain,
+)
+from rainbow_iqn_apex_tpu_torch.replay.device import DeviceReplay
+
+REL = dict(rtol=1e-6, atol=0.0)
+NAMES = ("K5_replay_draw", "K6_replay_writeback", "K7_replay_append", "K8_replay_assemble")
+
+
+def _replay(lanes=3, seg=16, frame=(10, 10), history=3, n_step=2, device="cpu"):
+    return DeviceReplay(lanes=lanes, seg=seg, frame_shape=frame, history=history,
+                        n_step=n_step, gamma=0.9, device=device)
+
+
+def _tick(rng, lanes, frame, p_term=0.1, p_trunc=0.08, actor=True):
+    term = rng.random(lanes) < p_term
+    return (torch.from_numpy(rng.integers(0, 256, (lanes, *frame), dtype=np.uint8)),
+            torch.from_numpy(rng.integers(0, 18, lanes).astype(np.int32)),
+            torch.from_numpy(rng.normal(size=lanes).astype(np.float32)),
+            torch.from_numpy(term), torch.from_numpy((rng.random(lanes) < p_trunc) & ~term),
+            torch.from_numpy(rng.random(lanes).astype(np.float32) * 2) if actor else None)
+
+
+def _filled(replay, ticks, seed=0, actor=True):
+    rng = np.random.default_rng(seed)
+    state = replay.init_state()
+    for _ in range(ticks):
+        replay.append(state, *_tick(rng, replay.lanes, replay.frame_shape, actor=actor))
+    return state
+
+
+# ------------------------------------------------------------ CPU: the twins
+def test_wrappers_run_the_twins_on_cpu_without_counting():
+    before = {k: launches[k] for k in NAMES}
+    replay = _replay()
+    state = _filled(replay, 20)
+    idx, batch, _prob = replay.sample_grouped(state, 4, 2, 0.5)
+    replay.update_priorities_grouped(state, idx, torch.rand(8))
+    replay.assemble(state, idx.reshape(-1), 0.5)
+    assert batch.obs.shape == (8, 10, 10, 3) and batch.obs.dtype == torch.uint8
+    assert {k: launches[k] for k in NAMES} == before
+
+
+def test_draw_twin_clips_a_u_at_the_total_and_skips_zero_slots():
+    p = torch.tensor([0.0, 0.5, 0.0, 0.25, 0.25, 0.0], dtype=torch.float32)
+    u = torch.tensor([[0.0, 0.5, 0.99, 1.0 - 2.0 ** -24]], dtype=torch.float32)
+    idx, total = replay_draw_plain(p, u)
+    # strata of width 0.25: u = 0, 0.375, 0.7475, 1.0 (rounded up to the total)
+    assert float(total) == 1.0
+    assert idx.tolist() == [[1, 1, 3, 5]]  # the last is the clip onto N - 1 (p = 0 there)
+    idx, _ = replay_draw_plain(p, torch.rand((3, 4), generator=torch.Generator().manual_seed(0)))
+    assert bool((p[idx[:, :3].long()] > 0).all())
+
+
+def _writeback_oracle(p, max_p, idx, td, eps, omega):
+    """The host replay's rule, group after group, as plain Python."""
+    p = [float(x) for x in p]
+    pri = [[(float(t) + eps) ** omega for t in row] for row in td]
+    max_p = max([max_p] + [x for row in pri for x in row])
+    for ids, row in zip(idx, pri):
+        fence = [p[i] > 0 for i in ids]  # read before the group writes
+        for i, ok, x in zip(ids, fence, row):
+            p[i] = np.float32(x) if ok else 0.0
+    return np.asarray(p, np.float32), max_p
+
+
+@pytest.mark.parametrize("omega", [0.5, 0.6])
+def test_writeback_twin_keeps_order_fence_and_last_occurrence(omega):
+    rng = np.random.default_rng(1)
+    p = rng.random(12).astype(np.float32)
+    p[[2, 7]] = 0.0
+    idx = np.array([[2, 3, 3, 5], [7, 5, 3, 1], [5, 5, 2, 9]], np.int32)
+    td = rng.random((3, 4)).astype(np.float32) * 4
+    want, want_max = _writeback_oracle(p, 1.25, idx, td, 1e-6, omega)
+    got = torch.from_numpy(p.copy())
+    got_max = torch.tensor(1.25)
+    replay_writeback_plain(got, got_max, torch.from_numpy(idx), torch.from_numpy(td.reshape(-1)),
+                           1e-6, omega)
+    np.testing.assert_allclose(got.numpy(), want, **REL)
+    assert got[2] == 0 and got[7] == 0
+    assert float(got_max) == pytest.approx(want_max, rel=1e-6)
+
+
+def test_append_twin_truncation_window_is_ineligible():
+    """A transition whose n-step window's first cut is a truncation stays
+    at priority 0; a terminal first keeps it eligible."""
+    replay = _replay(lanes=2, seg=24, n_step=2)
+    state = replay.init_state()
+    rng = np.random.default_rng(2)
+    for t in range(24):
+        frames, actions, rewards, _, _, pri = _tick(rng, 2, (10, 10))
+        term = torch.tensor([False, t == 10])
+        trunc = torch.tensor([t == 10, False])
+        replay.append(state, frames, actions, rewards, term, trunc, pri)
+    pri = state.priority.numpy()
+    assert np.all(pri[10 - 2 + 1:11] == 0.0)  # lane 0, windows covering tick 10
+    assert np.all(pri[24 + 10 - 2 + 1:24 + 11] > 0.0)  # lane 1, a terminal there
+
+
+def test_append_twin_max_priority_insertion_and_actor_maximum():
+    replay = _replay(n_step=2)
+    state = _filled(replay, 10, actor=False)
+    assert float(state.max_priority) == 1.0
+    eligible = state.priority[state.priority > 0]
+    assert eligible.numel() > 0 and bool((eligible == 1.0).all())
+    frames, actions, rewards, term, trunc, _ = _tick(np.random.default_rng(3), 3, (10, 10))
+    replay.append(state, frames, actions, rewards, term, trunc, torch.tensor([0.0, 8.0, 1.0]))
+    assert float(state.max_priority) == pytest.approx((8.0 + 1e-6) ** 0.5, rel=1e-6)
+
+
+# ------------------------------------------------- on the card: kernel vs twin
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda", 0)
+
+
+def _counted(name, fn):
+    before = launches[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert launches[name] == before + 1
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1_000_000, 5000, 700])
+@pytest.mark.parametrize("groups", [1, 4])
+def test_k5_kernel_matches_twin_exactly_on_dyadic_priorities(cuda, n, groups):
+    gen = torch.Generator(device=cuda).manual_seed(n + groups)
+    p = torch.randint(0, 9, (n,), generator=gen, device=cuda).float() / 8
+    p[-3:] = 0.0
+    u = torch.rand((groups, 32), generator=gen, device=cuda)
+    u[-1, -1] = 1.0 - 2.0 ** -24  # rounds u up to the total: clipped onto N - 1
+    idx, total = _counted("K5_replay_draw", lambda: replay_draw(p, u))
+    want_idx, want_total = replay_draw_plain(p, u)
+    assert float(total) == float(want_total)
+    assert torch.equal(idx, want_idx)
+    assert int(idx[-1, -1]) == n - 1
+    assert bool((p[idx[:, :-1].long()] > 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1_000_000, 3001])
+def test_k5_kernel_matches_an_fp64_cdf_on_random_priorities(cuda, n):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    p = torch.rand((n,), generator=gen, device=cuda)
+    p[torch.rand((n,), generator=gen, device=cuda) < 0.3] = 0.0
+    u = torch.rand((4, 32), generator=gen, device=cuda)
+    idx, total = replay_draw(p, u)
+    k = torch.arange(32, device=cuda, dtype=torch.float32)
+    u_abs = ((k + u) / 32 * total).double()
+    cdf = torch.cumsum(p.double(), 0)
+    want = torch.searchsorted(cdf, u_abs, right=True).clamp(0, n - 1)
+    got = idx.long()
+    assert bool((p[got] > 0).all()), "a zero slot was drawn"
+    differ = got != want
+    lo = torch.minimum(got, want)[differ]
+    near = (u_abs[differ] - cdf[lo]).abs() <= 1e-6 * float(total)
+    assert bool(near.all()), "an id differs away from a cdf boundary"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("omega", [0.5, 0.6])
+@pytest.mark.parametrize("groups", [1, 4])
+def test_k6_kernel_matches_twin_with_duplicates_and_zero_slots(cuda, groups, omega):
+    gen = torch.Generator(device=cuda).manual_seed(groups)
+    p = torch.rand((4096,), generator=gen, device=cuda)
+    idx = torch.randint(0, 40, (groups, 32), generator=gen, device=cuda, dtype=torch.int32)
+    p[idx[0, :4].long()] = 0.0  # fenced slots, some repeated
+    td = torch.rand((groups * 32,), generator=gen, device=cuda) * 3
+    got, got_max = p.clone(), torch.tensor(1.5, device=cuda)
+    want, want_max = p.clone(), torch.tensor(1.5, device=cuda)
+    _counted("K6_replay_writeback",
+             lambda: replay_writeback(got, got_max, idx, td, 1e-6, omega))
+    replay_writeback_plain(want, want_max, idx, td, 1e-6, omega)
+    if omega == 0.5:
+        assert torch.equal(got, want) and torch.equal(got_max, want_max)
+    else:  # powf against torch.pow
+        torch.testing.assert_close(got, want, **REL)
+        torch.testing.assert_close(got_max, want_max, **REL)
+    assert bool((got[p == 0] == 0).all())
+
+
+def _same_state(got, want):
+    for name in ("frames", "actions", "rewards", "terminals", "cuts", "priority",
+                 "max_priority"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name).cpu()), name
+    assert (got.pos, got.filled) == (want.pos, want.filled)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,frame", [(16, (84, 84)), (40, (10, 10))])
+@pytest.mark.parametrize("actor", [True, False], ids=["actor_pri", "max_pri"])
+def test_k7_kernel_matches_twin_over_a_wrapped_ring(cuda, lanes, frame, actor):
+    """84 x 84 takes the 16-byte frame copy, 10 x 10 the byte copy; 40
+    lanes loop over the block's 32 warps."""
+    seg = 16
+    card = _replay(lanes, seg, frame, 4, 3, cuda)
+    got, want = card.init_state(), card.init_state()
+    rng = np.random.default_rng(5)
+    before = launches["K7_replay_append"]
+    for _ in range(2 * seg + 5):
+        tick = [None if t is None else t.to(cuda) for t in _tick(rng, lanes, frame, actor=actor)]
+        card.append(got, *tick)
+        replay_append_plain(want, *tick, want.pos, want.filled, 4, 3, card.eps, card.omega)
+        want.pos, want.filled = (want.pos + 1) % seg, min(want.filled + 1, seg)
+    torch.cuda.synchronize()
+    assert launches["K7_replay_append"] == before + 2 * seg + 5
+    _same_state(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame,history", [((84, 84), 4), ((10, 10), 3)])
+@pytest.mark.parametrize("ticks", [11, 40], ids=["young", "wrapped"])
+@pytest.mark.parametrize("groups", [1, 4])
+def test_k8_kernel_matches_twin(cuda, frame, history, ticks, groups):
+    """84 x 84 x 4 takes the 16-byte transposing store, 10 x 10 x 3 the
+    byte path; a young ring zeroes frames older than its history."""
+    cpu = _replay(4, 32, frame, history, 3, "cpu")
+    state = _filled(cpu, ticks, seed=ticks)
+    on_card = state.to(cuda)
+    gammas = cpu._gammas
+    rng = np.random.default_rng(6)
+    idx = torch.from_numpy(rng.integers(0, 4 * 32, groups * 32).astype(np.int32))
+    total = state.priority.sum()
+    got = _counted("K8_replay_assemble", lambda: replay_assemble(
+        on_card, idx.to(cuda), total.to(cuda), gammas.to(cuda), 0.6, state.filled, history, 3,
+        32))
+    want = replay_assemble_plain(state, idx, total, gammas, 0.6, state.filled, history, 3, 32)
+    for name in ("obs", "next_obs", "action", "discount"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+    for name in ("reward", "prob", "weight"):
+        torch.testing.assert_close(getattr(got, name).cpu(), getattr(want, name), **REL)
+
+
+@pytest.mark.cuda
+def test_k6_and_k8_kernels_stay_inside_the_ring_on_out_of_range_ids(cuda):
+    """K6 drops an id outside [0, N) (XLA drops such a scatter update), K8
+    clamps one into the ring (XLA clamps such a gather)."""
+    replay = _replay(device=cuda)
+    state = _filled(_replay(), 20).to(cuda)
+    n = state.priority.numel()
+    before = state.priority.clone()
+    idx = torch.tensor([[n, -1, 3, n + 7]], dtype=torch.int32, device=cuda)
+    replay_writeback(state.priority, state.max_priority, idx, torch.ones(4, device=cuda),
+                     1e-6, 0.5)
+    changed = (state.priority != before).nonzero().flatten().tolist()
+    assert changed in ([], [3])
+    ids = torch.tensor([-5, 2, n + 3, n - 1], dtype=torch.int32, device=cuda)
+    _, total = replay_draw(state.priority, state.priority.new_empty((0, 1)))
+    got = replay_assemble(state, ids, total, replay._gammas, 0.5, state.filled, 3, 2, 4)
+    want = replay_assemble(state, ids.clamp(0, n - 1), total, replay._gammas, 0.5,
+                           state.filled, 3, 2, 4)
+    for name in got._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.cuda
+def test_replay_kernels_refuse_what_they_do_not_take(cuda):
+    p = torch.rand((100,), device=cuda)
+    with pytest.raises(TypeError):
+        replay_draw(p.double(), torch.rand((1, 4), device=cuda))
+    with pytest.raises(ValueError):
+        replay_writeback(p, torch.tensor(1.0, device=cuda),
+                         torch.zeros((1, 2000), dtype=torch.int32, device=cuda),
+                         torch.zeros(2000, device=cuda), 1e-6, 0.5)
+    replay = _replay(device=cuda)
+    state = replay.init_state()
+    with pytest.raises(TypeError):
+        replay_append(state, torch.zeros((3, 10, 10), dtype=torch.uint8, device=cuda),
+                      torch.zeros(3, dtype=torch.int64, device=cuda), torch.zeros(3, device=cuda),
+                      torch.zeros(3, dtype=torch.bool, device=cuda),
+                      torch.zeros(3, dtype=torch.bool, device=cuda), None, 0, 0, 3, 2, 1e-6, 0.5)

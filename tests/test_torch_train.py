@@ -108,6 +108,59 @@ def test_cli_entry_runs_a_short_single_role_training(tmp_path, capsys):
     assert last["learn_steps"] == summary["learn_steps"] > 0
 
 
+def test_seeded_runs_repeat_exactly(tmp_path):
+    """The prefetch worker samples at fixed points of the loop: two runs
+    from one seed log the same losses and returns and end on the same
+    eval, however the threads were scheduled."""
+    runs = []
+    for name in ("a", "b"):
+        cfg = _cfg(tmp_path / name, metrics_interval=10)
+        summary = train(cfg, max_frames=240, device="cpu")
+        rows = [{k: r[k] for k in ("step", "frames", "loss", "q_mean", "grad_norm",
+                                   "mean_return")}
+                for r in _rows(tmp_path / name, cfg) if r["kind"] == "learn"]
+        runs.append((rows, summary["eval_score_mean"], summary["learn_steps"]))
+    assert runs[0][0], "no learn rows"
+    assert runs[0] == runs[1]
+
+
+def test_prefetcher_batches_see_exactly_the_writes_before_their_request():
+    """A batch asked for at get() k sees the k writes asked for before it
+    (the first ``depth`` see none), whether the worker ran them in order
+    (``call``) or the consumer did after ``settle()``, with a worker slower
+    than the consumer."""
+    import time
+
+    from rainbow_iqn_apex_tpu_torch.utils.prefetch import BatchPrefetcher
+
+    writes = [0]
+    rng = np.random.default_rng(0)
+    delays = iter(rng.uniform(0.0, 0.004, 64))
+
+    def sample(request):
+        time.sleep(next(delays))
+        return request, writes[0]
+
+    def write():
+        writes[0] += 1
+
+    asked, seen = [], []
+    p = BatchPrefetcher(sample, depth=2, request_fn=lambda: len(asked))
+    try:
+        for k in range(24):
+            seen.append(p.get())
+            asked.append(k)
+            if k % 2:
+                p.call(write)
+            else:
+                p.settle()
+                write()
+            time.sleep(0.001 * (k % 3))
+    finally:
+        p.close()
+    assert seen == [(0, 0), (0, 0)] + [(j, j) for j in range(22)]
+
+
 @pytest.mark.parametrize("kw", [dict(role="apex"), dict(league_dir="x"), dict(replay_ratio=2),
                                 dict(architecture="r2d2"), dict(trace_dir="t"),
                                 dict(obs_net=True)],
