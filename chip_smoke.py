@@ -39,7 +39,23 @@ and runs every phase, in this order:
 - ``anakin_parity``: one fused step on the card against the same step
   through the plain twins on the CPU;
 - ``train_anakin``: ``python -m rainbow_iqn_apex_tpu_torch.train --role
-  anakin`` on ``toy:catch`` for 4,000 frames, held to the same bar.
+  anakin`` on ``toy:catch`` for 4,000 frames, held to the same bar;
+- ``kernels_frontier``: the device sample frontier's kernels (K5f draw with
+  IS weights over the 1,000,000-slot mirror of two shards, one of them
+  dead, G 8, B 32; K6f write-back at B 32 with repeated ids and zero slots)
+  against their twins, timed the same way;
+- ``apex``: the Ape-X loop of ``configs/reference_atari_defaults.json`` at
+  full width with synthetic frames: ``ApexDriver`` acting on 16 lanes with
+  actor-side priorities into a 1,000,000-slot ``ShardedReplay`` filled to
+  32,000 transitions, then 200 learn steps with host sampling and 200 with
+  the device frontier (``SampleAheadPusher``, K5f, K6f, reconcile at
+  drains), publishes every 100 steps, under ``forbid_host_sync()``, with
+  the exact launches of each run, and a profile;
+- ``apex_parity``: one frontier draw and one learn step on the card against
+  the same through the plain twins on the CPU;
+- ``train_apex``: ``python -m rainbow_iqn_apex_tpu_torch.train --role apex``
+  with device sampling on ``toy:catch`` for 4,000 frames, held to the bar
+  the JAX ``train_apex`` clears on the same scenario.
 
 One JSON object per line; the line before the last is the card's name and
 power limit from ``nvidia-smi``, and the last line is
@@ -103,7 +119,17 @@ ANAKIN_FRAME_POOL = 64  # distinct synthetic ticks cycled through the fill
 ANAKIN_PER_STEP = {"K1_quantile_huber": 1, "K2_tau_embed": 3, "K2_tau_embed_bwd": 1,
                    "K3_noisy_linear": 12, "K3_noisy_linear_bwd": 4, "K4_dueling_head": 3,
                    "K4_dueling_head_bwd": 1, "K5_replay_draw": 1, "K6_replay_writeback": 1,
-                   "K7_replay_append": 0, "K8_replay_assemble": 1}
+                   "K7_replay_append": 0, "K8_replay_assemble": 1, "K5f_frontier_draw": 0,
+                   "K6f_frontier_writeback": 0}
+FRONTIER_SHARDS = 2  # kernels_frontier: the mirror of 2 shards, the second one dead
+FRONTIER_REL = 1e-6  # K5f prob and weight: K5's chained total against torch's sum
+APEX_FILL = 2000  # append ticks of 16 lanes before the apex runs (32,000 transitions)
+APEX_STEPS = 200  # learn steps of each apex run (host sampling, then device sampling)
+APEX_WARMUP = 8  # learn steps before each run's timed window
+APEX_PUBLISH = 100  # weight_publish_interval of the apex phases (config: 400)
+APEX_FRAME_POOL = 64  # distinct synthetic ticks of frames cycled through the fill
+REPLAY_KERNELS = ("K5_replay_draw", "K6_replay_writeback", "K7_replay_append",
+                  "K8_replay_assemble")
 
 
 def emit(obj) -> None:
@@ -909,6 +935,108 @@ def phase_kernels_replay(torch, cfg):
     return results
 
 
+def phase_kernels_frontier(torch, cfg):
+    """K5f and K6f against their twins on the card's tensors at the apex
+    path's shapes: K5f over the config's 1,000,000-slot mirror (two shards,
+    the second one dead, some zero slots), G = 8 (``draw_block``), B 32;
+    K6f at B 32 with repeated ids and zero slots.  Timed the same way."""
+    from rainbow_iqn_apex_tpu_torch.kernels.frontier_draw import (
+        frontier_draw,
+        frontier_draw_plain,
+    )
+    from rainbow_iqn_apex_tpu_torch.kernels.frontier_writeback import (
+        frontier_writeback,
+        frontier_writeback_plain,
+    )
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    n, batch, groups = cfg.memory_capacity, cfg.batch_size, 8
+    live = n // FRONTIER_SHARDS  # slots of the one live shard
+    beta, n_items = 0.4, APEX_FILL * cfg.num_envs_per_actor
+    results = {}
+
+    # K5f: dyadic priorities (an exact cdf in any order), then random ones
+    dyadic = torch.randint(0, 9, (n,), generator=gen, device=dev).float() / 8
+    dyadic[live:] = 0.0
+    u = torch.rand((groups, batch), generator=gen, device=dev)
+    idx, prob, weight = frontier_draw(dyadic, u, beta, n_items)
+    w_idx, w_prob, w_weight = frontier_draw_plain(dyadic, u, beta, n_items)
+    exact = bool(torch.equal(idx, w_idx))
+    rel = max(float(((a - b).abs() / b.abs()).max()) for a, b in ((prob, w_prob),
+                                                                   (weight, w_weight)))
+    zero_drawn = not bool((dyadic[idx.long()] > 0).all())
+    dead_drawn = bool((idx >= live).any())
+    p = torch.rand((n,), generator=gen, device=dev)
+    p[torch.rand((n,), generator=gen, device=dev) < 0.3] = 0.0
+    p[live:] = 0.0
+    r_idx, r_prob, r_weight = frontier_draw(p, u, beta, n_items)
+    t_idx, t_prob, t_weight = frontier_draw_plain(p, u, beta, n_items)
+    cdf64 = torch.cumsum(p.double(), 0)
+    k = torch.arange(batch, device=dev, dtype=torch.float64)
+    u_abs = (k + u.double()) / batch * cdf64[-1]
+    ref = torch.searchsorted(cdf64, u_abs, right=True).clamp(0, n - 1)
+    differ = r_idx.long() != ref
+    lo = torch.minimum(r_idx.long(), ref)[differ]
+    near = (u_abs[differ] - cdf64[lo]).abs() <= K5_BOUNDARY * float(cdf64[-1])
+    same = r_idx == t_idx
+    r_rel = float(((r_prob - t_prob).abs() / t_prob.abs())[same].max())
+    random_zero = not bool((p[r_idx.long()] > 0).all())
+    torch.cuda.synchronize()
+    ok = (exact and rel <= FRONTIER_REL and r_rel <= FRONTIER_REL and bool(near.all())
+          and not (zero_drawn or dead_drawn or random_zero))
+    nbytes = n * 4 + groups * batch * 4 + 3 * groups * batch * 4
+    bms, by = bound_ms(nbytes, n, FP32_FLOPS)
+    kf = torch.arange(batch, device=dev, dtype=torch.float32)
+
+    def library():
+        cdf = torch.cumsum(p, 0)
+        ids = torch.searchsorted(cdf, (kf + u) / batch * cdf[-1], right=True).clamp_(max=n - 1)
+        w = torch.pow(n_items * (p[ids] / cdf[-1]), -beta)
+        return w / w.amax(dim=1, keepdim=True)
+
+    k_ms = time_ms(torch, lambda: frontier_draw(p, u, beta, n_items))
+    p_ms = time_ms(torch, lambda: frontier_draw_plain(p, u, beta, n_items))
+    lib_ms = time_ms(torch, library)
+    emit({"phase": "kernels_frontier", "kernel": "K5f_frontier_draw",
+          "shape": [n, groups, batch], "dead_slots": n - live, "dyadic_exact": exact,
+          "max_rel_err": max(rel, r_rel), "rel_tol": FRONTIER_REL,
+          "zero_or_dead_slot_drawn": zero_drawn or dead_drawn or random_zero,
+          "fp64_mismatches": int(differ.sum()), "fp64_mismatches_near_boundary": int(near.sum()),
+          "twin_mismatches": int((~same).sum()), "boundary_tol": K5_BOUNDARY, "ok": ok,
+          "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": bms,
+          "bound_by": by})
+    check(ok, f"K5f disagrees: dyadic exact {exact}, rel {max(rel, r_rel)}, zero/dead slot "
+              f"drawn {zero_drawn or dead_drawn or random_zero}, far mismatches "
+              f"{int((~near).sum())}")
+    results["K5f_frontier_draw"] = dict(max_abs_err=float((weight - w_weight).abs().max()),
+                                        ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                                        bound_ms=bms, bound_by=by)
+
+    # K6f: one learn step's write-back, repeated ids and zero slots
+    base = torch.rand((n,), generator=gen, device=dev)
+    ids = torch.randint(0, 64, (batch,), generator=gen, device=dev, dtype=torch.int32)
+    base.index_fill_(0, ids[:6].long(), 0.0)
+    td = torch.randn((batch,), generator=gen, device=dev) * 3
+    got, want = base.clone(), base.clone()
+    args = (ids, td, cfg.priority_eps, cfg.priority_exponent)
+    frontier_writeback(got, *args)
+    frontier_writeback_plain(want, *args)
+    torch.cuda.synchronize()
+    ok = bool(torch.equal(got, want)) and bool((got[base == 0] == 0).all())
+    bms, by = bound_ms(batch * 4 * 4, 2 * batch, FP32_FLOPS)
+    k_ms = time_ms(torch, lambda: frontier_writeback(got, *args))
+    p_ms = time_ms(torch, lambda: frontier_writeback_plain(want, *args))
+    emit({"phase": "kernels_frontier", "kernel": "K6f_frontier_writeback", "shape": [batch],
+          "repeated_ids": int(batch - ids.unique().numel()), "exact": ok, "ok": ok,
+          "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": None, "bound_ms": bms,
+          "bound_by": by})
+    check(ok, "K6f disagrees with its twin or resurrected a zero slot")
+    results["K6f_frontier_writeback"] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms,
+                                             library_ms=None, bound_ms=bms, bound_by=by)
+    return results
+
+
 def _anakin_cfg(cfg):
     """The reference config with the `anakin` phases' one cut (printed)."""
     return cfg.replace(target_update_period=LEARN_TARGET_PERIOD, role="anakin")
@@ -1123,6 +1251,347 @@ def phase_train_anakin(torch):
     _train_catch(torch, "anakin", "train_anakin")
 
 
+def _apex_cfg(cfg):
+    """The reference config with the apex phases' cuts (printed)."""
+    return cfg.replace(target_update_period=LEARN_TARGET_PERIOD,
+                       weight_publish_interval=APEX_PUBLISH, stall_timeout_s=0.0, role="apex")
+
+
+def phase_apex(torch, cfg):
+    """The full-width Ape-X loop of ``configs/reference_atari_defaults.json``
+    through the port's entry points, with synthetic frames: ``ApexDriver``
+    acting on the device frame stack with actor-side initial priorities,
+    ``ShardedReplay`` at the config's uncut 1,000,000 slots filled to
+    32,000 transitions, then per tick 16 lanes acted and appended and 4
+    learn steps (``frames_per_learn`` 4): the prefetcher (host sampling) or
+    ``SampleAheadPusher`` over the device frontier (K5f), ``learn_batch``,
+    the write-back ring and committer (K6f into the mirror, reconcile at
+    drains), ``publish_weights`` every APEX_PUBLISH steps.  APEX_STEPS
+    steps in each mode under ``forbid_host_sync()``, with the launch counts
+    of each run, then a profile of the device-sampling loop."""
+    import numpy as np
+
+    from rainbow_iqn_apex_tpu_torch.kernels import launches, reset_launches
+    from rainbow_iqn_apex_tpu_torch.parallel.apex import ActorPriorityEstimator, ApexDriver
+    from rainbow_iqn_apex_tpu_torch.parallel.sharded_replay import ShardedReplay
+    from rainbow_iqn_apex_tpu_torch.parallel.supervisor import TrainSupervisor
+    from rainbow_iqn_apex_tpu_torch.replay.frontier import (
+        DeviceSampleFrontier,
+        make_batch_assembler,
+    )
+    from rainbow_iqn_apex_tpu_torch.train import priority_beta
+    from rainbow_iqn_apex_tpu_torch.utils import hostsync
+    from rainbow_iqn_apex_tpu_torch.utils.prefetch import (
+        SampleAheadPusher,
+        make_replay_prefetcher,
+    )
+    from rainbow_iqn_apex_tpu_torch.utils.writeback import RingCommitter, WritebackRing
+
+    cfg = _apex_cfg(cfg)
+    lanes = cfg.num_actors * cfg.num_envs_per_actor
+    frame = (cfg.frame_height, cfg.frame_width)
+    dev = torch.device("cuda", 0)
+    per_tick = lanes // cfg.frames_per_learn  # learn steps due per tick
+    run_ticks = (APEX_WARMUP + APEX_STEPS) // per_tick
+    t0 = time.perf_counter()
+    memory = ShardedReplay.build(
+        max(cfg.replay_shards, 1), cfg.memory_capacity, lanes, frame_shape=frame,
+        history=cfg.history_length, n_step=cfg.multi_step, gamma=cfg.gamma,
+        priority_exponent=cfg.priority_exponent, priority_eps=cfg.priority_eps, seed=cfg.seed,
+        use_native=cfg.use_native_sumtree)
+    driver = ApexDriver(cfg, 18, state_shape=(*frame, cfg.history_length))  # cuda:0 by default
+    check(driver.device.type == "cuda", "the apex driver did not pick the card by default")
+    estimator = ActorPriorityEstimator(lanes, cfg.multi_step, cfg.gamma)
+    rng = np.random.default_rng(SEED + 15)
+    pool = rng.integers(0, 256, (APEX_FRAME_POOL, lanes, *frame), dtype=np.uint8)
+    _, _, rewards, terms, truncs, _ = _replay_ticks(np, rng, APEX_FILL + 3 * run_ticks, lanes,
+                                                    (1, 1), p_term=0.01, p_trunc=0.002)
+    beta = priority_beta(cfg, APEX_FILL * lanes)
+    state = {"tick": 0, "cuts": np.zeros(lanes, bool)}
+    act_ms = []
+
+    def tick(settle):
+        t = state["tick"]
+        frames = pool[t % APEX_FRAME_POOL]
+        ta = time.perf_counter()
+        actions, q = driver.act_frames(frames, state["cuts"])
+        act_ms.append((time.perf_counter() - ta) * 1e3)
+        pri = estimator.push(q, actions, rewards[t], terms[t] | truncs[t])
+        settle()
+        memory.append_batch(frames, actions, rewards[t], terms[t], pri, truncations=truncs[t])
+        state["cuts"], state["tick"] = terms[t] | truncs[t], t + 1
+
+    for _ in range(APEX_FILL):
+        tick(lambda: None)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    check(len(memory) == APEX_FILL * lanes and memory.sampleable,
+          "the fill did not store every transition")
+    cuts = {"frames": "synthetic seeded uint8 (no emulator on the machine)",
+            "target_update_period": cfg.target_update_period,
+            "weight_publish_interval": cfg.weight_publish_interval,
+            "filled": f"{len(memory)} of {cfg.memory_capacity} slots ({APEX_FILL} ticks)",
+            "learn_start": f"{cfg.learn_start} (met)"}
+    counts_all = {}
+
+    def run(device_sampling):
+        """One mode's loop; returns its feed (pusher or prefetcher), ring,
+        committer and frontier (None with host sampling)."""
+        reset_launches()  # the main path: this mode's whole run
+        frontier = None
+        if device_sampling:
+            frontier = DeviceSampleFrontier.from_sharded(memory, seed=cfg.seed + 31)
+            check(frontier.device.type == "cuda", "the frontier did not pick the card")
+            feed = SampleAheadPusher(frontier, make_batch_assembler(memory), cfg.batch_size,
+                                     lambda: beta, lambda: len(memory), dev,
+                                     depth=cfg.sample_ahead_depth)
+        else:
+            feed = make_replay_prefetcher(memory, cfg, lambda: beta, dev)
+        reconcile_ms, publish_ms, publish_events = [], [], []
+
+        def write_back(idx, td_abs):
+            if frontier is not None:
+                frontier.update(idx, td_abs)
+            else:
+                feed.update_priorities(idx, td_abs)
+
+        def reconcile():
+            feed.settle()
+            reconcile_ms.append(frontier.reconcile() * 1e3)
+
+        sup = TrainSupervisor(cfg)
+        ring = WritebackRing(cfg.writeback_depth, materialize_priorities=frontier is None)
+        committer = RingCommitter(ring, write_back, sup, driver.load_snapshot,
+                                  on_drain=reconcile if frontier is not None else None)
+        losses, finite = [], []
+        last_pub = [driver.step]
+
+        def learn_one():
+            idx, batch = feed.get()
+            info = driver.learn_batch(batch)
+            retired = ring.push(driver.step, batch.idx if frontier is not None else idx, info)
+            if retired is not None:
+                losses.append(retired.scalars["loss"])
+                finite.append(retired.finite)
+            check(committer.commit(retired), "an apex learn step was not finite")
+            if driver.step - last_pub[0] >= cfg.weight_publish_interval:
+                # host clock over the drain (ring retirement and, with the
+                # frontier, the reconcile) and the publish; CUDA events
+                # around the publish's copies
+                tp = time.perf_counter()
+                check(committer.drain(), "an apex learn step was not finite at a publish")
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                driver.publish_weights()
+                ev[1].record()
+                publish_ms.append((time.perf_counter() - tp) * 1e3)
+                publish_events.append(ev)
+                last_pub[0] = driver.step
+
+        try:
+            for _ in range(APEX_WARMUP // per_tick):
+                tick(feed.settle)
+                for _ in range(per_tick):
+                    learn_one()
+            torch.cuda.synchronize()
+            with torch.no_grad():
+                target_before = torch.cat([p.flatten() for p in driver.state.target.parameters()])
+            step0, tick0, act0 = driver.step, state["tick"], len(act_ms)
+            t_run = time.perf_counter()
+            try:
+                with hostsync.forbid_host_sync():
+                    for _ in range(APEX_STEPS // per_tick):
+                        tick(feed.settle)
+                        for _ in range(per_tick):
+                            learn_one()
+                    check(committer.drain(), "an apex learn step was not finite at the drain")
+            except RuntimeError as e:  # CUDA's sync debug mode, or a HostSyncError
+                raise SmokeFailure(f"a host sync in the apex loop: {e}")
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t_run
+            counts = dict(launches)
+            steps = driver.step - step0
+            with torch.no_grad():
+                target_after = torch.cat([p.flatten() for p in driver.state.target.parameters()])
+            requests = cfg.sample_ahead_depth + APEX_WARMUP + APEX_STEPS
+            want = {"K5f_frontier_draw": 0, "K6f_frontier_writeback": 0}
+            if frontier is not None:  # draw_ahead 2 blocks behind the current one
+                want = {"K5f_frontier_draw": math.ceil(requests / frontier.draw_block) + 2,
+                        "K6f_frontier_writeback": APEX_WARMUP + APEX_STEPS}
+            mode = "device" if device_sampling else "host"
+            lat = np.sort(np.asarray(act_ms[act0:]))
+            emit({"phase": "apex", "sampling": mode, "steps": steps, "batch": cfg.batch_size,
+                  "lanes": lanes, "capacity": cfg.memory_capacity, "replay_size": len(memory),
+                  "learn_steps_per_s": steps / elapsed, "seconds": elapsed,
+                  "env_frames_per_s": (state["tick"] - tick0) * lanes / elapsed,
+                  "act_ms_per_tick_p50": float(lat[len(lat) // 2]),
+                  "act_ms_per_tick_p99": float(lat[int(0.99 * (len(lat) - 1))]),
+                  "drain_and_publish_host_ms": publish_ms,
+                  "publish_device_ms": [a.elapsed_time(b) for a, b in publish_events],
+                  "reconcile_ms": reconcile_ms,
+                  "launches": counts,
+                  "launches_per_learn_step": {k: v / (APEX_WARMUP + APEX_STEPS)
+                                              for k, v in counts.items()},
+                  "frontier_launches_want": want,
+                  "k5f_formula": "ceil((sample_ahead_depth + gets) / draw_block) + draw_ahead"
+                                 f" = ceil(({cfg.sample_ahead_depth} + "
+                                 f"{APEX_WARMUP + APEX_STEPS}) / 8) + 2",
+                  "k6f_formula": "one per retired learn step",
+                  "losses_finite": bool(all(np.isfinite(losses)) and all(finite)),
+                  "retired": ring.retired_total, "target_moved": not torch.equal(target_before,
+                                                                          target_after),
+                  "weights_version": driver.weights_version, "fill_s": fill_s, "cuts": cuts})
+            for name, n in want.items():
+                check(counts[name] == n, f"apex ({mode}): {name} launched {counts[name]} times, "
+                                         f"want {n}")
+            for name in (*LEARN_KERNELS, *REPLAY_KERNELS):
+                check((counts[name] > 0) == (name in LEARN_KERNELS),
+                      f"apex ({mode}): {name} launched {counts[name]} times")
+            check(all(np.isfinite(losses)) and all(finite) and sup.rollbacks == 0
+                  and ring.retired_total == APEX_WARMUP + APEX_STEPS,
+                  f"apex ({mode}): a non-finite loss or a step not retired")
+            check(not torch.equal(target_before, target_after), f"apex ({mode}): no target copy")
+            check(len(publish_ms) >= 2, f"apex ({mode}): fewer than 2 publishes")
+            if frontier is not None:
+                check(len(reconcile_ms) >= 3, "apex (device): reconcile did not run at drains")
+            for name, v in counts.items():
+                counts_all[name] = counts_all.get(name, 0) + v
+            return feed, ring, committer, frontier
+        except BaseException:  # stop the worker, then let the failure through
+            feed.close()
+            raise
+
+    feed, _, _, _ = run(False)
+    feed.close()
+    feed, ring, committer, frontier = run(True)
+    try:
+        profile_apex(torch, driver, feed, ring, committer, tick, per_tick)
+    finally:
+        feed.close()
+    return counts_all
+
+
+def profile_apex(torch, driver, feed, ring, committer, tick, per_tick):
+    """Where the time of the device-sampling apex loop goes: device time by
+    kernel name from torch.profiler over PROFILE_STEPS learn steps (with
+    their acting ticks), and the device's idle share of the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS // per_tick):
+            tick(feed.settle)
+            for _ in range(per_tick):
+                _, batch = feed.get()
+                info = driver.learn_batch(batch)
+                committer.commit(ring.push(driver.step, batch.idx, info))
+        committer.drain()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = device_rows(torch, prof)
+    device_us = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    emit({"phase": "profile_apex", "steps": PROFILE_STEPS,
+          "wall_us_per_step": wall_us / PROFILE_STEPS,
+          "device_us_per_step": device_us / PROFILE_STEPS if rows else "not measured",
+          "device_idle_share": 1.0 - device_us / wall_us if rows else "not measured",
+          "top": [{"name": k[:80], "us_per_step": t / PROFILE_STEPS,
+                   "calls_per_step": c / PROFILE_STEPS} for k, t, c in rows[:15]]})
+
+
+def phase_apex_parity(torch, cfg):
+    """One frontier draw and one learn step on the card (kernels) against
+    the same on the CPU (plain twins): a two-shard replay of 16 lanes x
+    1,024 slots at full width, mirrors set to the same dyadic priorities
+    (so both sides' cdfs are exact and draw the same slots), the same
+    uniforms, the same learner state (a few steps in), taus and noise; then
+    each side's K6f write-back of its priorities."""
+    import numpy as np
+
+    from rainbow_iqn_apex_tpu_torch.agents.agent import to_device_batch
+    from rainbow_iqn_apex_tpu_torch.ops.learn import host_state
+    from rainbow_iqn_apex_tpu_torch.parallel.apex import ApexDriver
+    from rainbow_iqn_apex_tpu_torch.parallel.sharded_replay import ShardedReplay
+    from rainbow_iqn_apex_tpu_torch.replay.frontier import (
+        DeviceSampleFrontier,
+        make_batch_assembler,
+    )
+
+    cfg = _apex_cfg(cfg)
+    dev, cpu = torch.device("cuda", 0), torch.device("cpu")
+    lanes, frame = cfg.num_envs_per_actor, (cfg.frame_height, cfg.frame_width)
+    memory = ShardedReplay.build(2, 2 * lanes * 1024, lanes, frame_shape=frame,
+                                 history=cfg.history_length, n_step=cfg.multi_step,
+                                 gamma=cfg.gamma, priority_exponent=cfg.priority_exponent,
+                                 priority_eps=cfg.priority_eps, seed=cfg.seed)
+    rng = np.random.default_rng(SEED + 16)
+    frames, actions, rewards, terms, truncs, pri = _replay_ticks(np, rng, 300, lanes, frame)
+    for t in range(300):
+        memory.append_batch(frames[t], actions[t], rewards[t], terms[t], pri[t].astype(np.float64),
+                            truncations=truncs[t])
+    trees = [s.tree for s in memory.shards]
+    args = (trees, memory.shard_capacity, cfg.priority_eps, cfg.priority_exponent)
+    f_card = DeviceSampleFrontier(*args, device=dev)
+    f_cpu = DeviceSampleFrontier(*args, device=cpu)
+    g = torch.Generator().manual_seed(SEED + 17)
+    mirror = f_cpu.mirror_np()
+    dyadic = torch.where(torch.from_numpy(mirror) > 0,
+                         torch.randint(1, 9, mirror.shape, generator=g).float() / 8, 0.0)
+    f_cpu.mirror.copy_(dyadic)
+    f_card.mirror.copy_(dyadic.to(dev))
+    beta, batch = 0.5, cfg.batch_size
+    u = torch.rand((f_cpu.draw_block, batch), generator=g)
+    blk_k = f_card.draw(batch, beta, len(memory), uniforms=u.to(dev))
+    blk_p = f_cpu.draw(batch, beta, len(memory), uniforms=u)
+    same_idx = bool(torch.equal(blk_k.idx.cpu(), blk_p.idx))
+    draw_rel = max(float(((a.cpu() - b).abs() / b.abs()).max())
+                   for a, b in ((blk_k.prob, blk_p.prob), (blk_k.weight, blk_p.weight)))
+
+    card = ApexDriver(cfg, 18, state_shape=(*frame, cfg.history_length))
+    idx_k, w_k = blk_k.host()
+    sample = make_batch_assembler(memory)(idx_k[0], w_k[0])
+    for _ in range(3):  # warm the Adam moments
+        card.learn_batch(to_device_batch(sample, dev))
+    plain = ApexDriver(cfg, 18, state_shape=(*frame, cfg.history_length), device=cpu)
+    plain.load_state(host_state(card.state), {})
+    draws, on_card = _learn_draws(torch, cfg, plain.state.net, g)
+    b_k, b_p = to_device_batch(sample, dev), to_device_batch(sample, cpu)
+    k_info = card.learn_batch(b_k, draws=on_card)
+    t0 = time.perf_counter()
+    p_info = plain.learn_batch(b_p, draws=draws)
+    cpu_s = time.perf_counter() - t0
+    ids = torch.from_numpy(sample.idx.astype(np.int32))
+    f_card.update(ids.to(dev), k_info["priorities"])
+    f_cpu.update(ids, p_info["priorities"])
+    errs = {}
+    for key, got, want in (("loss", k_info["loss"], p_info["loss"]),
+                           ("priorities", k_info["priorities"], p_info["priorities"]),
+                           ("q_mean", k_info["q_mean"], p_info["q_mean"]),
+                           ("mirror", f_card.mirror_np(), f_cpu.mirror_np())):
+        got, want = torch.as_tensor(got).cpu().double(), torch.as_tensor(want).double()
+        err = (got - want).abs()
+        errs[key] = float(err.max())
+        check(bool(torch.all(err <= LEARN_PATH_TOL["atol"] + LEARN_PATH_TOL["rtol"] * want.abs())),
+              f"apex_parity: {key} differs by {errs[key]}")
+    emit({"phase": "apex_parity", "batch": batch, "groups": f_cpu.draw_block,
+          "mirror": [2, memory.shard_capacity], "same_idx": same_idx,
+          "prob_weight_max_rel_err": draw_rel, "rel_tol": FRONTIER_REL, "max_abs_err": errs,
+          "tol": LEARN_PATH_TOL, "finite": [bool(k_info["finite"]), bool(p_info["finite"])],
+          "cpu_step_s": cpu_s})
+    check(same_idx, "apex_parity: the card and the CPU drew different slots")
+    check(draw_rel <= FRONTIER_REL, f"apex_parity: prob/weight differ by {draw_rel} rel")
+    check(bool(k_info["finite"]) and bool(p_info["finite"]), "apex_parity: a non-finite step")
+
+
+def phase_train_apex(torch):
+    """The port's training CLI with ``--role apex`` and device sampling, in
+    process: toy:catch with ``catch_bar``'s apex scenario (the single
+    scenario as an Ape-X run), bf16, 4,000 frames, seed 7; the bar the JAX
+    ``train_apex`` clears on the same scenario (PERF.md)."""
+    _train_catch(torch, "apex", "train_apex")
+
+
 def device_rows(torch, prof):
     """(name, device us, calls) of the device-side events: kernels and
     copies.  CPU-side op rows carry the same device time again, and user
@@ -1317,6 +1786,8 @@ def main() -> int:
         from rainbow_iqn_apex_tpu_torch.kernels import (
             build,
             dueling_head,
+            frontier_draw,
+            frontier_writeback,
             noisy_linear,
             quantile_huber,
             replay_append,
@@ -1351,7 +1822,7 @@ def main() -> int:
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "library": os.path.relpath(build.library_path(), ROOT), "ptxas": ptxas})
 
-        results, counts = {}, {"serve": {}, "learn": {}, "anakin": {}}
+        results, counts = {}, {"serve": {}, "learn": {}, "anakin": {}, "apex": {}}
         with open(os.path.join(ROOT, "configs", "serve_defaults.json")) as f:
             serve_cfg = Config.from_json(f.read())
         with open(os.path.join(ROOT, "configs", "reference_atari_defaults.json")) as f:
@@ -1366,13 +1837,18 @@ def main() -> int:
         counts["anakin"] = phase_anakin(torch, learn_cfg)
         phase_anakin_parity(torch, learn_cfg)
         phase_train_anakin(torch)
+        results.update(phase_kernels_frontier(torch, learn_cfg))
+        counts["apex"] = phase_apex(torch, learn_cfg)
+        phase_apex_parity(torch, learn_cfg)
+        phase_train_apex(torch)
     except SmokeFailure as e:
         emit({"ok": False, "error": str(e)})
         return 1
 
     rows = {}
     for mod in (tau_embed, noisy_linear, dueling_head, quantile_huber, replay_draw,
-                replay_writeback, replay_append, replay_assemble):
+                replay_writeback, replay_append, replay_assemble, frontier_draw,
+                frontier_writeback):
         rows[mod.NAME] = (mod.SOURCE, mod.REPLACES)
         if hasattr(mod, "NAME_BWD"):
             rows[mod.NAME_BWD] = (mod.SOURCE_BWD, mod.REPLACES_BWD)

@@ -9,5 +9,8 @@ Ported so far: the serving path (``serving.PolicyServer``) at full Atari
 width, with the model (``models/``), the weight converter (``convert.py``)
 and the act step (``ops/act.py``); ``--role single`` training
 (``train.py``, ``ops/learn.py``); ``--role anakin`` with host envs
-(``train_anakin.py``) on the device-resident replay (``replay/device.py``).
+(``train_anakin.py``) on the device-resident replay (``replay/device.py``);
+``--role apex`` on one card (``parallel/apex.py``), sampling the host replay
+or, with ``device_sampling``, the device sample frontier
+(``replay/frontier.py``).
 """

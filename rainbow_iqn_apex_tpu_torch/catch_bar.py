@@ -1,13 +1,21 @@
-"""The catch learning bar of the port's two trainers, over several seeds.
+"""The catch learning bar of the port's trainers, over several seeds.
 
 ``chip_smoke.py`` holds each trainer to the JAX package's own bar: an
 evaluation mean above 0.2 after 4,000 frames of ``toy:catch`` at seed 7
-(``tests/test_train_integration.py``, ``tests/test_anakin.py``).  One such
-run is one draw from a spread of outcomes.  This module defines the two
-scenarios once (``argv``) and runs them over several seeds, a few processes
-at a time, so that the spread can be read:
+(``tests/test_train_integration.py``, ``tests/test_anakin.py``; for
+``--role apex`` the bar the JAX ``train_apex`` clears on the same scenario,
+``PERF.md``).  One such run is one draw from a spread of outcomes.  This
+module defines the scenarios once (``argv``) and runs them over several
+seeds, a few processes at a time, so that the spread can be read:
 
     python -m rainbow_iqn_apex_tpu_torch.catch_bar --role single --seeds 1-9 --parallel 4
+    python -m rainbow_iqn_apex_tpu_torch.catch_bar --role apex --device-sampling false
+
+The apex scenario gives its frame budget as ``--t-max``, which the JAX
+package's CLI reads too, so the same arguments run the reference:
+
+    python train_agent_apex.py $(python -m rainbow_iqn_apex_tpu_torch.catch_bar \
+        --role apex --seeds 3 --print-argv)
 
 Each run is one ``rainbow_iqn_apex_tpu_torch.train`` process with cuDNN's
 deterministic algorithms, as ``chip_smoke.py`` sets them, so a seed gives
@@ -37,13 +45,19 @@ _COMMON = ["--env-id", "toy:catch", "--compute-dtype", "bfloat16", "--frame-heig
            "--gamma", "0.9", "--memory-capacity", "8192", "--learn-start", "512",
            "--frames-per-learn", "2", "--target-update-period", "200",
            "--num-envs-per-actor", "8", "--eval-interval", "0", "--checkpoint-interval", "0",
-           "--eval-episodes", "40", "--max-frames", str(FRAMES)]
+           "--eval-episodes", "40"]
 _ROLE = {
     # tests/test_train_integration.py's _cfg (bf16: the card takes no other dtype)
     "single": ["--role", "single", "--num-quantile-samples", "8", "--adam-eps", "1e-8",
-               "--metrics-interval", "200"],
+               "--metrics-interval", "200", "--max-frames", str(FRAMES)],
     # tests/test_anakin.py's test_anakin_learns_catch
-    "anakin": ["--role", "anakin", "--num-quantile-samples", "4", "--metrics-interval", "100"],
+    "anakin": ["--role", "anakin", "--num-quantile-samples", "4", "--metrics-interval", "100",
+               "--max-frames", str(FRAMES)],
+    # the single scenario as an Ape-X run: actors on weights published every
+    # 100 learn steps, actor-side initial priorities; t_max is the budget
+    "apex": ["--role", "apex", "--num-quantile-samples", "8", "--adam-eps", "1e-8",
+             "--metrics-interval", "200", "--weight-publish-interval", "100",
+             "--t-max", str(FRAMES)],
 }
 
 _BOOT = ("import sys, torch; torch.backends.cudnn.deterministic = True; "
@@ -51,19 +65,22 @@ _BOOT = ("import sys, torch; torch.backends.cudnn.deterministic = True; "
          "from rainbow_iqn_apex_tpu_torch.train import main; main(sys.argv[1:])")
 
 
-def argv(role: str, seed: int, workdir: str) -> List[str]:
+def argv(role: str, seed: int, workdir: str, device_sampling: bool = True) -> List[str]:
     """The trainer's CLI arguments of ``role``'s catch scenario at ``seed``,
-    writing results and checkpoints under ``workdir``."""
-    return [*_COMMON, *_ROLE[role], "--seed", str(seed),
+    writing results and checkpoints under ``workdir``; ``device_sampling``
+    is the apex scenario's sampling mode."""
+    extra = ["--device-sampling", str(device_sampling).lower()] if role == "apex" else []
+    return [*_COMMON, *_ROLE[role], *extra, "--seed", str(seed),
             "--results-dir", os.path.join(workdir, "results"),
             "--checkpoint-dir", os.path.join(workdir, "ckpt")]
 
 
-def run(role: str, seed: int, device: str) -> Dict:
+def run(role: str, seed: int, device: str, device_sampling: bool = True) -> Dict:
     """One scenario run in its own process; its summary."""
     with tempfile.TemporaryDirectory(prefix="catch_bar_") as tmp:
         proc = subprocess.run(
-            [sys.executable, "-c", _BOOT, *argv(role, seed, tmp), "--device", device],
+            [sys.executable, "-c", _BOOT, *argv(role, seed, tmp, device_sampling),
+             "--device", device],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     out: Dict = {"role": role, "seed": seed, "rc": proc.returncode}
     if proc.returncode != 0:
@@ -91,11 +108,22 @@ def main(args=None) -> int:
     p.add_argument("--seeds", default="1-9", help="e.g. 1-9 or 7,7,7")
     p.add_argument("--parallel", type=int, default=4, help="runs at a time")
     p.add_argument("--device", default="cuda:0")
+    p.add_argument("--device-sampling", default="true", choices=("true", "false"),
+                   help="the apex scenario's sampling mode (default true)")
+    p.add_argument("--print-argv", action="store_true",
+                   help="print each run's trainer arguments (results under ./catch_bar) "
+                        "and run nothing")
     a = p.parse_args(args)
+    sampling = a.device_sampling == "true"
     jobs = [(role, seed) for role in (a.role or sorted(_ROLE)) for seed in _seeds(a.seeds)]
+    if a.print_argv:
+        for role, seed in jobs:
+            print(" ".join(argv(role, seed, os.path.join("catch_bar", f"{role}{seed}"),
+                                sampling)))
+        return 0
 
     def one(job):
-        result = run(*job, device=a.device)
+        result = run(*job, device=a.device, device_sampling=sampling)
         print(json.dumps(result), flush=True)
         return result
 

@@ -17,6 +17,8 @@ and which tests and ``chip_smoke.py`` hold the kernel against.
     K6  replay_writeback.replay_writeback      fenced priority write-back
     K7  replay_append.replay_append            one append tick into the replay ring
     K8  replay_assemble.replay_assemble        n-step assembly, stack gathers, IS weights
+    K5f frontier_draw.frontier_draw            the sample frontier's draw with IS weights
+    K6f frontier_writeback.frontier_writeback  the sample frontier's fenced write-back
 
 Each backward has a ``torch.autograd.Function`` beside it in the same
 module (``TauEmbedFn``, ``NoisyLinearFn``, ``DuelingGatherFn``,

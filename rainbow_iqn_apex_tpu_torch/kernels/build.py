@@ -31,7 +31,8 @@ CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 SOURCES = ("tau_embed.cu", "noisy_linear.cu", "dueling_head.cu", "quantile_huber.cu",
            "tau_embed_bwd.cu", "noisy_linear_bwd.cu", "dueling_head_bwd.cu", "replay_draw.cu",
-           "replay_writeback.cu", "replay_append.cu", "replay_assemble.cu")
+           "replay_writeback.cu", "replay_append.cu", "replay_assemble.cu", "frontier_draw.cu",
+           "frontier_writeback.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -50,6 +51,8 @@ launches: Dict[str, int] = {
     "K6_replay_writeback": 0,
     "K7_replay_append": 0,
     "K8_replay_assemble": 0,
+    "K5f_frontier_draw": 0,
+    "K6f_frontier_writeback": 0,
 }
 
 _lock = threading.Lock()

@@ -44,21 +44,23 @@ def load_network(cfg: Config, num_actions: int, params: Mapping[str, torch.Tenso
     return net.requires_grad_(False).eval()
 
 
-ActStep = Callable[[RainbowIQN, torch.Tensor, Optional[torch.Generator]],
-                   Tuple[torch.Tensor, torch.Tensor]]
+ActStep = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
 
 
 def build_act_step(cfg: Config, num_actions: int, use_noise: bool = True) -> ActStep:
     """Batched greedy acting: (net, obs [B, H, W, C] u8, generator) ->
     (actions [B] int32, q [B, A] fp32), both on the net's device.  ``net``
-    is the params holder, a network from ``load_network``."""
+    is the params holder, a network from ``load_network``.  ``taus=`` and
+    ``noise=`` replace the generator's draws (tests)."""
 
-    def act_step(net: RainbowIQN, obs: torch.Tensor,
-                 generator: Optional[torch.Generator]) -> Tuple[torch.Tensor, torch.Tensor]:
+    def act_step(net: RainbowIQN, obs: torch.Tensor, generator: Optional[torch.Generator],
+                 taus: Optional[torch.Tensor] = None,
+                 noise=None) -> Tuple[torch.Tensor, torch.Tensor]:
         if net.use_noise != use_noise or net.num_actions != num_actions:
             raise ValueError("act step and network disagree on noise or actions")
         with torch.inference_mode():
-            out = net(obs, cfg.num_quantile_samples, generator=generator)
+            out = net(obs, cfg.num_quantile_samples, taus=taus, generator=generator,
+                      noise=noise)
         return out.action, out.q
 
     return act_step

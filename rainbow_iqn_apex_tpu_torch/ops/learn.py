@@ -54,6 +54,7 @@ class Batch:
     discount: torch.Tensor  # [B] f32 — gamma^n * (1 - done)
     weight: torch.Tensor  # [B] f32 — PER importance-sampling weights
     game: Optional[torch.Tensor] = None  # multi-game ids: not ported
+    idx: Optional[torch.Tensor] = None  # [B] int32 slot ids (device sampling's write-back)
 
 
 @dataclasses.dataclass

@@ -8,12 +8,14 @@ priority write-back pipelined through the depth-K ring so the learn loop
 issues no blocking device->host read per step.
 
 ``--role anakin`` (``architecture='iqn'``) runs ``train_anakin.train_anakin``
-instead: the learner with its replay on the device.
+instead: the learner with its replay on the device.  ``--role apex`` runs
+``parallel.apex.train_apex``: Ape-X on one card, the replay sampled on the
+host or, with ``--device-sampling``, through the device sample frontier.
 
 Not ported (each raises NotImplementedError; ROADMAP.md lists them):
 league membership (``league_dir``), ``replay_ratio > 1``, ``obs_net``,
 ``trace_dir`` device traces, multi-game ids, ``architecture='r2d2'`` and
-every role other than ``single`` and ``anakin``.
+every role other than ``single``, ``anakin`` and ``apex``.
 
 Run it as ``python -m rainbow_iqn_apex_tpu_torch.train --env-id toy:catch``
 (any Config field is a ``--flag``; ``--device cpu`` runs on the CPU, the
@@ -75,8 +77,8 @@ def check_single_role(cfg: Config) -> None:
     check_supported(cfg)
     if cfg.role != "single":
         raise NotImplementedError(
-            f"role={cfg.role!r}: only 'single' (train) and 'anakin' "
-            "(train_anakin.train_anakin) are ported yet")
+            f"role={cfg.role!r}: only 'single' (train), 'anakin' "
+            "(train_anakin.train_anakin) and 'apex' (parallel.apex.train_apex) are ported yet")
     if cfg.league_dir or cfg.league_member_id >= 0:
         raise NotImplementedError("league membership (league_dir) is not ported yet")
     if cfg.games:
@@ -87,11 +89,16 @@ def train(cfg: Config, max_frames: Optional[int] = None,
           device: DeviceLike = None) -> Dict[str, Any]:
     """Runs training on ``device`` (``cuda:0`` unless named); returns a
     summary dict (final eval, steps, fault counts).  ``--role anakin`` goes
-    to ``train_anakin.train_anakin``."""
+    to ``train_anakin.train_anakin``, ``--role apex`` to
+    ``parallel.apex.train_apex``."""
     if cfg.role == "anakin":
         from rainbow_iqn_apex_tpu_torch.train_anakin import train_anakin
 
         return train_anakin(cfg, max_frames=max_frames, device=device)
+    if cfg.role == "apex":
+        from rainbow_iqn_apex_tpu_torch.parallel.apex import train_apex
+
+        return train_apex(cfg, max_frames=max_frames, device=device)
     check_single_role(cfg)
     device = resolve_device(device)
     total_frames = max_frames or cfg.t_max

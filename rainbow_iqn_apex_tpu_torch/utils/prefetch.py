@@ -6,8 +6,8 @@ while the learn step for the previous batch is still executing.  On CUDA
 the staging runs on a side stream (pinned host memory, non-blocking
 copies) and records an event; ``get()`` makes the consumer's stream wait
 on that event, so the main thread never blocks on host-side sampling or on
-the upload.  The sample-ahead pusher of the JAX package (device-side
-sampling) is not ported.
+the upload.  ``SampleAheadPusher`` does the same for batches whose
+indices the device sample frontier drew (replay/frontier.py).
 
 Priority write-back consequently lags by the pipeline depth — exactly the
 staleness semantics the distributed reference already has (the learner's
@@ -30,11 +30,15 @@ no replay work but the appends.
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import dataclasses
 import queue
 import threading
 import time
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 _STOP = object()
@@ -162,6 +166,38 @@ class BatchPrefetcher:
         self._thread.join(timeout=5)
 
 
+def _stage_sample(sample, device: torch.device, stream, with_idx: bool = False):
+    """``(sample.idx, device Batch, event)``: the host sample uploaded on
+    ``stream`` (pinned, non-blocking) with an event behind it; on the CPU
+    (``stream`` None) a plain copy and no event.  ``with_idx`` also stages
+    the rows' slot ids as ``batch.idx`` (int32), for a device write-back."""
+    from rainbow_iqn_apex_tpu_torch.agents.agent import put_frames, to_device_batch
+
+    with contextlib.nullcontext() if stream is None else torch.cuda.stream(stream):
+        batch = to_device_batch(sample, device)
+        if with_idx:
+            batch.idx = put_frames(np.asarray(sample.idx, np.int32), device)
+        if stream is None:
+            return sample.idx, batch, None
+        staged = torch.cuda.Event()
+        staged.record(stream)
+    return sample.idx, batch, staged
+
+
+def _adopt(batch, staged, device: torch.device):
+    """Order the consumer's stream after a staged upload, and keep the
+    batch's memory from being reused before that stream is done with it."""
+    if staged is None:
+        return batch
+    current = torch.cuda.current_stream(device)
+    current.wait_event(staged)
+    for f in dataclasses.fields(batch):
+        t = getattr(batch, f.name)
+        if t is not None:
+            t.record_stream(current)
+    return batch
+
+
 class ReplayPrefetcher(BatchPrefetcher):
     """Replay sampling staged on a side CUDA stream: items are ``(idx,
     Batch)``; ``get()`` orders the consumer's stream after the upload.  The
@@ -170,37 +206,125 @@ class ReplayPrefetcher(BatchPrefetcher):
 
     def __init__(self, memory, cfg, beta_fn: Callable[[], float], device: torch.device,
                  registry=None):
-        from rainbow_iqn_apex_tpu_torch.agents.agent import to_device_batch
-
         self.device = device
         self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
-
-        def _stage(s):
-            if self.stream is None:
-                return s.idx, to_device_batch(s, device), None
-            with torch.cuda.stream(self.stream):
-                batch = to_device_batch(s, device)
-                staged = torch.cuda.Event()
-                staged.record(self.stream)
-            return s.idx, batch, staged
-
         self._memory = memory
         super().__init__(lambda beta: memory.sample(cfg.batch_size, beta),
                          depth=cfg.prefetch_depth, registry=registry,
-                         request_fn=beta_fn, stage_fn=_stage)
+                         request_fn=beta_fn,
+                         stage_fn=lambda s: _stage_sample(s, device, self.stream))
 
     def update_priorities(self, idx, td_abs) -> None:
         self.call(self._memory.update_priorities, idx, td_abs)
 
     def get(self, timeout: float = 60.0):
         idx, batch, staged = super().get(timeout=timeout)
-        if staged is not None:
-            current = torch.cuda.current_stream(self.device)
-            current.wait_event(staged)
-            for t in (batch.obs, batch.action, batch.reward, batch.next_obs,
-                      batch.discount, batch.weight):
-                t.record_stream(current)  # the allocator may not reuse it early
-        return idx, batch
+        return idx, _adopt(batch, staged, self.device)
+
+
+class SampleAheadPusher(BatchPrefetcher):
+    """Sample-ahead over the device sample frontier (replay/frontier.py):
+    index blocks drawn on the device (K5f), frames gathered from host
+    memory at those indices, staged to the device with their slot ids on a
+    side stream; the learner pops ``(idx, batch)`` and writes back through
+    ``batch.idx`` (K6f).
+
+    Counterpart of ``rainbow_iqn_apex_tpu/utils/prefetch.py:SampleAheadPusher``.
+    The JAX pusher draws whenever its queue has room, so the IS exponent,
+    the item count and the staged appends a draw sees follow thread
+    timing.  Here everything that decides a batch's rows is fixed on the
+    consumer's thread when the batch is asked for (at the start ``depth``
+    times, then at every ``get()``): ``beta_fn()``, ``n_items_fn()``, the
+    flush of staged appends and the draws themselves, which only enqueue
+    work on the frontier's stream.  The worker then, in request order,
+    materializes each block once (its own event, not a device sync, so the
+    consumer's ``forbid_host_sync()`` holds), gathers the batch
+    (``assemble_fn(idx, weight)`` -> host ``SampledBatch``) and stages it.
+    With ``settle()`` before each host replay write, a seeded run draws the
+    same batches whatever the threads' timing.
+
+    Per request: when the current block is used up, the oldest drawn block
+    becomes current (one is drawn if none is), then blocks are drawn until
+    ``draw_ahead`` wait behind it.  After R requests, ceil(R / G) +
+    draw_ahead blocks have been drawn (G = ``frontier.draw_block``): the
+    K5f launches.
+
+    ``reuse`` (replay ratio K): one batch feeds K learn passes, so both
+    ``depth`` and ``draw_ahead`` shrink K-fold (ceil, at least 1).
+
+    Gauges on the shared registry (role ``prefetch``), beside the base
+    class's ``prefetch_*`` ones:
+
+      sample_ahead_queue_depth          staged batches ready to pop
+      sample_ahead_stale_indices_total  rows served across a shard
+                                        drop/readmit epoch flip
+    """
+
+    def __init__(
+        self,
+        frontier,
+        assemble_fn: Callable[[Any, Any], Any],  # (idx, weight) -> host SampledBatch
+        batch_size: int,
+        beta_fn: Callable[[], float],
+        n_items_fn: Callable[[], int],
+        device: torch.device,
+        depth: int = 2,
+        draw_ahead: int = 2,
+        reuse: int = 1,
+        registry=None,
+        role: str = "prefetch",
+    ):
+        self.frontier = frontier
+        self.device = device
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self._assemble = assemble_fn
+        self._B = int(batch_size)
+        self._beta_fn = beta_fn
+        self._n_items_fn = n_items_fn
+        shrink = max(int(reuse), 1)
+        self._draw_ahead = max(-(-int(draw_ahead) // shrink), 1)
+        depth = max(-(-int(depth) // shrink), 1)
+        self._blocks: collections.deque = collections.deque()  # drawn, not yet current
+        self._current = None
+        self._row = 0
+        self.blocks_drawn = 0
+        self._g_sa_depth = self._c_stale = None
+        if registry is not None:
+            self._g_sa_depth = registry.gauge("sample_ahead_queue_depth", role)
+            self._c_stale = registry.counter("sample_ahead_stale_indices_total", role)
+        super().__init__(self._produce, depth=depth, registry=registry, role=role,
+                         request_fn=self._request,
+                         stage_fn=lambda s: _stage_sample(s, device, self.stream, with_idx=True))
+
+    def _draw(self):
+        self.blocks_drawn += 1
+        return self.frontier.draw(self._B, self._beta_fn(), self._n_items_fn())
+
+    def _request(self):
+        """On the consumer's thread: the (block, row) of the next batch."""
+        if self._current is None or self._row == self._current.groups:
+            self._current = self._blocks.popleft() if self._blocks else self._draw()
+            self._row = 0
+        while len(self._blocks) < self._draw_ahead:
+            self._blocks.append(self._draw())
+        self._row += 1
+        return self._current, self._row - 1
+
+    def _produce(self, request):
+        """On the worker: gather the batch of one (block, row)."""
+        block, row = request
+        idx, weight = block.host()
+        if row == 0:
+            stale = self.frontier.stale_rows(idx, block.stamp)
+            if stale and self._c_stale is not None:
+                self._c_stale.inc(stale)
+        return self._assemble(idx[row], weight[row])
+
+    def get(self, timeout: float = 60.0):
+        idx, batch, staged = super().get(timeout=timeout)
+        if self._g_sa_depth is not None:
+            self._g_sa_depth.set(self._q.qsize())
+        return idx, _adopt(batch, staged, self.device)
 
 
 def make_replay_prefetcher(

@@ -13,6 +13,10 @@ queued, so the copy has long landed) and hands back host priorities and
 scalars for the replay write-back and the deferred
 ``TrainSupervisor.retire_ok`` check.  On the CPU the "copy" is a clone.
 
+With ``materialize_priorities=False`` (device sampling: the write-back
+target is the device priority mirror, replay/frontier.py) only the scalars
+cross to the host; retirement hands the still-on-device |TD| tensor on.
+
 Rollback contract: when a retired entry is non-finite the caller must
 quarantine the retired idx AND every idx still in the ring — ``flush()``
 hands those back without reading their (poisoned) values — then roll back
@@ -26,7 +30,8 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,11 +41,13 @@ from rainbow_iqn_apex_tpu_torch.utils import hostsync
 
 @dataclasses.dataclass
 class RetiredStep:
-    """One learn step, materialized on the host at ring retirement."""
+    """One learn step, materialized on the host at ring retirement.  In
+    mirror mode (``materialize_priorities=False``) ``idx`` and
+    ``priorities`` stay the device tensors they were pushed as."""
 
     step: int
-    idx: np.ndarray
-    priorities: np.ndarray
+    idx: Any  # np.ndarray, or the batch's device slot ids in mirror mode
+    priorities: Any  # np.ndarray, or the device |TD| in mirror mode
     finite: bool
     scalars: Dict[str, float]  # loss, grad_norm, q_mean, ... (host floats)
     lag: int  # newest dispatched step - this step, at retirement
@@ -49,30 +56,38 @@ class RetiredStep:
 class _Staged:
     """One in-flight step: its device->host copies and the event behind them."""
 
-    def __init__(self, info: Dict[str, Any]):
+    def __init__(self, info: Dict[str, Any], materialize: bool = True):
         tensors = {k: v.detach() for k, v in info.items()}
         pri = tensors.pop("priorities")
         self.keys = sorted(k for k, v in tensors.items() if v.dim() == 0)
         scalars = (torch.stack([tensors[k].to(torch.float32) for k in self.keys])
                    if self.keys else pri.new_zeros((0,), dtype=torch.float32))
+        self.materialize_priorities = materialize
         self.event = None
+        if not materialize:
+            self.priorities = pri  # stays on the device
         if pri.device.type == "cuda":
-            self.priorities = torch.empty(pri.shape, dtype=pri.dtype, pin_memory=True)
-            self.priorities.copy_(pri, non_blocking=True)
+            if materialize:
+                self.priorities = torch.empty(pri.shape, dtype=pri.dtype, pin_memory=True)
+                self.priorities.copy_(pri, non_blocking=True)
             self.scalars = torch.empty(scalars.shape, dtype=torch.float32, pin_memory=True)
             self.scalars.copy_(scalars, non_blocking=True)
             self.event = torch.cuda.Event()
             self.event.record()
         else:
-            self.priorities, self.scalars = pri.clone(), scalars.clone()
+            self.scalars = scalars.clone()
+            if materialize:
+                self.priorities = pri.clone()
 
-    def materialize(self) -> Tuple[np.ndarray, bool, Dict[str, float]]:
-        """Wait for the copies (a sanctioned sync); (priorities, finite, scalars)."""
+    def materialize(self) -> Tuple[Any, bool, Dict[str, float]]:
+        """Wait for the copies (a sanctioned sync); (priorities, finite,
+        scalars), the priorities a device tensor in mirror mode."""
         with hostsync.sanctioned():
             if self.event is not None:
                 self.event.synchronize()
             values = dict(zip(self.keys, self.scalars.tolist()))
-            pri = self.priorities.numpy().copy()
+            pri = (self.priorities.numpy().copy() if self.materialize_priorities
+                   else self.priorities)
         finite = bool(values.pop("finite", 1.0))
         return pri, finite, values
 
@@ -80,10 +95,19 @@ class _Staged:
 class WritebackRing:
     """Depth-K ring of in-flight ``(step, idx, device info)`` learn steps.
     Gauges (in-flight depth, write-back lag) land on the shared obs
-    registry when one is attached."""
+    registry when one is attached.
 
-    def __init__(self, depth: int, registry=None, role: str = "learner"):
+    ``materialize_priorities=False`` (the write-back target takes device
+    tensors: the frontier's mirror) copies only the scalars and the finite
+    flag to the host.  ``tracer`` (a ``PipelineTracer``) records the
+    dispatch-to-retire wall lag (``lag_ring_retire_ms``) and, for sampled
+    steps, a ``ring_retire`` span of the retirement work."""
+
+    def __init__(self, depth: int, registry=None, role: str = "learner",
+                 materialize_priorities: bool = True, tracer=None):
         self.depth = max(int(depth), 0)
+        self._materialize = bool(materialize_priorities)
+        self._tracer = tracer
         self._q: collections.deque = collections.deque()
         self._last_pushed = 0
         self._retired_total = 0
@@ -106,7 +130,7 @@ class WritebackRing:
         """Enqueue a dispatched step and start its device->host copies;
         returns the retired oldest entry when the ring was already holding
         ``depth`` steps (None otherwise)."""
-        self._q.append((int(step), idx, _Staged(info)))
+        self._q.append((int(step), idx, _Staged(info, self._materialize), time.time()))
         self._last_pushed = int(step)
         retired = self.retire_one() if len(self._q) > self.depth else None
         if self._g_depth is not None:
@@ -115,7 +139,8 @@ class WritebackRing:
 
     def retire_one(self) -> RetiredStep:
         """Materialize and pop the OLDEST in-flight step (sanctioned sync)."""
-        step, idx, staged = self._q.popleft()
+        step, idx, staged, t_push = self._q.popleft()
+        t_retire = time.time()
         pri, finite, scalars = staged.materialize()
         lag = self._last_pushed - step
         self.last_lag = lag
@@ -123,6 +148,13 @@ class WritebackRing:
         if self._g_depth is not None:
             self._g_depth.set(len(self._q))
             self._g_lag.set(lag)
+        if self._tracer is not None:
+            # the lag is dispatch -> retire (how stale the priorities are
+            # when they land); the span is only the retirement work
+            self._tracer.lag("ring_retire_ms", (time.time() - t_push) * 1e3)
+            if self._tracer.sampled(step):
+                self._tracer.emit_span("ring_retire", self._tracer.trace_id("l", step),
+                                       t_retire, step=step, lag_steps=lag)
         return RetiredStep(
             step=step, idx=idx, priorities=pri, finite=finite,
             scalars=scalars, lag=lag,
@@ -139,7 +171,7 @@ class WritebackRing:
         """Drop every in-flight entry WITHOUT materializing its device info
         (it may be poisoned); returns ``[(step, idx), ...]`` oldest-first for
         quarantine write-back."""
-        out = [(step, idx) for step, idx, _ in self._q]
+        out = [(step, idx) for step, idx, _, _ in self._q]
         self._q.clear()
         if self._g_depth is not None:
             self._g_depth.set(0)
@@ -210,9 +242,10 @@ def reuse_health(reuse_k: int,
     }
 
 
-def pipeline_gauges(ring: WritebackRing, registry,
+def pipeline_gauges(ring: WritebackRing, registry, frontier=None,
                     reuse: Optional[Dict[str, Any]] = None) -> Dict[str, float]:
-    """The pipeline-health gauges the loop feeds to ``obs_run.periodic``."""
+    """The pipeline-health gauges the loop feeds to ``obs_run.periodic``;
+    the sample-ahead ones only while a device frontier is live."""
     out = {
         "writeback_inflight": len(ring),
         "writeback_lag_steps": ring.last_lag,
@@ -225,6 +258,14 @@ def pipeline_gauges(ring: WritebackRing, registry,
     }
     if reuse:
         out.update(reuse)
+    if frontier is not None:
+        out.update({
+            "sample_ahead_queue_depth": registry.gauge(
+                "sample_ahead_queue_depth", "prefetch").get(),
+            "sample_ahead_stale_indices": registry.counter(
+                "sample_ahead_stale_indices_total", "prefetch").get(),
+            "mirror_reconcile_s": registry.gauge("mirror_reconcile_s", "frontier").get(),
+        })
     return out
 
 
@@ -241,14 +282,19 @@ class RingCommitter:
     rolls back via ``load_snapshot(*supervisor.rollback())`` to the last
     drained-and-verified snapshot, which is by construction >= the ring
     depth behind the poison.
+
+    ``on_drain`` runs after every clean drain: device sampling reconciles
+    the priority mirror into the host sum-trees there, so snapshots,
+    publishes and checkpoints read a caught-up cold path.
     """
 
     def __init__(self, ring: WritebackRing, update_priorities, supervisor,
-                 load_snapshot):
+                 load_snapshot, on_drain: Optional[Callable[[], Any]] = None):
         self.ring = ring
         self._update = update_priorities
         self._sup = supervisor
         self._load_snapshot = load_snapshot
+        self._on_drain = on_drain
         self.scalars: Dict[str, float] = {}  # newest retired step's scalars
 
     def _quarantine_and_rollback(self, bad: RetiredStep) -> None:
@@ -271,8 +317,11 @@ class RingCommitter:
 
     def drain(self) -> bool:
         """Ring boundary: retire everything in flight; False when one
-        tripped and we rolled back."""
+        tripped and we rolled back (``on_drain`` is then skipped: the next
+        clean drain catches up)."""
         while len(self.ring):
             if not self.commit(self.ring.retire_one()):
                 return False
+        if self._on_drain is not None:
+            self._on_drain()
         return True

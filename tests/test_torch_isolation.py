@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: rainbow_iqn_apex_tpu_torch and
 chip_smoke.py import no JAX-family package and nothing of the JAX package
 rainbow_iqn_apex_tpu, the whole port imports, serves, takes a learn step,
-trains and takes a fused Anakin step (device replay) with those blocked,
+trains, takes a fused Anakin step (device replay) and runs a short Ape-X
+loop with device sampling with those blocked,
 and nothing falls back to the CPU unless the caller asks for it.
 """
 
@@ -109,6 +110,16 @@ state = init_train_state(cfg, 3, seed=0, device="cpu")
 before = ds.priority.clone()
 state, ds, info = build_device_learn(cfg, 3, replay)(state, ds, torch.Generator().manual_seed(0), 0.5)
 assert state.step == 1 and bool(info["finite"]) and not torch.equal(before, ds.priority)
+
+from rainbow_iqn_apex_tpu_torch.parallel.apex import train_apex
+with tempfile.TemporaryDirectory() as tmp:
+    summary = train_apex(cfg.replace(env_id="toy:catch", frame_height=80, frame_width=80,
+                                     role="apex", device_sampling=True, learn_start=64,
+                                     batch_size=8, memory_capacity=512, num_envs_per_actor=4,
+                                     eval_episodes=1, stall_timeout_s=0.0,
+                                     results_dir=tmp + "/r", checkpoint_dir=tmp + "/c"),
+                         max_frames=160, device="cpu")
+assert summary["frames"] == 160 and summary["learn_steps"] > 0
 print("OK", len(mods))
 """
 

@@ -161,7 +161,7 @@ def test_prefetcher_batches_see_exactly_the_writes_before_their_request():
     assert seen == [(0, 0), (0, 0)] + [(j, j) for j in range(22)]
 
 
-@pytest.mark.parametrize("kw", [dict(role="apex"), dict(league_dir="x"), dict(replay_ratio=2),
+@pytest.mark.parametrize("kw", [dict(role="standby"), dict(league_dir="x"), dict(replay_ratio=2),
                                 dict(architecture="r2d2"), dict(trace_dir="t"),
                                 dict(obs_net=True)],
                          ids=["role", "league", "reuse", "r2d2", "trace_dir", "obs_net"])
