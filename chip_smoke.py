@@ -51,11 +51,32 @@ and runs every phase, in this order:
   the device frontier (``SampleAheadPusher``, K5f, K6f, reconcile at
   drains), publishes every 100 steps, under ``forbid_host_sync()``, with
   the exact launches of each run, and a profile;
+- ``kernels_quant``: the quantized act path's kernels (K10q int8 and fp8
+  over the full-width tree with a zero channel, ties and e4m3's overflow
+  edges planted, bit-equal; K10g int8 and e4m3, greedy at serving's M 2048
+  and noisy at apex acting's M 512; K10d bit-equal) against their twins,
+  timed the same way (K10g's yardstick is two calls: the dequantize into
+  bf16, then ``F.linear``);
+- ``apex_quant``: the ``apex`` phase's device-sampling loop over its filled
+  replay with int8 actors (``serve_quantize`` int8, ``quant_agreement_min``
+  0): calibration drawn from the replay, 120 learn steps with a gated
+  publish every 40 under ``forbid_host_sync()``, the exact launches of
+  K10q, K10d and K10g, learn steps/s, act ms and publish bytes against the
+  bf16 run;
+- ``serve_quant``: ``PolicyServer`` with ``serve_quantize`` int8, then fp8:
+  the gate at the config's 0.99, a forced pass serving 512 requests from 8
+  clients with exact launches per dispatch (K10d 1, K2 1, K10g 4, K4 1, K3
+  0), a forced fail with its one ``quant_fallback`` row, and the card's
+  quantized path against the CPU's;
 - ``apex_parity``: one frontier draw and one learn step on the card against
   the same through the plain twins on the CPU;
 - ``train_apex``: ``python -m rainbow_iqn_apex_tpu_torch.train --role apex``
   with device sampling on ``toy:catch`` for 4,000 frames, held to the bar
-  the JAX ``train_apex`` clears on the same scenario.
+  the JAX ``train_apex`` clears on the same scenario;
+- ``train_apex_quant``: the same with ``--serve-quantize int8
+  --quant-agreement-min 0`` at seeds 7-10, one process each, all at once,
+  their mean evaluation held to the same bar, with the count of publishes
+  that shipped int8.
 
 One JSON object per line; the line before the last is the card's name and
 power limit from ``nvidia-smi``, and the last line is
@@ -120,7 +141,8 @@ ANAKIN_PER_STEP = {"K1_quantile_huber": 1, "K2_tau_embed": 3, "K2_tau_embed_bwd"
                    "K3_noisy_linear": 12, "K3_noisy_linear_bwd": 4, "K4_dueling_head": 3,
                    "K4_dueling_head_bwd": 1, "K5_replay_draw": 1, "K6_replay_writeback": 1,
                    "K7_replay_append": 0, "K8_replay_assemble": 1, "K5f_frontier_draw": 0,
-                   "K6f_frontier_writeback": 0}
+                   "K6f_frontier_writeback": 0, "K10q_quantize": 0, "K10g_noisy_linear_q": 0,
+                   "K10d_dequantize": 0}
 FRONTIER_SHARDS = 2  # kernels_frontier: the mirror of 2 shards, the second one dead
 FRONTIER_REL = 1e-6  # K5f prob and weight: K5's chained total against torch's sum
 APEX_FILL = 2000  # append ticks of 16 lanes before the apex runs (32,000 transitions)
@@ -130,6 +152,14 @@ APEX_PUBLISH = 100  # weight_publish_interval of the apex phases (config: 400)
 APEX_FRAME_POOL = 64  # distinct synthetic ticks of frames cycled through the fill
 REPLAY_KERNELS = ("K5_replay_draw", "K6_replay_writeback", "K7_replay_append",
                   "K8_replay_assemble")
+QUANT_KERNELS = ("K10q_quantize", "K10g_noisy_linear_q", "K10d_dequantize")
+# a quantized dispatch: K10d, K2, K10g x4 (two heads of two layers), K4, and no K3
+QUANT_PER_DISPATCH = {"K10d_dequantize": 1, "K2_tau_embed": 1, "K10g_noisy_linear_q": 4,
+                      "K4_dueling_head": 1, "K3_noisy_linear": 0, "K10q_quantize": 0}
+QUANT_REQUESTS = 512  # serve_quant: requests per mode, from CLIENTS clients
+APEX_QUANT_STEPS = 120  # learn steps of the apex_quant run, publishes every APEX_QUANT_PUBLISH
+APEX_QUANT_PUBLISH = 40
+QUANT_CATCH_SEEDS = (7, 8, 9, 10)  # train_apex_quant: train_apex's seed and the next three
 
 
 def emit(obj) -> None:
@@ -1307,14 +1337,14 @@ def phase_apex(torch, cfg):
     _, _, rewards, terms, truncs, _ = _replay_ticks(np, rng, APEX_FILL + 3 * run_ticks, lanes,
                                                     (1, 1), p_term=0.01, p_trunc=0.002)
     beta = priority_beta(cfg, APEX_FILL * lanes)
-    state = {"tick": 0, "cuts": np.zeros(lanes, bool)}
+    state = {"tick": 0, "cuts": np.zeros(lanes, bool), "driver": driver}
     act_ms = []
 
     def tick(settle):
         t = state["tick"]
         frames = pool[t % APEX_FRAME_POOL]
         ta = time.perf_counter()
-        actions, q = driver.act_frames(frames, state["cuts"])
+        actions, q = state["driver"].act_frames(frames, state["cuts"])
         act_ms.append((time.perf_counter() - ta) * 1e3)
         pri = estimator.push(q, actions, rewards[t], terms[t] | truncs[t])
         settle()
@@ -1334,9 +1364,12 @@ def phase_apex(torch, cfg):
             "learn_start": f"{cfg.learn_start} (met)"}
     counts_all = {}
 
-    def run(device_sampling):
-        """One mode's loop; returns its feed (pusher or prefetcher), ring,
-        committer and frontier (None with host sampling)."""
+    def run(device_sampling, steps=APEX_STEPS, phase="apex"):
+        """One mode's loop of the driver in ``state``; returns its feed
+        (pusher or prefetcher), ring, committer, frontier (None with host
+        sampling) and the row it emitted."""
+        driver = state["driver"]
+        publish_interval = driver.cfg.weight_publish_interval
         reset_launches()  # the main path: this mode's whole run
         frontier = None
         if device_sampling:
@@ -1374,7 +1407,7 @@ def phase_apex(torch, cfg):
                 losses.append(retired.scalars["loss"])
                 finite.append(retired.finite)
             check(committer.commit(retired), "an apex learn step was not finite")
-            if driver.step - last_pub[0] >= cfg.weight_publish_interval:
+            if driver.step - last_pub[0] >= publish_interval:
                 # host clock over the drain (ring retirement and, with the
                 # frontier, the reconcile) and the publish; CUDA events
                 # around the publish's copies
@@ -1400,7 +1433,7 @@ def phase_apex(torch, cfg):
             t_run = time.perf_counter()
             try:
                 with hostsync.forbid_host_sync():
-                    for _ in range(APEX_STEPS // per_tick):
+                    for _ in range(steps // per_tick):
                         tick(feed.settle)
                         for _ in range(per_tick):
                             learn_one()
@@ -1413,14 +1446,14 @@ def phase_apex(torch, cfg):
             steps = driver.step - step0
             with torch.no_grad():
                 target_after = torch.cat([p.flatten() for p in driver.state.target.parameters()])
-            requests = cfg.sample_ahead_depth + APEX_WARMUP + APEX_STEPS
+            requests = cfg.sample_ahead_depth + APEX_WARMUP + steps
             want = {"K5f_frontier_draw": 0, "K6f_frontier_writeback": 0}
             if frontier is not None:  # draw_ahead 2 blocks behind the current one
                 want = {"K5f_frontier_draw": math.ceil(requests / frontier.draw_block) + 2,
-                        "K6f_frontier_writeback": APEX_WARMUP + APEX_STEPS}
+                        "K6f_frontier_writeback": APEX_WARMUP + steps}
             mode = "device" if device_sampling else "host"
             lat = np.sort(np.asarray(act_ms[act0:]))
-            emit({"phase": "apex", "sampling": mode, "steps": steps, "batch": cfg.batch_size,
+            row = {"phase": phase, "sampling": mode, "steps": steps, "batch": cfg.batch_size,
                   "lanes": lanes, "capacity": cfg.memory_capacity, "replay_size": len(memory),
                   "learn_steps_per_s": steps / elapsed, "seconds": elapsed,
                   "env_frames_per_s": (state["tick"] - tick0) * lanes / elapsed,
@@ -1430,45 +1463,123 @@ def phase_apex(torch, cfg):
                   "publish_device_ms": [a.elapsed_time(b) for a, b in publish_events],
                   "reconcile_ms": reconcile_ms,
                   "launches": counts,
-                  "launches_per_learn_step": {k: v / (APEX_WARMUP + APEX_STEPS)
+                  "launches_per_learn_step": {k: v / (APEX_WARMUP + steps)
                                               for k, v in counts.items()},
                   "frontier_launches_want": want,
                   "k5f_formula": "ceil((sample_ahead_depth + gets) / draw_block) + draw_ahead"
                                  f" = ceil(({cfg.sample_ahead_depth} + "
-                                 f"{APEX_WARMUP + APEX_STEPS}) / 8) + 2",
+                                 f"{APEX_WARMUP + steps}) / 8) + 2",
                   "k6f_formula": "one per retired learn step",
                   "losses_finite": bool(all(np.isfinite(losses)) and all(finite)),
                   "retired": ring.retired_total, "target_moved": not torch.equal(target_before,
                                                                           target_after),
-                  "weights_version": driver.weights_version, "fill_s": fill_s, "cuts": cuts})
+                  "weights_version": driver.weights_version, "fill_s": fill_s, "cuts": cuts,
+                  "act_ticks": state["tick"] - tick0 + APEX_WARMUP // per_tick}
+            emit(row)
             for name, n in want.items():
                 check(counts[name] == n, f"apex ({mode}): {name} launched {counts[name]} times, "
                                          f"want {n}")
             for name in (*LEARN_KERNELS, *REPLAY_KERNELS):
                 check((counts[name] > 0) == (name in LEARN_KERNELS),
                       f"apex ({mode}): {name} launched {counts[name]} times")
+            if driver.quant_mode == "off":  # full-precision actors: no K10
+                for name in QUANT_KERNELS:
+                    check(counts[name] == 0, f"apex ({mode}): {name} launched {counts[name]} "
+                                             "times without serve_quantize")
             check(all(np.isfinite(losses)) and all(finite) and sup.rollbacks == 0
-                  and ring.retired_total == APEX_WARMUP + APEX_STEPS,
+                  and ring.retired_total == APEX_WARMUP + steps,
                   f"apex ({mode}): a non-finite loss or a step not retired")
             check(not torch.equal(target_before, target_after), f"apex ({mode}): no target copy")
             check(len(publish_ms) >= 2, f"apex ({mode}): fewer than 2 publishes")
             if frontier is not None:
                 check(len(reconcile_ms) >= 3, "apex (device): reconcile did not run at drains")
-            for name, v in counts.items():
-                counts_all[name] = counts_all.get(name, 0) + v
-            return feed, ring, committer, frontier
+            if phase == "apex":
+                for name, v in counts.items():
+                    counts_all[name] = counts_all.get(name, 0) + v
+            return feed, ring, committer, frontier, row
         except BaseException:  # stop the worker, then let the failure through
             feed.close()
             raise
 
-    feed, _, _, _ = run(False)
+    feed, _, _, _, _ = run(False)
     feed.close()
-    feed, ring, committer, frontier = run(True)
+    feed, ring, committer, frontier, bf16_row = run(True)
     try:
         profile_apex(torch, driver, feed, ring, committer, tick, per_tick)
     finally:
         feed.close()
-    return counts_all
+    quant = {"memory": memory, "state": state, "run": run, "bf16_row": bf16_row,
+             "bf16_bytes": driver._params_bytes() // (2 if cfg.bf16_weight_sync else 1),
+             "beta": beta, "per_tick": per_tick}
+    return counts_all, quant
+
+
+def phase_apex_quant(torch, cfg, ctx):
+    """The ``apex`` phase's device-sampling loop over its filled replay with
+    an int8 actor: a new ``ApexDriver`` with ``serve_quantize`` int8 and
+    ``quant_agreement_min`` 0, its calibration batch drawn from the replay
+    as ``train_apex`` draws it at warm-up, one gated publish so that every
+    tick acts quantized, then APEX_QUANT_STEPS learn steps under
+    ``forbid_host_sync()`` with a gated publish every APEX_QUANT_PUBLISH.
+    Exact launches: K10q one per gated publish; K10d one and K10g four per
+    act tick and per gate's quantized act; K3 only in the learn steps and
+    the gates' full-precision act."""
+    from rainbow_iqn_apex_tpu_torch.parallel.apex import ApexDriver
+
+    class Rows:
+        def __init__(self):
+            self.rows = []
+
+        def log(self, kind, **fields):
+            self.rows.append((kind, fields))
+
+    cfg = _apex_cfg(cfg).replace(serve_quantize="int8", quant_agreement_min=0.0,
+                                 weight_publish_interval=APEX_QUANT_PUBLISH)
+    frame = (cfg.frame_height, cfg.frame_width)
+    memory, state, per_tick = ctx["memory"], ctx["state"], ctx["per_tick"]
+    driver = ApexDriver(cfg, 18, state_shape=(*frame, cfg.history_length))
+    rows = Rows()
+    driver.attach_obs(rows)
+    calib = memory.sample(min(cfg.quant_calib_batch, cfg.batch_size), ctx["beta"])
+    driver.set_calibration(calib.obs)
+    driver.publish_weights()  # gated: the actor acts on int8 weights from the first tick
+    check(driver._actor_quant, "apex_quant: the first gated publish did not pass at 0.0")
+    state["driver"] = driver
+    feed, _, _, _, row = ctx["run"](True, steps=APEX_QUANT_STEPS, phase="apex_quant")
+    feed.close()
+    counts = row["launches"]
+    publishes = [f for k, f in rows.rows if k == "publish"]
+    gated = len(publishes) - 1  # the ones inside the counted run
+    ticks, steps = row["act_ticks"], APEX_WARMUP + APEX_QUANT_STEPS
+    # per gate: one full-precision act (K2, K3 x4, K4), one quantized (K10d, K2, K10g x4, K4)
+    want = {"K10q_quantize": gated, "K10d_dequantize": ticks + gated,
+            "K10g_noisy_linear_q": 4 * (ticks + gated),
+            "K3_noisy_linear": 12 * steps + 4 * gated,
+            "K2_tau_embed": 3 * steps + ticks + 2 * gated,
+            "K4_dueling_head": 3 * steps + ticks + 2 * gated}
+    bf16 = ctx["bf16_row"]
+    emit({"phase": "apex_quant_summary", "mode": "int8", "gated_publishes": gated,
+          "publish_modes": [f["mode"] for f in publishes],
+          "publish_bytes": publishes[-1]["bytes"], "publish_bytes_bf16": ctx["bf16_bytes"],
+          "publish_bytes_fp32": publishes[-1]["bytes_fp32"],
+          "agreement": driver.quant_agreement,
+          "learn_steps_per_s": row["learn_steps_per_s"],
+          "learn_steps_per_s_bf16": bf16["learn_steps_per_s"],
+          "act_ms_per_tick_p50": row["act_ms_per_tick_p50"],
+          "act_ms_per_tick_p50_bf16": bf16["act_ms_per_tick_p50"],
+          "drain_and_publish_host_ms": row["drain_and_publish_host_ms"],
+          "drain_and_publish_host_ms_bf16": bf16["drain_and_publish_host_ms"],
+          "publish_device_ms": row["publish_device_ms"],
+          "publish_device_ms_bf16": bf16["publish_device_ms"],
+          "act_ticks": ticks, "launches_want": want})
+    check(gated >= 2 and all(f["mode"] == "int8" and f["quant_active"] for f in publishes),
+          f"apex_quant: publishes {[f['mode'] for f in publishes]}, want int8 only")
+    for name, n in want.items():
+        check(counts[name] == n, f"apex_quant: {name} launched {counts[name]} times, want {n}")
+    del driver
+    state["driver"] = None
+    torch.cuda.empty_cache()
+    return counts
 
 
 def profile_apex(torch, driver, feed, ring, committer, tick, per_tick):
@@ -1592,6 +1703,338 @@ def phase_train_apex(torch):
     _train_catch(torch, "apex", "train_apex")
 
 
+# ---------------------------------------------------- quantized act path (K10)
+def _plant_edges(torch, params):
+    """Rows of the full-width tree that hold K10q's edge cases: a zero
+    output channel, one with scale 1 (max 127) and half-way ties, and one
+    with e4m3's overflow edges (464 rounds to 448, above it is NaN)."""
+    w = params["advantage_hidden.w_mu"]
+    w[5] = 0.0
+    w[6, :8] = torch.tensor([127.0, 2.5, -3.5, 0.5, -0.5, 1.5, 126.5, -126.5])
+    w[6, 8:] = w[6, 8:].clamp(-100.0, 100.0)
+    w[7, :8] = torch.tensor([448.0, 460.0, 464.0, 464.01, 500.0, -1e4, -464.0, float("nan")])
+    return params
+
+
+def phase_kernels_quant(torch, cfg):
+    """K10q (int8, fp8) on the full-width tree, K10g (int8, e4m3) greedy at
+    serving's M 2048 and noisy at apex acting's M 512, and K10d, each
+    against its plain twin, timed as the other rows are."""
+    from rainbow_iqn_apex_tpu_torch.kernels.dequantize import dequantize, dequantize_plain
+    from rainbow_iqn_apex_tpu_torch.kernels.noisy_linear_q import (
+        noisy_linear_q,
+        noisy_linear_q_plain,
+    )
+    from rainbow_iqn_apex_tpu_torch.kernels.quantize import quantize_plain
+    from rainbow_iqn_apex_tpu_torch.models import init_params
+    from rainbow_iqn_apex_tpu_torch.models.layers import _f
+    from rainbow_iqn_apex_tpu_torch.models.quantized import make_quantized_network
+    from rainbow_iqn_apex_tpu_torch.utils.quantize import QuantizedParams, quantize_params
+
+    dev = torch.device("cuda", 0)
+    bf = torch.bfloat16
+    clean = init_params(cfg, 18, seed=SEED + 20)
+    params = _plant_edges(torch, {k: v.clone() for k, v in clean.items()})
+    numel = sum(v.numel() for v in params.values())
+    results, qps = {}, {}
+
+    # K10q -----------------------------------------------------------------
+    for mode in ("int8", "fp8"):
+        ref = params
+        if mode == "int8":  # the overflow row is fp8's case; int8 takes finite weights
+            ref = {k: v.nan_to_num(nan=0.0) for k, v in params.items()}
+        src = {k: v.to(dev) for k, v in ref.items()}
+        out = QuantizedParams.like(src, mode)
+        quantize_params(src, mode, out=out)
+        torch.cuda.synchronize()
+        want = quantize_params(ref, mode)  # the twin on the CPU, bit-equal to JAX (CPU tests)
+        q_equal = bool(torch.equal(out.q_flat.cpu(), want.q_flat))
+        s_equal = bool(torch.equal(out.s_flat.cpu().view(torch.int32),
+                                   want.s_flat.view(torch.int32)))
+        row7 = out.q["advantage_hidden.w_mu"][7, :8].float().cpu()
+        edges = {"zero_row_scale": float(out.s["advantage_hidden.w_mu"][5])
+                 if mode == "int8" else None,
+                 "ties_row_q": out.q["advantage_hidden.w_mu"][6, :8].float().cpu().tolist(),
+                 "overflow_row": [None if math.isnan(v) else v for v in row7.tolist()]}
+        names = list(src)
+        rows = [s.numel() for s in want.s.values()]
+        k_ms = time_ms(torch, lambda: quantize_params(src, mode, out=out))
+        p_ms = time_ms(torch, lambda: [quantize_plain(src[n], mode, r) for n, r in
+                                       zip(names, rows)])
+        nbytes = 4 * numel + numel + 4 * sum(rows)
+        bms, by = bound_ms(nbytes, 3 * numel, FP32_FLOPS)
+        emit({"phase": "kernels_quant", "kernel": "K10q_quantize", "mode": mode,
+              "tensors": len(names), "values": numel, "q_bit_equal": q_equal,
+              "s_bit_equal": s_equal, "edges": edges, "kernel_ms": k_ms, "plain_ms": p_ms,
+              "library_ms": None, "bound_ms": bms, "bound_by": by})
+        check(q_equal and s_equal, f"K10q ({mode}) differs from its twin")
+        if mode == "fp8":
+            nan = [v is None for v in edges["overflow_row"]]
+            check(nan == [False, False, False, True, True, True, False, True],
+                  f"K10q (fp8) overflow row {edges['overflow_row']}")
+        # K10g and K10d below run on the quantized clean tree
+        qps[mode] = quantize_params({k: v.to(dev) for k, v in clean.items()}, mode)
+        if mode == "int8":
+            results["K10q_quantize"] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms,
+                                            bound_ms=bms, bound_by=by, library_ms=None)
+
+    # K10g: the greedy serving shapes and the noisy acting shapes -----------
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    feat, hidden, taus_n = 3136, cfg.hidden_size, cfg.num_quantile_samples
+    k10g_max, path = 0.0, []
+    for mode in ("int8", "fp8"):
+        qp = qps[mode]
+        for m, noisy in ((BUCKET * taus_n, False), (16 * taus_n, True)):
+            x_h = torch.randn((m, feat), generator=g, device=dev).relu().to(bf)
+            x_o = torch.randn((m, hidden), generator=g, device=dev).relu().to(bf)
+            for layer, x, relu in (("value_hidden", x_h, True), ("advantage_out", x_o, False),
+                                   ("value_out", x_o, False)):
+                n, k = qp.shapes[f"{layer}.w_mu"]
+                a = [x] + [t for p in ("w_mu", "b_mu") for t in (qp.q[f"{layer}.{p}"],
+                                                                  qp.s[f"{layer}.{p}"])]
+                if noisy:
+                    a += [t for p in ("w_sigma", "b_sigma") for t in (qp.q[f"{layer}.{p}"],
+                                                                      qp.s[f"{layer}.{p}"])]
+                    a += [_f(torch.randn(k, generator=g, device=dev)),
+                          _f(torch.randn(n, generator=g, device=dev))]
+                got = noisy_linear_q(*a, relu=relu)
+                want = noisy_linear_q_plain(*a, relu=relu)
+                torch.cuda.synchronize()
+                max_abs, max_rel, ok = errors(torch, got, want, K3_TOL)
+                k10g_max = max(k10g_max, max_abs)
+                products = 2 if noisy else 1
+                nbytes = (m * k * 2 + products * (n * k + n + 4 * qp.s[f"{layer}.w_mu"].numel()
+                                                  + 4) + m * n * 4 + (4 * (k + n) if noisy else 0))
+                bms, by = bound_ms(nbytes, products * 2 * m * n * k, BF16_FLOPS)
+                k_ms = time_ms(torch, lambda: noisy_linear_q(*a, relu=relu))
+                p_ms = time_ms(torch, lambda: noisy_linear_q_plain(*a, relu=relu))
+                lib_ms = None
+                if not noisy:  # two calls: the dequantize into bf16, then F.linear
+                    w_buf = torch.empty((n, k), dtype=bf, device=dev)
+                    q_w, s_w = qp.q[f"{layer}.w_mu"], qp.s[f"{layer}.w_mu"].view(-1, 1)
+                    b_bf = dequantize_plain(qp.q[f"{layer}.b_mu"], qp.s[f"{layer}.b_mu"], bf)
+                    if mode == "int8":
+                        def lib():
+                            torch.mul(q_w, s_w, out=w_buf)
+                            return torch.nn.functional.linear(x, w_buf, b_bf)
+                    else:  # s = 1: the cast is the dequantize
+                        def lib():
+                            return torch.nn.functional.linear(x, q_w.to(bf), b_bf)
+                    lib_ms = time_ms(torch, lib)
+                emit({"phase": "kernels_quant", "kernel": "K10g_noisy_linear_q", "mode": mode,
+                      "shape": [m, k, n], "noisy": noisy, "relu": relu, "max_abs_err": max_abs,
+                      "max_rel_err": max_rel, "tol": K3_TOL, "ok": ok, "kernel_ms": k_ms,
+                      "plain_ms": p_ms, "library_ms": lib_ms,
+                      "library": "torch.mul into bf16 + F.linear (two calls)"
+                      if mode == "int8" else "q.to(bf16) + F.linear (two calls)",
+                      "bound_ms": bms, "bound_by": by})
+                check(ok, f"K10g ({mode}, {layer}, noisy={noisy}) disagrees: max abs {max_abs}")
+                if mode == "int8" and not noisy:
+                    path.append(dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bms,
+                                     bound_by=by, times=2 if layer == "value_hidden" else 1))
+    # the greedy serving dispatch: two hidden layers, value_out, advantage_out
+    results["K10g_noisy_linear_q"] = dict(
+        max_abs_err=k10g_max,
+        **{key: sum(c[key] * c["times"] for c in path)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        bound_by=path[0]["bound_by"])
+
+    # K10d: the conv and embedding leaves of one quantized network --------
+    for mode in ("int8", "fp8"):
+        net = make_quantized_network(cfg, 18, qps[mode], use_noise=False)
+        d_q, d_s, d_out = net._d_args
+        dequantize(d_q, d_s, d_out)
+        torch.cuda.synchronize()
+        equal = all(bool(torch.equal(o, dequantize_plain(q, s_, o.dtype)))
+                    for q, s_, o in zip(d_q, d_s, d_out))
+        values = sum(q.numel() for q in d_q)
+        nbytes = values + 4 * sum(s_.numel() for s_ in d_s) + sum(
+            o.numel() * o.element_size() for o in d_out)
+        bms, by = bound_ms(nbytes, values, FP32_FLOPS)
+        k_ms = time_ms(torch, lambda: dequantize(d_q, d_s, d_out))
+        p_ms = time_ms(torch, lambda: [o.copy_(dequantize_plain(q, s_, o.dtype))
+                                       for q, s_, o in zip(d_q, d_s, d_out)])
+        emit({"phase": "kernels_quant", "kernel": "K10d_dequantize", "mode": mode,
+              "leaves": len(d_q), "values": values, "bit_equal": equal, "kernel_ms": k_ms,
+              "plain_ms": p_ms, "library_ms": None, "bound_ms": bms, "bound_by": by})
+        check(equal, f"K10d ({mode}) differs from its twin")
+        if mode == "int8":
+            results["K10d_dequantize"] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms,
+                                              bound_ms=bms, bound_by=by, library_ms=None)
+    return results
+
+
+def _serve_requests(server, frames, requests):
+    """``requests`` blocking requests from CLIENTS client threads; returns
+    (answers, sorted latencies in ms, seconds, failures)."""
+    import numpy as np
+
+    answers, latency_ms, failures = [None] * requests, [0.0] * requests, []
+
+    def client(i):
+        try:
+            for r in range(i, requests, CLIENTS):
+                t = time.perf_counter()
+                answers[r] = server.act_values(frames[r], timeout=120)
+                latency_ms[r] = (time.perf_counter() - t) * 1e3
+        except Exception as e:  # recorded and failed below
+            failures.append(repr(e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,), daemon=True) for i in range(CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads), "client threads did not finish")
+    return answers, np.sort(np.asarray(latency_ms)), time.perf_counter() - t0, failures
+
+
+def phase_serve_quant(torch, cfg):
+    """The ``PolicyServer`` of ``configs/serve_defaults.json`` with
+    ``serve_quantize`` int8, then fp8: the gate at the config's
+    ``quant_agreement_min``; a forced pass (0.0) serving QUANT_REQUESTS
+    requests from CLIENTS clients with the exact launches of every dispatch
+    (K10d, K2, K10g x4, K4; no K3); a forced fail (1.01) that falls back and
+    writes one ``quant_fallback`` row; and the card's quantized path against
+    the same quantized network's plain path on the CPU."""
+    import json as _json
+    import tempfile
+
+    import numpy as np
+
+    from rainbow_iqn_apex_tpu_torch.kernels import launches, reset_launches
+    from rainbow_iqn_apex_tpu_torch.models import init_params
+    from rainbow_iqn_apex_tpu_torch.models.quantized import make_quantized_network
+    from rainbow_iqn_apex_tpu_torch.serving import PolicyServer
+
+    actions_n = 18
+    params = init_params(cfg, actions_n, seed=SEED)
+    frames = np.random.default_rng(SEED + 22).integers(
+        0, 256, (QUANT_REQUESTS, *cfg.state_shape), dtype=np.uint8)
+    counts_all = {}
+    for mode in ("int8", "fp8"):
+        qcfg = cfg.replace(serve_quantize=mode)
+        # the gate at the config's threshold, on the server's seeded frames
+        reset_launches()
+        gated = PolicyServer(qcfg, actions_n, params)
+        gate_launches = {k: v for k, v in launches.items() if v}
+        state = gated.engine.quant_state()
+        emit({"phase": "serve_quant_gate", "mode": mode,
+              "threshold": qcfg.quant_agreement_min, "calib_batch": qcfg.quant_calib_batch,
+              **state, "launches": gate_launches})
+        check(state["quant_active"] == (state["quant_agreement"] >= qcfg.quant_agreement_min)
+              and state["quant_fallbacks"] == int(not state["quant_active"]),
+              f"serve_quant ({mode}): the gate's decision disagrees with its agreement")
+        check(gate_launches.get("K10q_quantize") == 1, f"serve_quant ({mode}): K10q "
+              f"launched {gate_launches.get('K10q_quantize')} times for one stage")
+        gated.stop()
+
+        # forced pass: the quantized network serves every request
+        server = PolicyServer(qcfg.replace(quant_agreement_min=0.0), actions_n, params)
+        check(server.engine.quant_active, f"serve_quant ({mode}): the forced pass did not pass")
+        reset_launches()  # the main path: warm-up and the requests
+        server.start()
+        answers, lat, elapsed, failures = _serve_requests(server, frames, QUANT_REQUESTS)
+        counts = dict(launches)
+        stats = server.stats()
+        dispatches = stats["total_batches"] + len(server.engine.buckets)  # + warm-up
+        check(not failures, f"serve_quant ({mode}): requests failed: {failures[:3]}")
+        acts = np.array([a for a, _ in answers])
+        qs = np.stack([q for _, q in answers])
+        check(bool(np.all((acts >= 0) & (acts < actions_n))) and bool(np.all(np.isfinite(qs))),
+              f"serve_quant ({mode}): an action out of range or a non-finite q")
+        want = {k: v * dispatches for k, v in QUANT_PER_DISPATCH.items()}
+        emit({"phase": "serve_quant", "mode": mode, "requests": QUANT_REQUESTS,
+              "clients": CLIENTS, "seconds": elapsed, "requests_per_s": QUANT_REQUESTS / elapsed,
+              "request_p50_ms": float(lat[len(lat) // 2]),
+              "request_p99_ms": float(lat[int(0.99 * (len(lat) - 1))]),
+              "dispatches": dispatches, "launches": counts, "launches_want": want,
+              "batch_occupancy": stats["batch_occupancy_lifetime"]})
+        for name, n in want.items():
+            check(counts[name] == n, f"serve_quant ({mode}): {name} launched {counts[name]} "
+                                     f"times in {dispatches} dispatches, want {n}")
+        for name, v in counts.items():
+            counts_all[name] = counts_all.get(name, 0) + v
+
+        # the card's quantized path against the same network's plain path
+        engine = server.engine
+        obs = torch.from_numpy(frames[:BUCKET])
+        taus = torch.rand((BUCKET, cfg.num_quantile_samples),
+                          generator=torch.Generator().manual_seed(SEED))
+        cpu_net = make_quantized_network(cfg, actions_n, engine.quantized.qparams.to("cpu"),
+                                         use_noise=False)
+        with torch.inference_mode():
+            k_out = engine.quantized(obs.cuda(), cfg.num_quantile_samples, taus=taus.cuda())
+            p_out = cpu_net(obs, cfg.num_quantile_samples, taus=taus)
+        max_abs = (k_out.quantiles.cpu() - p_out.quantiles).abs().max().item()
+        q_err = (k_out.q.cpu() - p_out.q).abs().max().item()
+        top2 = torch.sort(p_out.q, dim=-1).values[:, -2:]
+        clear = (top2[:, 1] - top2[:, 0]) > 2 * PATH_Q_TOL
+        same = bool(torch.equal(k_out.action.cpu()[clear], p_out.action[clear]))
+        server.stop()
+
+        # forced fail: the full-precision network serves, one reasoned row
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_quant_", dir=ROOT) as tmp:
+            path = os.path.join(tmp, "serve.jsonl")
+            failed = PolicyServer(qcfg.replace(quant_agreement_min=1.01), actions_n, params,
+                                  metrics_path=path)
+            a_fail, _ = failed.engine.infer(frames[:8])
+            fstate = failed.engine.quant_state()
+            failed.stop()
+            with open(path) as f:
+                rows = [_json.loads(line) for line in f]
+        fallback = [r for r in rows if r["kind"] == "quant_fallback"]
+        emit({"phase": "serve_quant_parity", "mode": mode, "batch": BUCKET,
+              "max_abs_err": max_abs, "tol": PATH_TOL, "q_max_abs_err": q_err,
+              "q_tol": PATH_Q_TOL, "clear_rows": int(clear.sum()), "actions_agree": same,
+              "forced_fail": {**fstate, "fallback_rows": len(fallback),
+                              "reason": fallback[0]["reason"] if fallback else None}})
+        check(max_abs <= PATH_TOL and q_err <= PATH_Q_TOL,
+              f"serve_quant ({mode}): card vs CPU quantized path max abs {max_abs}, q {q_err}")
+        check(int(clear.sum()) > 0 and same,
+              f"serve_quant ({mode}): greedy actions differ where the Q gap is clear")
+        check(not fstate["quant_active"] and fstate["quant_fallbacks"] == 1
+              and len(fallback) == 1 and fallback[0]["reason"] == "agreement_below_min"
+              and a_fail.shape == (8,),
+              f"serve_quant ({mode}): the forced fail did not fall back with one row")
+    return counts_all
+
+
+def phase_train_apex_quant(torch):
+    """``phase_train_apex``'s scenario with int8 actors (``--serve-quantize
+    int8 --quant-agreement-min 0``: every publish after the warm-up's
+    calibration draw ships int8) at QUANT_CATCH_SEEDS, one trainer process
+    each, all at once; the mean of their evaluations is held to the bar.
+    One seed is one draw from a wide spread (PERF.md §6): seed 7 alone ends
+    at 0.1 with int8 actors and at 0.6 with bf16 ones, on a quantized
+    network that matches its CPU twin at every publish."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rainbow_iqn_apex_tpu_torch import catch_bar
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(QUANT_CATCH_SEEDS)) as pool:
+        runs = list(pool.map(lambda seed: catch_bar.run("apex", seed, "cuda:0",
+                                                        serve_quantize="int8"),
+                             QUANT_CATCH_SEEDS))
+    elapsed = time.perf_counter() - t0
+    failed = [r for r in runs if r["rc"] != 0]
+    check(not failed, f"train_apex_quant: a trainer failed: {failed[:1]}")
+    evals = [r["eval_score_mean"] for r in runs]
+    mean = sum(evals) / len(evals)
+    emit({"phase": "train_apex_quant", "env": "toy:catch", "serve_quantize": "int8",
+          "seeds": list(QUANT_CATCH_SEEDS), "evals": evals, "eval_mean": mean,
+          "train_returns": [r["train_return_mean"] for r in runs],
+          "learn_steps": [r["learn_steps"] for r in runs],
+          "quant_publishes": [r["quant_publishes"] for r in runs], "seconds": elapsed})
+    check(mean > catch_bar.BAR, f"train_apex_quant: mean catch eval {mean} <= {catch_bar.BAR}")
+    check(all(r["learn_steps"] > catch_bar.MIN_LEARN_STEPS for r in runs),
+          "train_apex_quant: too few learn steps")
+    check(all(r["quant_publishes"] > 0 for r in runs),
+          "train_apex_quant: a run shipped no int8 publish")
+
+
 def device_rows(torch, prof):
     """(name, device us, calls) of the device-side events: kernels and
     copies.  CPU-side op rows carry the same device time again, and user
@@ -1675,6 +2118,8 @@ def phase_serve(torch, cfg):
     check(qs.shape == (REQUESTS, actions_n) and bool(np.all(np.isfinite(qs))), "bad q values")
     for name in SERVE_KERNELS:
         check(counts[name] > 0, f"{name} was never launched on the serving path")
+    for name in QUANT_KERNELS:
+        check(counts[name] == 0, f"{name} launched on the serving path without serve_quantize")
     stats = server.stats()
     lat = np.sort(np.asarray(latency_ms))
     emit({"phase": "serve", "requests": REQUESTS, "clients": CLIENTS, "seconds": elapsed,
@@ -1786,10 +2231,13 @@ def main() -> int:
         from rainbow_iqn_apex_tpu_torch.kernels import (
             build,
             dueling_head,
+            dequantize,
             frontier_draw,
             frontier_writeback,
             noisy_linear,
+            noisy_linear_q,
             quantile_huber,
+            quantize,
             replay_append,
             replay_assemble,
             replay_draw,
@@ -1822,7 +2270,8 @@ def main() -> int:
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "library": os.path.relpath(build.library_path(), ROOT), "ptxas": ptxas})
 
-        results, counts = {}, {"serve": {}, "learn": {}, "anakin": {}, "apex": {}}
+        results, counts = {}, {"serve": {}, "learn": {}, "anakin": {}, "apex": {},
+                               "serve_quant": {}, "apex_quant": {}}
         with open(os.path.join(ROOT, "configs", "serve_defaults.json")) as f:
             serve_cfg = Config.from_json(f.read())
         with open(os.path.join(ROOT, "configs", "reference_atari_defaults.json")) as f:
@@ -1838,9 +2287,14 @@ def main() -> int:
         phase_anakin_parity(torch, learn_cfg)
         phase_train_anakin(torch)
         results.update(phase_kernels_frontier(torch, learn_cfg))
-        counts["apex"] = phase_apex(torch, learn_cfg)
+        counts["apex"], apex_ctx = phase_apex(torch, learn_cfg)
+        results.update(phase_kernels_quant(torch, serve_cfg))
+        counts["apex_quant"] = phase_apex_quant(torch, learn_cfg, apex_ctx)
+        del apex_ctx
+        counts["serve_quant"] = phase_serve_quant(torch, serve_cfg)
         phase_apex_parity(torch, learn_cfg)
         phase_train_apex(torch)
+        phase_train_apex_quant(torch)
     except SmokeFailure as e:
         emit({"ok": False, "error": str(e)})
         return 1
@@ -1848,7 +2302,7 @@ def main() -> int:
     rows = {}
     for mod in (tau_embed, noisy_linear, dueling_head, quantile_huber, replay_draw,
                 replay_writeback, replay_append, replay_assemble, frontier_draw,
-                frontier_writeback):
+                frontier_writeback, quantize, noisy_linear_q, dequantize):
         rows[mod.NAME] = (mod.SOURCE, mod.REPLACES)
         if hasattr(mod, "NAME_BWD"):
             rows[mod.NAME_BWD] = (mod.SOURCE_BWD, mod.REPLACES_BWD)

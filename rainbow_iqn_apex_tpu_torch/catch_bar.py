@@ -10,6 +10,7 @@ seeds, a few processes at a time, so that the spread can be read:
 
     python -m rainbow_iqn_apex_tpu_torch.catch_bar --role single --seeds 1-9 --parallel 4
     python -m rainbow_iqn_apex_tpu_torch.catch_bar --role apex --device-sampling false
+    python -m rainbow_iqn_apex_tpu_torch.catch_bar --role apex --serve-quantize int8
 
 The apex scenario gives its frame budget as ``--t-max``, which the JAX
 package's CLI reads too, so the same arguments run the reference:
@@ -21,6 +22,13 @@ Each run is one ``rainbow_iqn_apex_tpu_torch.train`` process with cuDNN's
 deterministic algorithms, as ``chip_smoke.py`` sets them, so a seed gives
 the same run every time.  It prints one JSON line per run, then one with
 the evaluation means and how many of them are at or below the bar.
+
+``--serve-quantize int8`` (or ``fp8``) runs the apex scenario with quantized
+actors: every publish after the warm-up's calibration draw is gated, with
+``--quant-agreement-min 0`` unless asked otherwise, so it always ships the
+quantized weights, and each run reports how many of its publishes did
+(``quant_publishes``).  ``--quant-agreement-min 1.01`` makes every gate fail:
+the bf16 trajectory with the calibration draw and the gates added.
 """
 
 from __future__ import annotations
@@ -65,23 +73,47 @@ _BOOT = ("import sys, torch; torch.backends.cudnn.deterministic = True; "
          "from rainbow_iqn_apex_tpu_torch.train import main; main(sys.argv[1:])")
 
 
-def argv(role: str, seed: int, workdir: str, device_sampling: bool = True) -> List[str]:
+def argv(role: str, seed: int, workdir: str, device_sampling: bool = True,
+         serve_quantize: str = "off", quant_agreement_min: float = 0.0) -> List[str]:
     """The trainer's CLI arguments of ``role``'s catch scenario at ``seed``,
     writing results and checkpoints under ``workdir``; ``device_sampling``
-    is the apex scenario's sampling mode."""
-    extra = ["--device-sampling", str(device_sampling).lower()] if role == "apex" else []
+    and ``serve_quantize`` are the apex scenario's sampling mode and actor
+    weights."""
+    extra = []
+    if role == "apex":
+        extra = ["--device-sampling", str(device_sampling).lower()]
+        if serve_quantize != "off":
+            extra += ["--serve-quantize", serve_quantize,
+                      "--quant-agreement-min", repr(float(quant_agreement_min))]
     return [*_COMMON, *_ROLE[role], *extra, "--seed", str(seed),
             "--results-dir", os.path.join(workdir, "results"),
             "--checkpoint-dir", os.path.join(workdir, "ckpt")]
 
 
-def run(role: str, seed: int, device: str, device_sampling: bool = True) -> Dict:
+def quant_publishes(results_dir: str) -> int:
+    """How many ``publish`` rows under ``results_dir`` shipped quantized
+    weights (the JAX package writes the same rows)."""
+    count = 0
+    for run_id in sorted(os.listdir(results_dir)) if os.path.isdir(results_dir) else ():
+        path = os.path.join(results_dir, run_id, "metrics.jsonl")
+        if os.path.exists(path):
+            with open(path) as f:
+                rows = [json.loads(line) for line in f if line.strip()]
+            count += sum(r.get("kind") == "publish" and r.get("mode") in ("int8", "fp8")
+                         for r in rows)
+    return count
+
+
+def run(role: str, seed: int, device: str, device_sampling: bool = True,
+        serve_quantize: str = "off", quant_agreement_min: float = 0.0) -> Dict:
     """One scenario run in its own process; its summary."""
     with tempfile.TemporaryDirectory(prefix="catch_bar_") as tmp:
         proc = subprocess.run(
-            [sys.executable, "-c", _BOOT, *argv(role, seed, tmp, device_sampling),
+            [sys.executable, "-c", _BOOT,
+             *argv(role, seed, tmp, device_sampling, serve_quantize, quant_agreement_min),
              "--device", device],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        published = quant_publishes(os.path.join(tmp, "results"))
     out: Dict = {"role": role, "seed": seed, "rc": proc.returncode}
     if proc.returncode != 0:
         out["error"] = proc.stderr[-2000:]
@@ -90,6 +122,8 @@ def run(role: str, seed: int, device: str, device_sampling: bool = True) -> Dict
     out.update(eval_score_mean=summary["eval_score_mean"],
                train_return_mean=summary["train_return_mean"],
                learn_steps=summary["learn_steps"])
+    if serve_quantize != "off":
+        out["quant_publishes"] = published
     return out
 
 
@@ -110,6 +144,10 @@ def main(args=None) -> int:
     p.add_argument("--device", default="cuda:0")
     p.add_argument("--device-sampling", default="true", choices=("true", "false"),
                    help="the apex scenario's sampling mode (default true)")
+    p.add_argument("--serve-quantize", default="off", choices=("off", "int8", "fp8"),
+                   help="the apex scenario's actor weights (default off)")
+    p.add_argument("--quant-agreement-min", type=float, default=0.0,
+                   help="the gate's threshold with --serve-quantize (default 0)")
     p.add_argument("--print-argv", action="store_true",
                    help="print each run's trainer arguments (results under ./catch_bar) "
                         "and run nothing")
@@ -119,11 +157,13 @@ def main(args=None) -> int:
     if a.print_argv:
         for role, seed in jobs:
             print(" ".join(argv(role, seed, os.path.join("catch_bar", f"{role}{seed}"),
-                                sampling)))
+                                sampling, a.serve_quantize, a.quant_agreement_min)))
         return 0
 
     def one(job):
-        result = run(*job, device=a.device, device_sampling=sampling)
+        result = run(*job, device=a.device, device_sampling=sampling,
+                     serve_quantize=a.serve_quantize,
+                     quant_agreement_min=a.quant_agreement_min)
         print(json.dumps(result), flush=True)
         return result
 

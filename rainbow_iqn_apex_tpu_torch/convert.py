@@ -24,6 +24,11 @@ The Adam moments have the params' layout, so they convert as params do.
 numpy leaves (``jax.device_get`` of one) and returns the port's
 ``replay.device.DeviceReplayState``: the same arrays (no layout changes),
 ``pos`` and ``filled`` as host ints.
+
+Quantized weights cross as well: ``from_flax_quantized`` takes a JAX
+``quantize_tree_jax`` / ``cast_tree_fp8`` tree of ``{"q", "s"}`` cells and
+returns the port's ``utils.quantize.QuantizedParams``, each q laid out as
+its parameter and each s as it is; ``to_flax_quantized`` goes back.
 """
 
 from __future__ import annotations
@@ -45,54 +50,89 @@ def _n(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", torch.float32).numpy().copy()
 
 
-def from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax params (numpy leaves) -> the port's ``RainbowIQN`` state dict."""
-    out: Dict[str, torch.Tensor] = {}
-    trunk = params["ConvTrunk_0"]
+def _leaves(tree: Mapping[str, Any]):
+    """(port name, flax leaf, axes that turn the flax layout into the port's
+    or None) for each parameter of a flax-shaped tree."""
+    trunk = tree["ConvTrunk_0"]
     for i in range(len(trunk)):
         conv = trunk[f"Conv_{i}"]
-        out[f"trunk.convs.{i}.weight"] = _t(np.transpose(conv["kernel"], (3, 2, 0, 1)))
-        out[f"trunk.convs.{i}.bias"] = _t(conv["bias"])
-    embed = params["CosineTauEmbedding_0"]["embed"]
-    out["tau_embed.embed.weight"] = _t(np.transpose(embed["kernel"]))
-    out["tau_embed.embed.bias"] = _t(embed["bias"])
+        yield f"trunk.convs.{i}.weight", conv["kernel"], (3, 2, 0, 1)
+        yield f"trunk.convs.{i}.bias", conv["bias"], None
+    embed = tree["CosineTauEmbedding_0"]["embed"]
+    yield "tau_embed.embed.weight", embed["kernel"], (1, 0)
+    yield "tau_embed.embed.bias", embed["bias"], None
     for name in _NOISY_HEADS:
-        if name in params:
-            layer = params[name]
-            out[f"{name}.w_mu"] = _t(np.transpose(layer["w_mu"]))
-            out[f"{name}.b_mu"] = _t(layer["b_mu"])
-            out[f"{name}.w_sigma"] = _t(np.transpose(layer["w_sigma"]))
-            out[f"{name}.b_sigma"] = _t(layer["b_sigma"])
+        if name in tree:
+            for p in ("w_mu", "b_mu", "w_sigma", "b_sigma"):
+                yield f"{name}.{p}", tree[name][p], (1, 0) if p[0] == "w" else None
+
+
+def _flax_tree(names, leaf) -> Dict[str, Any]:
+    """The flax-shaped tree of ``leaf(name, axes)`` for the port's parameter
+    ``names``; ``axes`` turns the port's layout into flax's, or is None."""
+    out: Dict[str, Any] = {"ConvTrunk_0": {}, "CosineTauEmbedding_0": {"embed": {}}}
+    for name in names:
+        parts = name.split(".")
+        if parts[0] == "trunk":
+            node = out["ConvTrunk_0"].setdefault(f"Conv_{parts[2]}", {})
+            key = "kernel" if parts[3] == "weight" else "bias"
+            node[key] = leaf(name, (2, 3, 1, 0) if key == "kernel" else None)
+        elif parts[0] == "tau_embed":
+            key = "kernel" if parts[2] == "weight" else "bias"
+            out["CosineTauEmbedding_0"]["embed"][key] = leaf(name, (1, 0) if key == "kernel"
+                                                             else None)
+        else:
+            out.setdefault(parts[0], {})[parts[1]] = leaf(
+                name, (1, 0) if parts[1][0] == "w" else None)
     return out
+
+
+def _layout(a: np.ndarray, axes) -> np.ndarray:
+    return a if axes is None else np.ascontiguousarray(np.transpose(a, axes))
+
+
+def from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax params (numpy leaves) -> the port's ``RainbowIQN`` state dict."""
+    return {name: _t(_layout(np.asarray(a), axes)) for name, a, axes in _leaves(params)}
 
 
 def to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """The port's state dict -> flax params with fp32 numpy leaves."""
-    trunk = {}
-    i = 0
-    while f"trunk.convs.{i}.weight" in state:
-        trunk[f"Conv_{i}"] = {
-            "kernel": np.ascontiguousarray(
-                np.transpose(_n(state[f"trunk.convs.{i}.weight"]), (2, 3, 1, 0))),
-            "bias": _n(state[f"trunk.convs.{i}.bias"]),
-        }
-        i += 1
-    out: Dict[str, Any] = {
-        "ConvTrunk_0": trunk,
-        "CosineTauEmbedding_0": {"embed": {
-            "kernel": np.ascontiguousarray(_n(state["tau_embed.embed.weight"]).T),
-            "bias": _n(state["tau_embed.embed.bias"]),
-        }},
-    }
-    for name in _NOISY_HEADS:
-        if f"{name}.w_mu" in state:
-            out[name] = {
-                "w_mu": np.ascontiguousarray(_n(state[f"{name}.w_mu"]).T),
-                "b_mu": _n(state[f"{name}.b_mu"]),
-                "w_sigma": np.ascontiguousarray(_n(state[f"{name}.w_sigma"]).T),
-                "b_sigma": _n(state[f"{name}.b_sigma"]),
-            }
+    return _flax_tree(state, lambda name, axes: _layout(_n(state[name]), axes))
+
+
+def from_flax_quantized(qtree: Mapping[str, Any]):
+    """A JAX ``quantize_tree_jax`` / ``cast_tree_fp8`` tree of ``{"q", "s"}``
+    cells (numpy leaves) -> the port's ``QuantizedParams``: each q laid out
+    as ``from_flax`` lays out its parameter, each s kept (the per-channel
+    scales of the flax kernel's last axis are those of the port's dim 0), on
+    the CPU."""
+    from rainbow_iqn_apex_tpu_torch.utils.quantize import QuantizedParams
+
+    leaves = list(_leaves(qtree))
+    q0 = np.asarray(leaves[0][1]["q"])
+    mode = "int8" if q0.dtype == np.int8 else "fp8"
+    if mode == "fp8" and "float8_e4m3" not in str(q0.dtype):
+        raise ValueError(f"from_flax_quantized: q of dtype {q0.dtype} is neither int8 nor e4m3")
+    shapes = {name: _layout(np.asarray(cell["q"]), axes).shape for name, cell, axes in leaves}
+    out = QuantizedParams(mode, shapes)
+    for name, cell, axes in leaves:
+        q = _layout(np.asarray(cell["q"]).view(np.uint8), axes)
+        out.q[name].view(torch.uint8).copy_(torch.from_numpy(np.array(q, copy=True)))
+        out.s[name].copy_(torch.from_numpy(np.array(cell["s"], np.float32).reshape(-1)))
     return out
+
+
+def to_flax_quantized(qp) -> Dict[str, Any]:
+    """A ``QuantizedParams`` -> the flax-shaped tree of ``{"q", "s"}`` cells
+    with numpy leaves: q int8 in int8 mode, in fp8 mode its e4m3 bit
+    patterns as uint8 (numpy has no e4m3 dtype without ml_dtypes)."""
+    def cell(name, axes):
+        q = qp.q[name].detach().cpu()
+        q = q.numpy() if qp.mode == "int8" else q.view(torch.uint8).numpy()
+        return {"q": _layout(q, axes), "s": qp.s[name].detach().cpu().numpy().copy()}
+
+    return _flax_tree(qp.shapes, cell)
 
 
 def from_flax_train_state(params: Mapping[str, Any], target_params: Mapping[str, Any],

@@ -19,6 +19,9 @@ and which tests and ``chip_smoke.py`` hold the kernel against.
     K8  replay_assemble.replay_assemble        n-step assembly, stack gathers, IS weights
     K5f frontier_draw.frontier_draw            the sample frontier's draw with IS weights
     K6f frontier_writeback.frontier_writeback  the sample frontier's fenced write-back
+    K10q quantize.quantize                     int8 / fp8 quantization of every parameter
+    K10g noisy_linear_q.noisy_linear_q         K3 on int8 / fp8 weights, dequantized in the tile load
+    K10d dequantize.dequantize                 the conv and embedding weights of the quantized path
 
 Each backward has a ``torch.autograd.Function`` beside it in the same
 module (``TauEmbedFn``, ``NoisyLinearFn``, ``DuelingGatherFn``,

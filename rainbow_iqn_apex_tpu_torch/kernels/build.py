@@ -32,7 +32,7 @@ BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 SOURCES = ("tau_embed.cu", "noisy_linear.cu", "dueling_head.cu", "quantile_huber.cu",
            "tau_embed_bwd.cu", "noisy_linear_bwd.cu", "dueling_head_bwd.cu", "replay_draw.cu",
            "replay_writeback.cu", "replay_append.cu", "replay_assemble.cu", "frontier_draw.cu",
-           "frontier_writeback.cu")
+           "frontier_writeback.cu", "quantize.cu", "noisy_linear_q.cu", "dequantize.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -53,6 +53,9 @@ launches: Dict[str, int] = {
     "K8_replay_assemble": 0,
     "K5f_frontier_draw": 0,
     "K6f_frontier_writeback": 0,
+    "K10q_quantize": 0,
+    "K10g_noisy_linear_q": 0,
+    "K10d_dequantize": 0,
 }
 
 _lock = threading.Lock()

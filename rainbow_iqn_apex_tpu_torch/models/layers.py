@@ -135,9 +135,14 @@ class ConvTrunk(nn.Module):
         self.convs = nn.ModuleList(convs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        cdt = self.compute_dtype
-        x = x.to(cdt).permute(0, 3, 1, 2)  # NHWC -> NCHW view
-        for conv in self.convs:
-            x = F.conv2d(x, conv.weight.to(cdt), stride=conv.stride)
-            x = torch.relu(x + conv.bias.to(cdt)[:, None, None])
-        return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        return conv_trunk(x, [(c.weight, c.bias) for c in self.convs], self.compute_dtype)
+
+
+def conv_trunk(x: torch.Tensor, layers, cdt: torch.dtype) -> torch.Tensor:
+    """``ConvTrunk``'s forward on given (weight, bias) pairs, one per
+    ``CONV_SPECS`` entry: NHWC in, phi [B, H'*W'*64] out (H, W, C order)."""
+    x = x.to(cdt).permute(0, 3, 1, 2)  # NHWC -> NCHW view
+    for (weight, bias), (_, _, stride) in zip(layers, CONV_SPECS):
+        x = F.conv2d(x, weight.to(cdt), stride=stride)
+        x = torch.relu(x + bias.to(cdt)[:, None, None])
+    return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)

@@ -4,18 +4,22 @@ Counterpart of ``rainbow_iqn_apex_tpu/ops/learn.py`` ``build_act_step``
 (:321-341): mean over K = ``cfg.num_quantile_samples`` taus, argmax; taus
 drawn per call, and in noisy mode eps per NoisyLinear per call, from an
 explicit ``torch.Generator``.  On CUDA every step of the forward after the
-convolutions is one of the port's kernels (K2, K3 x4, K4).
+convolutions is one of the port's kernels (K2, K3 x4, K4; on quantized
+weights K10d, K2, K10g x4, K4).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Mapping, Optional, Tuple, Union
+from typing import TYPE_CHECKING, Callable, Mapping, Optional, Tuple, Union
 
 import torch
 
 from rainbow_iqn_apex_tpu_torch.config import Config
 from rainbow_iqn_apex_tpu_torch.models.init import make_network
 from rainbow_iqn_apex_tpu_torch.models.iqn import RainbowIQN
+
+if TYPE_CHECKING:
+    from rainbow_iqn_apex_tpu_torch.models.quantized import QuantizedIQN
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -50,10 +54,14 @@ ActStep = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
 def build_act_step(cfg: Config, num_actions: int, use_noise: bool = True) -> ActStep:
     """Batched greedy acting: (net, obs [B, H, W, C] u8, generator) ->
     (actions [B] int32, q [B, A] fp32), both on the net's device.  ``net``
-    is the params holder, a network from ``load_network``.  ``taus=`` and
-    ``noise=`` replace the generator's draws (tests)."""
+    is the params holder: a network from ``load_network``, or a
+    ``models.quantized.QuantizedIQN`` (the JAX package's
+    ``wrap_act_quantized(act_step)``: the same step on quantized weights,
+    through K10d and K10g).  ``taus=`` and ``noise=`` replace the
+    generator's draws (tests)."""
 
-    def act_step(net: RainbowIQN, obs: torch.Tensor, generator: Optional[torch.Generator],
+    def act_step(net: Union[RainbowIQN, "QuantizedIQN"], obs: torch.Tensor,
+                 generator: Optional[torch.Generator],
                  taus: Optional[torch.Tensor] = None,
                  noise=None) -> Tuple[torch.Tensor, torch.Tensor]:
         if net.use_noise != use_noise or net.num_actions != num_actions:

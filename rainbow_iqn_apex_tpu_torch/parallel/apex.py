@@ -18,16 +18,19 @@ and one device, ``architecture="iqn"``:
                                        draws (K5f) + write-back into the
                                        device priority mirror (K6f)
   Redis weight mailbox                 publish: learner -> actor copy, bf16-
-                                       rounded under ``bf16_weight_sync``
+                                       rounded under ``bf16_weight_sync``, or
+                                       gated int8 / fp8 (``serve_quantize``:
+                                       K10q, then the actor acts through
+                                       K10d and K10g)
   actor-side initial priorities        n-step TD estimate from the actor's own
                                        Q outputs, no extra forward pass
 
 Not ported, each raising NotImplementedError (ROADMAP.md): league
 membership (``league_dir``), multi-game (``games``), the cross-host replay
 plane (``replay_net_remote``), learner failover (``failover_standby``),
-``serve_quantize`` other than "off" (K10), ``replay_ratio > 1`` (A4b), and
-more than one device or process (A13).  The JAX loop logs a "notice" and
-falls back for some of these; the port refuses them.
+``replay_ratio > 1`` (A4b), and more than one device or process (A13).
+The JAX loop logs a "notice" and falls back for some of these; the port
+refuses them.
 
 Differences of form from the JAX loop:
 
@@ -154,10 +157,6 @@ def check_apex(cfg: Config) -> None:
                                   "ported yet")
     if cfg.failover_standby:
         raise NotImplementedError("learner failover (failover_standby) is not ported yet")
-    if cfg.serve_quantize != "off":
-        raise NotImplementedError(
-            f"serve_quantize={cfg.serve_quantize!r}: the quantized publish (K10) is not ported "
-            "yet")
     if cfg.learner_devices:
         raise NotImplementedError(
             "learner_devices > 0 (separate learner and actor devices, A13) is not ported yet: "
@@ -166,9 +165,10 @@ def check_apex(cfg: Config) -> None:
 
 class ApexDriver(QuantPublishMixin):
     """The learner's state and step, the actor's stale copy of the weights
-    and its act step, on one device.  Randomness: one ``torch.Generator`` on
-    the device, seeded from ``cfg.seed``, draws the taus and noise of every
-    act and learn step in call order."""
+    (bf16 / fp32, or quantized after a passed gate: ``actor``) and its act
+    step, on one device.  Randomness: one ``torch.Generator`` on the device,
+    seeded from ``cfg.seed``, draws the taus and noise of every act and
+    learn step in call order (the quantization gate has its own)."""
 
     def __init__(self, cfg: Config, num_actions: int,
                  state_shape: Optional[Tuple[int, ...]] = None, device: DeviceLike = None):
@@ -223,7 +223,7 @@ class ApexDriver(QuantPublishMixin):
     def act_async(self, stacked_obs: np.ndarray, draws=None):
         """Act on a host [L, H, W, h] stack; returns device (actions, q)
         without waiting.  ``draws`` = (taus, noise) replaces the generator's."""
-        return self._act(self.actor_net, put_frames(stacked_obs, self.device), self.generator,
+        return self._act(self.actor, put_frames(stacked_obs, self.device), self.generator,
                          *(draws or ()))
 
     def act(self, stacked_obs: np.ndarray, draws=None) -> Tuple[np.ndarray, np.ndarray]:
@@ -242,7 +242,7 @@ class ApexDriver(QuantPublishMixin):
                                            dtype=torch.uint8, device=self.device)
         keep = put_frames((~np.asarray(prev_cuts, bool)).astype(np.uint8), self.device)
         shift_stack(self.actor_stack, put_frames(np.asarray(frames, np.uint8), self.device), keep)
-        a, q = self._act(self.actor_net, self.actor_stack, self.generator, *(draws or ()))
+        a, q = self._act(self.actor, self.actor_stack, self.generator, *(draws or ()))
         with hostsync.sanctioned():  # the obligatory actor->env hand-off
             return hostsync.to_host(a), hostsync.to_host(q)
 
@@ -448,6 +448,15 @@ def train_apex(cfg: Config, max_frames: Optional[int] = None,
                 returns.append(float(r))
 
             if len(memory) >= learn_start and memory.sampleable:
+                if driver.wants_calibration():
+                    # the gate's calibration: one sampled batch's stacked obs,
+                    # drawn once at warm-up (only with serve_quantize on, so
+                    # the sampler's stream is otherwise untouched)
+                    _settle()
+                    with hostsync.sanctioned():
+                        calib = memory.sample(min(cfg.quant_calib_batch, cfg.batch_size),
+                                              priority_beta(cfg, frames))
+                    driver.set_calibration(calib.obs)
                 if frontier is not None and prefetcher is None:
                     # sample-ahead: device-drawn index blocks, host frame
                     # gathers, staged device batches; the learner only pops

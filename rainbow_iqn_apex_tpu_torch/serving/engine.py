@@ -12,15 +12,27 @@ the network it started with (its tensors stay alive while referenced, and
 all work is ordered on one stream), the next dispatch reads the new one, and
 no request observes a half-written set of weights.
 
-Not ported (each raises NotImplementedError): quantized serving
-(``serve_quantize != "off"``) and more than one device.
+Quantized serving (``cfg.serve_quantize`` "int8" or "fp8", engine.py
+:123-250 of the JAX package): every stage also quantizes the fp32 weights
+(K10q) into a ``QuantizedIQN`` (``models/quantized.py``: K10d, K2, K10g,
+K4), and a gate compares its greedy actions with the full-precision
+network's on the calibration batch.  Agreement at or above
+``cfg.quant_agreement_min`` makes the quantized network serve; below it the
+engine serves the full-precision one and emits one reasoned
+``quant_fallback`` row through ``quant_log``.  The gate draws its taus and
+noise once from its own generator, seeded ``cfg.seed + 8221`` anew for
+each gate, and hands the same draws to both networks; it never advances
+the dispatch generator.  The quantized network stays local until the gate
+has passed, so a dispatch never serves unvetted weights.
+
+Not ported (raises NotImplementedError): more than one device.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Any, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,7 +44,13 @@ from rainbow_iqn_apex_tpu_torch.ops.act import (
     load_network,
     resolve_device,
 )
+from rainbow_iqn_apex_tpu_torch.models.quantized import QuantizedIQN, make_quantized_network
 from rainbow_iqn_apex_tpu_torch.serving.batcher import pick_bucket
+from rainbow_iqn_apex_tpu_torch.utils.quantize import (
+    check_mode,
+    greedy_agreement,
+    quantize_params,
+)
 
 
 def fit_buckets(buckets: Sequence[int], n_devices: int) -> List[int]:
@@ -70,6 +88,12 @@ class InferenceEngine:
     mode: "greedy" acts without noisy-net noise (eval-time behaviour);
     "noisy" keeps the noise on.  Taus are drawn fresh per dispatch in both
     modes, from a per-engine generator seeded ``cfg.seed + 4099``.
+
+    ``calib_obs`` ([n, H, W, C] uint8) is the quantization gate's
+    calibration batch and ``quant_log(kind, **fields)`` receives its
+    ``quant`` / ``quant_fallback`` rows; both matter only with
+    ``cfg.serve_quantize`` on.  Without a calibration batch the quantized
+    network stays off quietly (the gate cannot be evaluated).
     """
 
     def __init__(
@@ -81,13 +105,11 @@ class InferenceEngine:
         buckets: Optional[Sequence[int]] = None,
         mode: str = "greedy",
         state_shape: Optional[Tuple[int, int, int]] = None,
+        calib_obs: Optional[np.ndarray] = None,
+        quant_log: Optional[Callable[..., Any]] = None,
     ):
         if mode not in ("greedy", "noisy"):
             raise ValueError(f"unknown serve mode {mode!r}")
-        if getattr(cfg, "serve_quantize", "off") != "off":
-            raise NotImplementedError(
-                f"serve_quantize={cfg.serve_quantize!r}: quantized serving (K10) "
-                "is not ported yet; use 'off'")
         self.cfg = cfg
         self.num_actions = num_actions
         self.mode = mode
@@ -101,8 +123,19 @@ class InferenceEngine:
         self._generator.manual_seed(cfg.seed + 4099)
         self._gen_lock = threading.Lock()
         self._swap_lock = threading.Lock()
+        self.quant_mode = check_mode(getattr(cfg, "serve_quantize", "off"))
+        self.quant_agreement_min = float(getattr(cfg, "quant_agreement_min", 0.99))
+        self.quant_log = quant_log
+        self.quant_active = False
+        self.quant_agreement: Optional[float] = None
+        self.quant_fallbacks = 0
+        self._qnet: Optional[QuantizedIQN] = None
+        self._calib_obs = None if calib_obs is None else np.asarray(calib_obs)
         self._net = self._stage(params)
+        self._serving = self._net  # the network dispatches read: _net or a vetted _qnet
         self.params_version = 0
+        if self.quant_mode != "off":
+            self._stage_quantized(params)
         self.weights_loaded_at = time.monotonic()
 
     def _stage(self, params: Mapping[str, torch.Tensor]):
@@ -117,9 +150,93 @@ class InferenceEngine:
         so concurrent swaps land in call order."""
         with self._swap_lock:
             self._net = self._stage(params)
+            if self.quant_mode != "off":
+                self._stage_quantized(params)
+            else:
+                self._serving = self._net
             self.params_version += 1
             self.weights_loaded_at = time.monotonic()
             return self.params_version
+
+    # ------------------------------------------------- quantized inference
+    def set_calibration(self, calib_obs: np.ndarray) -> None:
+        """Provide or replace the calibration observations ([n, H, W, C]
+        uint8) and re-run the gate on the staged weights."""
+        self._calib_obs = np.asarray(calib_obs)
+        if self.quant_mode != "off":
+            with self._swap_lock:
+                self._stage_quantized(self._params32)
+
+    def _emit_quant(self, kind: str, **fields: Any) -> None:
+        if self.quant_log is not None:
+            try:
+                self.quant_log(kind, **fields)
+            except Exception:
+                pass  # observability must never block a swap
+
+    def _gate_draws(self, batch: int):
+        """The gate's taus (and noise, in noisy mode), drawn from a generator
+        seeded ``cfg.seed + 8221`` anew for each gate."""
+        g = torch.Generator(device=self.device).manual_seed(self.cfg.seed + 8221)
+        taus = torch.rand((batch, self.cfg.num_quantile_samples), generator=g,
+                          device=self.device)
+        return taus, (self._net.sample_noise(g) if self._use_noise else None)
+
+    def _stage_quantized(self, params: Mapping[str, torch.Tensor]) -> None:
+        """Quantize the fp32 ``params`` (K10q) and gate them; called under
+        the swap lock.  The quantized network serves only after the gate
+        passed; until it has ruled, dispatches keep the network they served
+        before (stale, as in a hot swap, but vetted)."""
+        self._params32 = params
+        fp32 = {k: torch.as_tensor(v).detach().to(self.device, torch.float32).contiguous()
+                for k, v in params.items()}
+        qnet = make_quantized_network(self.cfg, self.num_actions,
+                                      quantize_params(fp32, self.quant_mode),
+                                      use_noise=self._use_noise)
+        if self._calib_obs is None:
+            self.quant_active = False
+            self._qnet = qnet  # unused while inactive; kept fresh
+            self._serving = self._net
+            return
+        # clamp to the largest bucket and pad as live traffic pads
+        obs = self._calib_obs[: self.buckets[-1]]
+        n = obs.shape[0]
+        bucket = self.bucket_for(n)
+        if bucket != n:
+            pad = np.broadcast_to(obs[:1], (bucket - n, *obs.shape[1:]))
+            obs = np.concatenate([obs, pad], axis=0)
+        obs_t = torch.from_numpy(np.ascontiguousarray(obs)).to(self.device)
+        taus, noise = self._gate_draws(bucket)
+        a32, _ = self._act(self._net, obs_t, None, taus, noise)
+        aq, _ = self._act(qnet, obs_t, None, taus, noise)
+        agreement = greedy_agreement(a32.cpu().numpy()[:n], aq.cpu().numpy()[:n])
+        self.quant_agreement = agreement
+        self._qnet = qnet
+        if agreement >= self.quant_agreement_min:
+            self.quant_active = True
+            self._serving = qnet
+            self._emit_quant(
+                "quant", event="gate", mode=self.quant_mode, active=True,
+                agreement=round(agreement, 6), threshold=self.quant_agreement_min,
+                calib_batch=int(n))
+        else:
+            was_active = self.quant_active
+            self.quant_active = False
+            self._serving = self._net
+            self.quant_fallbacks += 1
+            self._emit_quant(
+                "quant_fallback", reason="agreement_below_min", mode=self.quant_mode,
+                agreement=round(agreement, 6), threshold=self.quant_agreement_min,
+                calib_batch=int(n), was_active=was_active)
+
+    def quant_state(self) -> dict:
+        """Live quantization status (healthz / stats surface)."""
+        return {
+            "quant_mode": self.quant_mode,
+            "quant_active": self.quant_active,
+            "quant_agreement": self.quant_agreement,
+            "quant_fallbacks": self.quant_fallbacks,
+        }
 
     def weights_age_s(self) -> float:
         """Seconds since the served weights last changed."""
@@ -127,8 +244,14 @@ class InferenceEngine:
 
     @property
     def params(self):
-        """The live network (the params holder)."""
+        """The live full-precision network (the params holder)."""
         return self._net
+
+    @property
+    def quantized(self) -> Optional[QuantizedIQN]:
+        """The quantized network of the last stage (serving iff
+        ``quant_active``), or None with ``serve_quantize`` off."""
+        return self._qnet
 
     # ------------------------------------------------------------ inference
     def bucket_for(self, n: int) -> int:
@@ -145,7 +268,7 @@ class InferenceEngine:
             pad = np.broadcast_to(obs[:1], (bucket - n, *obs.shape[1:]))
             obs = np.concatenate([obs, pad], axis=0)
         obs_t = torch.from_numpy(np.ascontiguousarray(obs)).to(self.device)
-        net = self._net
+        net = self._serving
         with self._gen_lock:
             actions, q = self._act(net, obs_t, self._generator)
         return actions.cpu().numpy()[:n], q.cpu().numpy()[:n]

@@ -13,8 +13,16 @@ worker thread owns the device; clients only touch the queue:
 
 Not ported (each raises NotImplementedError): checkpoint-driven serving
 (``checkpointer``, ``from_checkpoint``, ``reload``; the JAX checkpoints are
-Orbax), the fleet telemetry relay (``cfg.obs_net``), quantized serving and
-more than one device.
+Orbax), the fleet telemetry relay (``cfg.obs_net``) and more than one
+device.
+
+Quantized serving (``cfg.serve_quantize`` "int8" or "fp8") gates on seeded
+uniform calibration frames, ``quant_calib_batch`` of them from
+``numpy.random.default_rng(cfg.seed + 7)`` as the JAX server makes them;
+the gate's ``quant`` / ``quant_fallback`` rows go to the metrics log, its
+agreement to the ``quant_action_agreement`` gauge and each fallback to the
+``quant_fallback_total`` counter, and ``healthz`` and ``stats`` carry the
+engine's ``quant_state()``.
 """
 
 from __future__ import annotations
@@ -71,6 +79,19 @@ class PolicyServer:
         self.cfg = cfg
         self.num_actions = num_actions
         self._obs_shape = tuple(state_shape or cfg.state_shape)
+        self.metrics = ServeMetrics(
+            MetricsLogger(metrics_path, run_id=cfg.run_id, echo=echo_metrics)
+            if metrics_path
+            else None
+        )
+        # the quantization gate's calibration: seeded uniform frames, which
+        # exercise the whole numeric path (engine.set_calibration takes real
+        # traffic or replay frames instead)
+        calib_obs = None
+        if getattr(cfg, "serve_quantize", "off") != "off":
+            n = max(int(getattr(cfg, "quant_calib_batch", 64)), 1)
+            calib_obs = np.random.default_rng(cfg.seed + 7).integers(
+                0, 255, (n, *self._obs_shape), dtype=np.uint8)
         self.engine = InferenceEngine(
             cfg,
             num_actions,
@@ -79,11 +100,8 @@ class PolicyServer:
             buckets=parse_buckets(cfg.serve_batch_buckets),
             mode=cfg.serve_mode,
             state_shape=self._obs_shape,
-        )
-        self.metrics = ServeMetrics(
-            MetricsLogger(metrics_path, run_id=cfg.run_id, echo=echo_metrics)
-            if metrics_path
-            else None
+            calib_obs=calib_obs,
+            quant_log=self._quant_log,
         )
         self.batcher = MicroBatcher(
             self.engine.buckets,
@@ -99,6 +117,17 @@ class PolicyServer:
             self.obs_http = ObsHTTPServer(
                 self.metrics.registry, self.healthz, port=cfg.obs_http_port
             )
+
+    def _quant_log(self, kind: str, **fields: Any) -> None:
+        """The engine's gate rows -> the metrics surface: the row, the
+        agreement gauge and the fallback counter."""
+        reg = self.metrics.registry
+        if kind == "quant_fallback":
+            reg.counter("quant_fallback_total", "serve").inc()
+        if fields.get("agreement") is not None:
+            reg.gauge("quant_action_agreement", "serve").set(float(fields["agreement"]))
+        if self.metrics.logger is not None:
+            self.metrics.logger.log(kind, **fields)
 
     @classmethod
     def from_checkpoint(cls, *args: Any, **kwargs: Any) -> "PolicyServer":
@@ -231,6 +260,7 @@ class PolicyServer:
             "weights_version": self.engine.params_version,
             "weights_age_s": round(self.engine.weights_age_s(), 3),
             "device": str(self.engine.device),
+            **self.engine.quant_state(),
             **snap,
         }
 
@@ -239,6 +269,7 @@ class PolicyServer:
             "queue_depth": self.batcher.depth(),
             "params_version": self.engine.params_version,
             "buckets": self.engine.buckets,
+            **self.engine.quant_state(),
             **self.metrics.stats(),
         }
 

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: rainbow_iqn_apex_tpu_torch and
 chip_smoke.py import no JAX-family package and nothing of the JAX package
 rainbow_iqn_apex_tpu, the whole port imports, serves, takes a learn step,
-trains, takes a fused Anakin step (device replay) and runs a short Ape-X
-loop with device sampling with those blocked,
+trains, takes a fused Anakin step (device replay), runs a short Ape-X
+loop with device sampling, serves an int8 and an fp8 request and runs a
+short Ape-X loop with int8 actors with those (and ``ml_dtypes``) blocked,
 and nothing falls back to the CPU unless the caller asks for it.
 """
 
@@ -62,7 +63,8 @@ def test_port_sources_import_nothing_of_jax_or_the_jax_package():
 
 _BLOCKED_RUN = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax", "chex", "orbax", "rainbow_iqn_apex_tpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "chex", "orbax", "ml_dtypes",
+             "rainbow_iqn_apex_tpu"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import numpy as np
 import rainbow_iqn_apex_tpu_torch as port
@@ -120,6 +122,26 @@ with tempfile.TemporaryDirectory() as tmp:
                                      results_dir=tmp + "/r", checkpoint_dir=tmp + "/c"),
                          max_frames=160, device="cpu")
 assert summary["frames"] == 160 and summary["learn_steps"] > 0
+
+qcfg = cfg.replace(serve_batch_buckets="2", quant_agreement_min=0.0, quant_calib_batch=2)
+for mode in ("int8", "fp8"):
+    server = PolicyServer(qcfg.replace(serve_quantize=mode), 3, init_params(cfg, 3, seed=0),
+                          device="cpu").start()
+    action = server.act(np.zeros((44, 44, 2), np.uint8))
+    assert 0 <= action < 3 and server.stats()["quant_active"], mode
+    server.stop()
+import json
+with tempfile.TemporaryDirectory() as tmp:
+    summary = train_apex(qcfg.replace(env_id="toy:catch", frame_height=80, frame_width=80,
+                                      role="apex", serve_quantize="int8", learn_start=64,
+                                      batch_size=8, memory_capacity=512, num_envs_per_actor=4,
+                                      weight_publish_interval=10, eval_episodes=1,
+                                      stall_timeout_s=0.0, results_dir=tmp + "/r",
+                                      checkpoint_dir=tmp + "/c"),
+                         max_frames=120, device="cpu")
+    with open(tmp + "/r/run0/metrics.jsonl") as f:
+        modes = [r.get("mode") for r in map(json.loads, f) if r["kind"] == "publish"]
+assert summary["learn_steps"] > 0 and modes and set(modes) == {"int8"}, modes
 print("OK", len(mods))
 """
 

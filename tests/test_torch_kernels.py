@@ -358,3 +358,133 @@ def test_k4_gather_and_bwd_kernels_match_plain(cuda, dueling):
             assert g is None
         else:
             torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
+
+
+# ------------------------------------- the quantized act path (K10) on the card
+def _quant_tree(seed=30):
+    """Full-width shapes of every kind K10q meets (a hidden layer, an *_out
+    layer of one row, a conv kernel, the embedding, biases), with a zero
+    row, half-way ties and e4m3's overflow edges planted."""
+    r = _rng(seed)
+    tree = {"hidden": r.standard_normal((512, 3136)), "out": r.standard_normal((1, 512)),
+            "conv": r.standard_normal((32, 4, 8, 8)), "embed": r.standard_normal((3136, 64)),
+            "bias": r.standard_normal(512), "edges": r.standard_normal((3, 32))}
+    tree = {k: _t(v) for k, v in tree.items()}
+    tree["hidden"][7] = 0.0
+    tree["edges"][0, :8] = torch.tensor([127.0, 2.5, -3.5, 0.5, -0.5, 1.5, 126.5, -126.5])
+    tree["edges"][1, :10] = torch.tensor([448.0, 455.0, 463.99, 464.0, 464.01, 500.0, 1e4,
+                                          -1e4, -464.0, float("nan")])
+    return tree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_k10q_kernel_equals_plain(cuda, mode):
+    """One launch over every tensor; q and s bit-equal to the twin on the
+    CPU (which tests/test_torch_quantize.py holds bit-equal to JAX)."""
+    from rainbow_iqn_apex_tpu_torch.utils.quantize import QuantizedParams, quantize_params
+
+    tree = _quant_tree()
+    if mode == "int8":
+        tree["edges"] = torch.nan_to_num(tree["edges"], nan=0.0)
+    want = quantize_params(tree, mode)
+    out = QuantizedParams.like(tree, mode, device=cuda)
+    _counted("K10q_quantize", lambda: quantize_params({k: v.to(cuda) for k, v in tree.items()},
+                                                      mode, out=out))
+    assert torch.equal(out.q_flat.cpu(), want.q_flat)
+    assert torch.equal(out.s_flat.cpu().view(torch.int32), want.s_flat.view(torch.int32))
+    if mode == "fp8":
+        nan = out.q["edges"].float().isnan().cpu()[1]
+        assert nan[4:8].all() and nan[9] and not nan[:4].any() and not nan[8]
+
+
+def _q_layer(mode, n, k, seed):
+    from rainbow_iqn_apex_tpu_torch.kernels.quantize import quantize_plain
+
+    r = _rng(seed)
+    w_mu, w_sg = r.uniform(-1, 1, (n, k)) * k ** -0.5, r.uniform(0, 1, (n, k)) * k ** -0.5
+    b_mu, b_sg = r.uniform(-0.1, 0.1, n), r.uniform(0, 0.1, n)
+    rows = n if mode == "int8" else 1
+    out = []
+    for w in (w_mu, b_mu, w_sg, b_sg):
+        q, s = quantize_plain(_t(w), mode, rows if w.ndim == 2 else 1)
+        out += [q, s]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(2048, 3136, 512), (2048, 512, 18), (2048, 512, 1),
+                                   (512, 3136, 512), (33, 48, 70)])
+@pytest.mark.parametrize("use_noise", [False, True], ids=["greedy", "noisy"])
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_k10g_kernel_matches_plain(cuda, m, k, n, use_noise, mode):
+    from rainbow_iqn_apex_tpu_torch.kernels.noisy_linear_q import (
+        noisy_linear_q,
+        noisy_linear_q_plain,
+    )
+
+    qw_mu, sw_mu, qb_mu, sb_mu, qw_sg, sw_sg, qb_sg, sb_sg = [
+        t.to(cuda) for t in _q_layer(mode, n, k, 31)]
+    x = _t(np.maximum(_rng(32).standard_normal((m, k)), 0), torch.bfloat16).to(cuda)
+    args = [x, qw_mu, sw_mu, qb_mu, sb_mu]
+    if use_noise:
+        r = _rng(33)
+        args += [qw_sg, sw_sg, qb_sg, sb_sg, _f(_t(r.standard_normal(k))).to(cuda),
+                 _f(_t(r.standard_normal(n))).to(cuda)]
+    for relu in (False, True):
+        got = _counted("K10g_noisy_linear_q", lambda: noisy_linear_q(*args, relu=relu))
+        torch.testing.assert_close(got, noisy_linear_q_plain(*args, relu=relu),
+                                   atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_k10d_kernel_equals_plain(cuda, mode):
+    """Bit-equal to the twin: one fp32 product, one rounding to bf16 (or
+    none, for the fp32 output)."""
+    from rainbow_iqn_apex_tpu_torch.kernels.dequantize import dequantize, dequantize_plain
+    from rainbow_iqn_apex_tpu_torch.utils.quantize import quantize_params
+
+    tree = {k: v for k, v in _quant_tree(34).items() if k != "edges"}
+    qp = quantize_params(tree, mode).to(cuda)
+    names = list(tree)
+    outs = [torch.empty(tree[n].shape, device=cuda,
+                        dtype=torch.float32 if n == "bias" else torch.bfloat16) for n in names]
+    _counted("K10d_dequantize", lambda: dequantize([qp.q[n] for n in names],
+                                                   [qp.s[n] for n in names], outs))
+    for n, got in zip(names, outs):
+        want = dequantize_plain(qp.q[n], qp.s[n], got.dtype)
+        assert torch.equal(got, want), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("use_noise", [False, True], ids=["greedy", "noisy"])
+def test_quantized_network_runs_k10_kernels_and_matches_the_cpu(cuda, mode, use_noise):
+    """``QuantizedIQN`` at small widths on the card: K10d 1, K2 1, K10g 4, K4
+    1 and K3 0 launches per forward, quantiles within the bf16 model's
+    3e-2 of the same network's plain path on the CPU."""
+    from rainbow_iqn_apex_tpu_torch.config import Config
+    from rainbow_iqn_apex_tpu_torch.models import init_params
+    from rainbow_iqn_apex_tpu_torch.models.quantized import make_quantized_network
+    from rainbow_iqn_apex_tpu_torch.utils.quantize import quantize_params
+
+    cfg = Config(frame_height=44, frame_width=44, history_length=2, hidden_size=64,
+                 num_cosines=16, num_quantile_samples=8)
+    qp = quantize_params(init_params(cfg, 6, seed=3), mode)
+    nets = [make_quantized_network(cfg, 6, qp.to(dev), use_noise) for dev in (cuda, "cpu")]
+    obs = torch.from_numpy(_rng(35).integers(0, 256, (16, 44, 44, 2), dtype=np.uint8))
+    taus = _t(_rng(36).random((16, 8)))
+    noise = nets[1].sample_noise(torch.Generator().manual_seed(0)) if use_noise else None
+    before = dict(launches)
+    with torch.inference_mode():
+        got = nets[0](obs.to(cuda), 8, taus=taus.to(cuda),
+                      noise={k: (a.to(cuda), b.to(cuda)) for k, (a, b) in noise.items()}
+                      if use_noise else None)
+        torch.cuda.synchronize()
+        want = nets[1](obs, 8, taus=taus, noise=noise)
+    per_call = {k: launches[k] - before[k] for k in launches}
+    assert per_call["K10d_dequantize"] == 1 and per_call["K2_tau_embed"] == 1
+    assert per_call["K10g_noisy_linear_q"] == 4 and per_call["K4_dueling_head"] == 1
+    assert per_call["K3_noisy_linear"] == 0
+    torch.testing.assert_close(got.quantiles.cpu(), want.quantiles, atol=3e-2, rtol=0)

@@ -127,8 +127,6 @@ def test_noisy_mode_draws_fresh_noise_per_dispatch(params):
 
 def test_not_ported_options_raise(params):
     with pytest.raises(NotImplementedError):
-        InferenceEngine(CFG.replace(serve_quantize="int8"), A, params, device=CPU)
-    with pytest.raises(NotImplementedError):
         PolicyServer(CFG, A, params, device=CPU, checkpointer=object())
     with pytest.raises(NotImplementedError):
         PolicyServer(CFG.replace(obs_net=True), A, params, device=CPU)
