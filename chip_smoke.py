@@ -54,7 +54,8 @@ and runs every phase, in this order:
 - ``kernels_quant``: the quantized act path's kernels (K10q int8 and fp8
   over the full-width tree with a zero channel, ties and e4m3's overflow
   edges planted, bit-equal; K10g int8 and e4m3, greedy at serving's M 2048
-  and noisy at apex acting's M 512; K10d bit-equal) against their twins,
+  and noisy at apex acting's M 512, and int8 at the catch scenario's act
+  tick, M 64, F 2304, hidden 128, 3 actions; K10d bit-equal) against their twins,
   timed the same way (K10g's yardstick is two calls: the dequantize into
   bf16, then ``F.linear``);
 - ``apex_quant``: the ``apex`` phase's device-sampling loop over its filled
@@ -74,9 +75,24 @@ and runs every phase, in this order:
   with device sampling on ``toy:catch`` for 4,000 frames, held to the bar
   the JAX ``train_apex`` clears on the same scenario;
 - ``train_apex_quant``: the same with ``--serve-quantize int8
-  --quant-agreement-min 0`` at seeds 7-10, one process each, all at once,
-  their mean evaluation held to the same bar, with the count of publishes
-  that shipped int8.
+  --quant-agreement-min 0`` at seeds 33-36 (fixed before any run read them),
+  one process each, all at once, their mean evaluation held to the same
+  bar, with the count of publishes that shipped int8;
+- ``kernels_r2d2``: R2D2's kernels (K9, the resettable LSTM recurrence, at
+  the learner's [32, 120, 512] with planted resets and an act tick's
+  [16, 1, 512]; K9-bwd at [32, 80, 512]; K11, the TD and priority epilogue,
+  at [32, 80, 18], n 3; K8s-stack at [32, 120, 84, 84], h 4) against their
+  twins, timed the same way (K9's yardstick: cuDNN's LSTM layer);
+- ``learn_r2d2``: the R2D2 learner of the reference config (``--role single
+  --architecture r2d2``: 84x84x4, LSTM 512, burn-in 40, 80 trained steps,
+  B 32, n 3, 8,621,254 parameters) through ``R2D2Agent`` on a
+  ``SequenceReplay`` of 256 synthetic sequences, 50 learn steps with the
+  per-step priority write-back and exact launches per step, and a profile;
+- ``r2d2_parity``: one full-width R2D2 learn step and one act tick on the
+  card against the same through the plain twins on the CPU;
+- ``train_r2d2``: the CLI with ``--architecture r2d2`` on ``toy:catch`` with
+  the JAX package's own R2D2 catch configuration, 20,000 frames, at seeds
+  3-6 in four processes, held to that test's bar (eval mean > 0.3).
 
 One JSON object per line; the line before the last is the card's name and
 power limit from ``nvidia-smi``, and the last line is
@@ -142,7 +158,8 @@ ANAKIN_PER_STEP = {"K1_quantile_huber": 1, "K2_tau_embed": 3, "K2_tau_embed_bwd"
                    "K4_dueling_head_bwd": 1, "K5_replay_draw": 1, "K6_replay_writeback": 1,
                    "K7_replay_append": 0, "K8_replay_assemble": 1, "K5f_frontier_draw": 0,
                    "K6f_frontier_writeback": 0, "K10q_quantize": 0, "K10g_noisy_linear_q": 0,
-                   "K10d_dequantize": 0}
+                   "K10d_dequantize": 0, "K9_lstm": 0, "K9_lstm_bwd": 0, "K11_r2d2_td": 0,
+                   "K8s_seq_stack": 0}
 FRONTIER_SHARDS = 2  # kernels_frontier: the mirror of 2 shards, the second one dead
 FRONTIER_REL = 1e-6  # K5f prob and weight: K5's chained total against torch's sum
 APEX_FILL = 2000  # append ticks of 16 lanes before the apex runs (32,000 transitions)
@@ -159,7 +176,30 @@ QUANT_PER_DISPATCH = {"K10d_dequantize": 1, "K2_tau_embed": 1, "K10g_noisy_linea
 QUANT_REQUESTS = 512  # serve_quant: requests per mode, from CLIENTS clients
 APEX_QUANT_STEPS = 120  # learn steps of the apex_quant run, publishes every APEX_QUANT_PUBLISH
 APEX_QUANT_PUBLISH = 40
-QUANT_CATCH_SEEDS = (7, 8, 9, 10)  # train_apex_quant: train_apex's seed and the next three
+# train_apex_quant: four seeds fixed before any run read them (ROADMAP.md C1 step 1)
+QUANT_CATCH_SEEDS = (33, 34, 35, 36)
+# R2D2 (--role single --architecture r2d2), the reference config's widths
+R2D2_KERNELS = ("K9_lstm", "K9_lstm_bwd", "K11_r2d2_td", "K8s_seq_stack")
+R2D2_PARAMS = 8_621_254  # R2D2Net at 84x84x4, LSTM 512, hidden 512, 18 actions
+R2D2_SEQS = 256  # sequences of the learn_r2d2 replay (the config's 1,000,000 // 120 is 7 GB)
+R2D2_FILL_TICKS = 1400  # append ticks of 16 lanes: 120 + 15 x 80 fill every slot, then wrap
+R2D2_FRAME_POOL = 64  # distinct synthetic ticks of frames cycled through the fill
+R2D2_WARMUP = 5
+R2D2_STEPS = 50
+R2D2_TARGET_PERIOD = 20  # so target copies fall inside the run (config: 8,000)
+R2D2_PROFILE_STEPS = 10
+R2D2_RESET_P = 0.05  # kernels_r2d2: share of steps with a planted LSTM reset
+R2D2_REPS = 20  # kernels_r2d2: timed repetitions of the ms-long K9 / K9-bwd / cuDNN calls
+# per learn step: K8s-stack 1; K9 4 (online and target, burn-in and train);
+# K9-bwd 1; K3 8 (two nets x four head layers); K3-bwd 4; K4 2 (online
+# gather, target combine); K4-bwd 1; K11 1; nothing else
+R2D2_PER_STEP = {"K9_lstm": 4, "K9_lstm_bwd": 1, "K11_r2d2_td": 1, "K8s_seq_stack": 1,
+                 "K3_noisy_linear": 8, "K3_noisy_linear_bwd": 4, "K4_dueling_head": 2,
+                 "K4_dueling_head_bwd": 1}
+K9_TOL = dict(atol=1e-4, rtol=1e-4)  # fp32 sums of 512 (2048) products per step, other order, 120 steps
+K11_TOL = dict(atol=1e-5, rtol=1e-5)  # fp32, summation order only
+R2D2_PARITY_BATCH = 32
+R2D2_CATCH_SEEDS = (3, 4, 5, 6)  # train_r2d2: fixed before any run read them
 
 
 def emit(obj) -> None:
@@ -184,13 +224,29 @@ def nvidia_smi_line() -> str:
 
 
 # ----------------------------------------------------------------- timing
-def time_ms(torch, fn) -> float:
+def time_ms(torch, fn, graph: bool = True, reps: int = REPS) -> float:
     """Median device time of one ``fn()`` in ms: CALLS_PER_REPLAY calls are
     captured in a CUDA graph (so host launch overhead is not timed), and each
-    of REPS replays is bracketed by CUDA events."""
+    of ``reps`` replays is bracketed by CUDA events.  ``graph=False`` brackets
+    CALLS_PER_REPLAY eager calls instead, for work that is not captured
+    (K9's cooperative launches, cuDNN's LSTM): fair where one call keeps the
+    device busy longer than its launch takes."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    if not graph:
+        samples = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(CALLS_PER_REPLAY):
+                fn()
+            end.record()
+            samples.append((start, end))
+        torch.cuda.synchronize()
+        times = sorted(s.elapsed_time(e) / CALLS_PER_REPLAY for s, e in samples)
+        return times[len(times) // 2]
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(CALLS_PER_REPLAY):
@@ -198,7 +254,7 @@ def time_ms(torch, fn) -> float:
     graph.replay()
     torch.cuda.synchronize()
     samples = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1839,6 +1895,44 @@ def phase_kernels_quant(torch, cfg):
            for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
         bound_by=path[0]["bound_by"])
 
+    # K10g at the catch scenario's act tick (train_apex_quant's actors: 8
+    # lanes x 8 taus, 80x80x2 frames -> F 2304, hidden 128, 3 actions),
+    # int8, greedy and noisy; held to the twin, timed, not in the kernels line
+    from rainbow_iqn_apex_tpu_torch.models.layers import trunk_features
+
+    ccfg = cfg.replace(frame_height=80, frame_width=80, history_length=2, hidden_size=128,
+                       num_cosines=32, num_quantile_samples=8)
+    cqp = quantize_params({k: v.to(dev) for k, v in init_params(ccfg, 3, seed=SEED + 22).items()},
+                          "int8")
+    m, cfeat = 8 * ccfg.num_quantile_samples, trunk_features(80, 80)
+    for noisy in (False, True):
+        for layer, k, relu in (("value_hidden", cfeat, True), ("advantage_out", 128, False),
+                               ("value_out", 128, False)):
+            n = cqp.shapes[f"{layer}.w_mu"][0]
+            x = torch.randn((m, k), generator=g, device=dev).relu().to(bf)
+            a = [x] + [t for p in ("w_mu", "b_mu") for t in (cqp.q[f"{layer}.{p}"],
+                                                              cqp.s[f"{layer}.{p}"])]
+            if noisy:
+                a += [t for p in ("w_sigma", "b_sigma") for t in (cqp.q[f"{layer}.{p}"],
+                                                                  cqp.s[f"{layer}.{p}"])]
+                a += [_f(torch.randn(k, generator=g, device=dev)),
+                      _f(torch.randn(n, generator=g, device=dev))]
+            got = noisy_linear_q(*a, relu=relu)
+            want = noisy_linear_q_plain(*a, relu=relu)
+            torch.cuda.synchronize()
+            max_abs, max_rel, ok = errors(torch, got, want, K3_TOL)
+            products = 2 if noisy else 1
+            nbytes = (m * k * 2 + products * (n * k + n + 4 * n + 4) + m * n * 4
+                      + (4 * (k + n) if noisy else 0))
+            bms, by = bound_ms(nbytes, products * 2 * m * n * k, BF16_FLOPS)
+            emit({"phase": "kernels_quant", "kernel": "K10g_noisy_linear_q", "mode": "int8",
+                  "scenario": "catch act tick", "shape": [m, k, n], "noisy": noisy, "relu": relu,
+                  "max_abs_err": max_abs, "max_rel_err": max_rel, "tol": K3_TOL, "ok": ok,
+                  "kernel_ms": time_ms(torch, lambda: noisy_linear_q(*a, relu=relu)),
+                  "plain_ms": time_ms(torch, lambda: noisy_linear_q_plain(*a, relu=relu)),
+                  "library_ms": None, "bound_ms": bms, "bound_by": by})
+            check(ok, f"K10g (int8, catch {layer}, noisy={noisy}) disagrees: max abs {max_abs}")
+
     # K10d: the conv and embedding leaves of one quantized network --------
     for mode in ("int8", "fp8"):
         net = make_quantized_network(cfg, 18, qps[mode], use_noise=False)
@@ -2006,9 +2100,8 @@ def phase_train_apex_quant(torch):
     int8 --quant-agreement-min 0``: every publish after the warm-up's
     calibration draw ships int8) at QUANT_CATCH_SEEDS, one trainer process
     each, all at once; the mean of their evaluations is held to the bar.
-    One seed is one draw from a wide spread (PERF.md §6): seed 7 alone ends
-    at 0.1 with int8 actors and at 0.6 with bf16 ones, on a quantized
-    network that matches its CPU twin at every publish."""
+    One seed is one draw from a wide spread (PERF.md §6), so the bar takes
+    four; the seeds were fixed before any run of them was read."""
     from concurrent.futures import ThreadPoolExecutor
 
     from rainbow_iqn_apex_tpu_torch import catch_bar
@@ -2033,6 +2126,427 @@ def phase_train_apex_quant(torch):
           "train_apex_quant: too few learn steps")
     check(all(r["quant_publishes"] > 0 for r in runs),
           "train_apex_quant: a run shipped no int8 publish")
+
+
+# --------------------------------------------------------------------- R2D2
+def _r2d2_cfg(cfg):
+    """The reference Atari config as an R2D2 learner (``--role single
+    --architecture r2d2``, the Config's R2D2 defaults), with the
+    ``learn_r2d2`` phase's cut of the target period (printed)."""
+    return cfg.replace(role="single", architecture="r2d2", stall_timeout_s=0.0,
+                       target_update_period=R2D2_TARGET_PERIOD)
+
+
+def _lstm_args(torch, gen, batch, steps, hidden, p_reset):
+    dev = torch.device("cuda", 0)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    return (randn(batch, steps, 4 * hidden, scale=0.5), randn(hidden, 4 * hidden, scale=hidden ** -0.5),
+            randn(4 * hidden, scale=0.1),
+            torch.rand((batch, steps), generator=gen, device=dev) < p_reset,
+            randn(batch, hidden, scale=0.5), randn(batch, hidden, scale=0.5))
+
+
+def _max_errors(torch, pairs, tol):
+    max_abs, max_rel, ok = 0.0, 0.0, True
+    for got, want in pairs:
+        a, r, good = errors(torch, got, want, tol)
+        max_abs, max_rel, ok = max(max_abs, a), max(max_rel, r), ok and good
+    return max_abs, max_rel, ok
+
+
+def phase_kernels_r2d2(torch, cfg):
+    """R2D2's kernels against their plain twins on the card at the learner's
+    and the actor's shapes: K9 at [32, 120, 512] with ~5 % planted resets
+    and at an act tick's [16, 1, 512]; K9-bwd at the train slice's
+    [32, 80, 512]; K11 at [32, 80, 18], n 3; K8s-stack at [32, 120, 84, 84],
+    h 4.  The library yardstick of K9 and K9-bwd is cuDNN's LSTM layer over
+    phi [B, T, 3136] (no reset in its data), which also does the input
+    product that the port leaves to one matmul; that matmul is timed too."""
+    from rainbow_iqn_apex_tpu_torch.kernels.lstm import (
+        lstm_backward,
+        lstm_backward_plain,
+        lstm_forward,
+        lstm_forward_plain,
+    )
+    from rainbow_iqn_apex_tpu_torch.kernels.r2d2_td import TDParams, r2d2_td, r2d2_td_plain
+    from rainbow_iqn_apex_tpu_torch.kernels.seq_stack import seq_stack, seq_stack_plain
+    from rainbow_iqn_apex_tpu_torch.models.layers import trunk_features
+
+    cfg = _r2d2_cfg(cfg)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    hidden, batch, burn, steps = cfg.lstm_size, cfg.batch_size, cfg.r2d2_burn_in, cfg.r2d2_seq_len
+    seq, feat, actions = burn + steps, trunk_features(cfg.frame_height, cfg.frame_width), 18
+    results = {}
+
+    def cudnn_lstm(b, t):
+        """cuDNN's LSTM layer at [b, t, hidden] over phi [b, t, feat], and the
+        port's input product phi @ W_i at the same shapes."""
+        lstm = torch.nn.LSTM(feat, hidden, batch_first=True).to(dev)
+        phi = torch.randn((b, t, feat), generator=gen, device=dev)
+        w_i = torch.randn((feat, 4 * hidden), generator=gen, device=dev) * feat ** -0.5
+        return lstm, phi, w_i
+
+    # K9 forward -------------------------------------------------------------
+    for b, t, save in ((batch, seq, True), (cfg.num_envs_per_actor, 1, False)):
+        args = _lstm_args(torch, gen, b, t, hidden, R2D2_RESET_P)
+        got = lstm_forward(*args, save=save)
+        want = lstm_forward_plain(*args, save=save)
+        torch.cuda.synchronize()
+        pairs = list(zip(got[:3], want[:3])) + (list(zip(got[3], want[3])) if save else [])
+        max_abs, max_rel, ok = _max_errors(torch, pairs, K9_TOL)
+        outs = b * t * hidden + 2 * b * hidden + (b * t * 5 * hidden if save else 0)
+        nbytes = 4 * (b * t * 4 * hidden + 4 * hidden * hidden + 4 * hidden + 2 * b * hidden
+                      + outs) + b * t
+        bms, by = bound_ms(nbytes, t * (2 * b * hidden * 4 * hidden + 30 * b * hidden), FP32_FLOPS)
+        k_ms = time_ms(torch, lambda: lstm_forward(*args, save=save), graph=False, reps=R2D2_REPS)
+        p_ms = time_ms(torch, lambda: lstm_forward_plain(*args, save=save), reps=R2D2_REPS)
+        lstm, phi, w_i = cudnn_lstm(b, t)
+        with torch.no_grad():
+            lib_ms = time_ms(torch, lambda: lstm(phi), graph=False, reps=R2D2_REPS)
+            xw_ms = time_ms(torch, lambda: phi.reshape(b * t, feat) @ w_i)
+        emit({"phase": "kernels_r2d2", "kernel": "K9_lstm", "shape": [b, t, hidden],
+              "saves_for_backward": save, "resets": int(args[3].sum()),
+              "max_abs_err": max_abs, "max_rel_err": max_rel, "tol": K9_TOL, "ok": ok,
+              "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+              "library": "nn.LSTM (cuDNN) over phi [B, T, 3136], input product included",
+              "input_matmul_ms": xw_ms, "kernel_plus_input_matmul_ms": k_ms + xw_ms,
+              "bound_ms": bms, "bound_by": by})
+        check(ok, f"K9 [{b}, {t}, {hidden}] disagrees with its twin: max abs {max_abs}")
+        if save:
+            results["K9_lstm"] = dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms, bound_ms=bms,
+                                      bound_by=by, library_ms=lib_ms)
+
+    # K9-bwd over the train slice --------------------------------------------
+    xw, w_h, b_h, reset, c0, h0 = _lstm_args(torch, gen, batch, steps, hidden, R2D2_RESET_P)
+    _, _, _, (gates, c_seq) = lstm_forward_plain(xw, w_h, b_h, reset, c0, h0, save=True)
+    dh_seq = torch.randn((batch, steps, hidden), generator=gen, device=dev)
+    args = (dh_seq, None, None, w_h, reset, gates, c_seq, c0)
+    got, want = lstm_backward(*args), lstm_backward_plain(*args)
+    torch.cuda.synchronize()
+    max_abs, max_rel, ok = errors(torch, got, want, K9_TOL)
+    nbytes = 4 * (batch * steps * hidden * 2 + 4 * hidden * hidden + batch * steps * 4 * hidden * 2
+                  + batch * hidden) + batch * steps
+    bms, by = bound_ms(nbytes, steps * (2 * batch * 4 * hidden * hidden + 40 * batch * hidden),
+                       FP32_FLOPS)
+    k_ms = time_ms(torch, lambda: lstm_backward(*args), graph=False, reps=R2D2_REPS)
+    p_ms = time_ms(torch, lambda: lstm_backward_plain(*args), reps=R2D2_REPS)
+    lstm, phi, _ = cudnn_lstm(batch, steps)
+    phi.requires_grad_(True)
+    out, _ = lstm(phi)
+    g_out = torch.randn(out.shape, generator=gen, device=dev)
+    wrt = [phi, *lstm.parameters()]
+    lib_ms = time_ms(torch, lambda: torch.autograd.grad(out, wrt, g_out, retain_graph=True),
+                     graph=False, reps=R2D2_REPS)
+    emit({"phase": "kernels_r2d2", "kernel": "K9_lstm_bwd", "shape": [batch, steps, hidden],
+          "max_abs_err": max_abs, "max_rel_err": max_rel, "tol": K9_TOL, "ok": ok,
+          "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+          "library": "the backward of nn.LSTM (cuDNN) over phi [B, T, 3136], input and "
+                     "weight gradients included",
+          "bound_ms": bms, "bound_by": by})
+    check(ok, f"K9-bwd disagrees with its twin: max abs {max_abs}")
+    results["K9_lstm_bwd"] = dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms, bound_ms=bms,
+                                  bound_by=by, library_ms=lib_ms)
+    del lstm, phi, out, g_out, wrt
+
+    # K11 ----------------------------------------------------------------------
+    n = cfg.multi_step
+    p = TDParams(n, cfg.gamma, cfg.r2d2_eta, cfg.value_rescale_eps)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    valid = torch.ones((batch, steps), dtype=torch.bool, device=dev)
+    valid[0, steps // 2:] = False  # a sequence cut by a time limit
+    done = torch.rand((batch, steps), generator=gen, device=dev) < 0.02
+    args = (rnd(batch, steps, scale=3.0), rnd(batch, steps, actions, scale=3.0),
+            rnd(batch, steps, actions, scale=3.0), rnd(batch, steps), done, valid,
+            torch.rand((batch,), generator=gen, device=dev) * 0.7 + 0.3)
+    got, want = r2d2_td(*args, p), r2d2_td_plain(*args, p)
+    torch.cuda.synchronize()
+    max_abs, max_rel, ok = _max_errors(torch, zip(got, want), K11_TOL)
+    nbytes = 4 * batch * steps * (2 + 2 * actions) + 2 * batch * steps + 4 * batch + 4 * (
+        batch * steps + batch + 2)
+    bms, by = bound_ms(nbytes, batch * steps * (actions + 60), FP32_FLOPS)
+    k_ms = time_ms(torch, lambda: r2d2_td(*args, p))
+    p_ms = time_ms(torch, lambda: r2d2_td_plain(*args, p))
+    emit({"phase": "kernels_r2d2", "kernel": "K11_r2d2_td", "shape": [batch, steps, actions],
+          "n": n, "max_abs_err": max_abs, "max_rel_err": max_rel, "tol": K11_TOL, "ok": ok,
+          "loss": float(got[0]), "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+          "bound_ms": bms, "bound_by": by})
+    check(ok, f"K11 disagrees with its twin: max abs {max_abs}")
+    results["K11_r2d2_td"] = dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms, bound_ms=bms,
+                                  bound_by=by, library_ms=None)
+
+    # K8s-stack ----------------------------------------------------------------
+    history = cfg.history_length
+    obs = torch.randint(0, 256, (batch, seq, cfg.frame_height, cfg.frame_width, 1),
+                        generator=gen, device=dev, dtype=torch.uint8)
+    equal = bool(torch.equal(seq_stack(obs, history), seq_stack_plain(obs, history)))
+    nbytes = obs.numel() * (1 + history)
+    bms, by = bound_ms(nbytes, 0, FP32_FLOPS)
+    k_ms = time_ms(torch, lambda: seq_stack(obs, history))
+    p_ms = time_ms(torch, lambda: seq_stack_plain(obs, history))
+    emit({"phase": "kernels_r2d2", "kernel": "K8s_seq_stack", "shape": list(obs.shape[:4]),
+          "history": history, "bit_equal": equal, "kernel_ms": k_ms, "plain_ms": p_ms,
+          "library_ms": None, "bound_ms": bms, "bound_by": by})
+    check(equal, "K8s-stack differs from its twin")
+    results["K8s_seq_stack"] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=bms,
+                                    bound_by=by, library_ms=None)
+    del obs
+    torch.cuda.empty_cache()
+    return results
+
+
+def _fill_sequences(cfg, np, lanes):
+    """The port's SequenceReplay of R2D2_SEQS sequences filled through
+    ``append_batch`` with seeded synthetic 84x84 frames (a pool of
+    R2D2_FRAME_POOL ticks cycled), actions, rewards, rare terminals and
+    stored LSTM states, as the actor would write them."""
+    from rainbow_iqn_apex_tpu_torch.replay import SequenceReplay
+
+    seq = cfg.r2d2_burn_in + cfg.r2d2_seq_len
+    memory = SequenceReplay(R2D2_SEQS, seq, (cfg.frame_height, cfg.frame_width), cfg.lstm_size,
+                            lanes=lanes, stride=max(seq - cfg.r2d2_overlap, 1),
+                            priority_exponent=cfg.priority_exponent,
+                            priority_eps=cfg.priority_eps, seed=cfg.seed)
+    rng = np.random.default_rng(SEED + 31)
+    pool = rng.integers(0, 256, (R2D2_FRAME_POOL, lanes, cfg.frame_height, cfg.frame_width),
+                        dtype=np.uint8)
+    for tick in range(R2D2_FILL_TICKS):
+        state = (rng.standard_normal((2, lanes, cfg.lstm_size)) * 0.3).astype(np.float32)
+        memory.append_batch(pool[tick % R2D2_FRAME_POOL], rng.integers(0, 18, lanes),
+                            rng.normal(size=lanes).astype(np.float32),
+                            rng.random(lanes) < 0.002, state[0], state[1],
+                            truncations=rng.random(lanes) < 0.001)
+    return memory
+
+
+def phase_learn_r2d2(torch, cfg):
+    """The full-width R2D2 learner through the port's entry points, as
+    ``train_r2d2`` drives it: ``R2D2Agent`` (cuda:0 by default) learning on
+    ``SequenceReplay`` samples with the per-step priority write-back, after
+    R2D2_WARMUP steps R2D2_STEPS steps with exact launches per step, then a
+    profile of R2D2_PROFILE_STEPS more."""
+    import numpy as np
+
+    from rainbow_iqn_apex_tpu_torch.kernels import launches, reset_launches
+    from rainbow_iqn_apex_tpu_torch.train import priority_beta
+    from rainbow_iqn_apex_tpu_torch.train_r2d2 import R2D2Agent
+    from rainbow_iqn_apex_tpu_torch.utils import hostsync
+
+    cfg = _r2d2_cfg(cfg)
+    lanes = cfg.num_envs_per_actor
+    seq = cfg.r2d2_burn_in + cfg.r2d2_seq_len
+    cuts = {"frames": "synthetic seeded uint8 (no emulator on the machine)",
+            "sequences": R2D2_SEQS, "config_sequences": cfg.memory_capacity // seq,
+            "target_update_period": cfg.target_update_period}
+    t0 = time.perf_counter()
+    memory = _fill_sequences(cfg, np, lanes)
+    fill_s = time.perf_counter() - t0
+    agent = R2D2Agent(cfg, 18, (cfg.frame_height, cfg.frame_width), cfg.seed)
+    check(agent.device.type == "cuda", "the R2D2 agent did not pick the card by default")
+    n_params = sum(p.numel() for p in agent.state.net.parameters())
+    beta = priority_beta(cfg, 0)
+    losses, finite = [], []
+
+    def one_step():
+        sample = memory.sample(cfg.batch_size, beta)
+        info = agent.learn(sample)
+        memory.update_priorities(sample.idx, hostsync.to_host(info["priorities"]))
+        losses.append(info["loss"])
+        finite.append(info["finite"])
+
+    for _ in range(R2D2_WARMUP):
+        one_step()
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        target_before = torch.cat([p.flatten() for p in agent.state.target.parameters()])
+    step0 = agent.step
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    lat_ms = []
+    t_run = time.perf_counter()
+    for _ in range(R2D2_STEPS):
+        t = time.perf_counter()
+        one_step()
+        lat_ms.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t_run
+    counts = dict(launches)
+    with torch.no_grad():
+        target_after = torch.cat([p.flatten() for p in agent.state.target.parameters()])
+    copies = agent.step // cfg.target_update_period - step0 // cfg.target_update_period
+    loss_t = torch.stack(losses)
+    all_finite = bool(torch.isfinite(loss_t).all()) and bool(torch.stack(finite).all())
+    per_step = {name: counts[name] / R2D2_STEPS for name in counts}
+    want = {name: float(R2D2_PER_STEP.get(name, 0)) for name in counts}
+    lat = np.sort(np.asarray(lat_ms))
+    emit({"phase": "learn_r2d2", "steps": R2D2_STEPS, "batch": cfg.batch_size,
+          "sequence": [cfg.r2d2_burn_in, cfg.r2d2_seq_len], "lstm": cfg.lstm_size,
+          "params": n_params, "learn_steps_per_s": R2D2_STEPS / elapsed, "seconds": elapsed,
+          "step_host_p50_ms": float(lat[len(lat) // 2]),
+          "step_host_p99_ms": float(lat[int(0.99 * (len(lat) - 1))]),
+          "launches": counts, "launches_per_step": per_step,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "memory_allocated": torch.cuda.memory_allocated(),
+          "losses_finite": all_finite, "loss_first": float(loss_t[0]),
+          "loss_last": float(loss_t[-1]), "target_copies": copies,
+          "target_moved": not torch.equal(target_before, target_after),
+          "replay_sequences": len(memory), "replay_fill_s": fill_s, "cuts": cuts})
+    check(n_params == R2D2_PARAMS, f"R2D2Net has {n_params} parameters, want {R2D2_PARAMS}")
+    check(per_step == want, f"launches per R2D2 learn step {per_step}, want {want}")
+    check(all_finite, "a non-finite loss in the learn_r2d2 phase")
+    check(copies >= 1 and not torch.equal(target_before, target_after),
+          "no target copy happened in the learn_r2d2 phase")
+    profile_r2d2(torch, one_step)
+    ctx = {"memory": memory, "agent": agent}
+    return counts, ctx
+
+
+def profile_r2d2(torch, one_step):
+    """Where the time of a full-width R2D2 learn step goes: device time by
+    kernel name from torch.profiler over R2D2_PROFILE_STEPS steps (sample,
+    upload, learn, priority read-back), and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(R2D2_PROFILE_STEPS):
+            one_step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = device_rows(torch, prof)
+    device_us = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    emit({"phase": "profile_r2d2", "steps": R2D2_PROFILE_STEPS,
+          "wall_us_per_step": wall_us / R2D2_PROFILE_STEPS,
+          "device_us_per_step": device_us / R2D2_PROFILE_STEPS if rows else "not measured",
+          "device_busy_share": device_us / wall_us if rows else "not measured",
+          "device_idle_share": 1.0 - device_us / wall_us if rows else "not measured",
+          "top": [{"name": k[:80], "us_per_step": t / R2D2_PROFILE_STEPS,
+                   "calls_per_step": c / R2D2_PROFILE_STEPS} for k, t, c in rows[:15]]})
+
+
+def phase_r2d2_parity(torch, cfg, ctx):
+    """One full-width R2D2 learn step and one act tick through the kernels on
+    the card against the same through the plain twins on the CPU, from the
+    same state (the ``learn_r2d2`` agent's, Adam moments warm), batch and
+    noise."""
+    import numpy as np
+
+    from rainbow_iqn_apex_tpu_torch.ops.learn import host_state, load_host_state
+    from rainbow_iqn_apex_tpu_torch.ops.r2d2 import (
+        build_r2d2_act_step,
+        build_r2d2_learn_step,
+        init_r2d2_state,
+        to_device_seq_batch,
+    )
+
+    cfg = _r2d2_cfg(cfg)
+    memory, card = ctx["memory"], ctx["agent"].state
+    dev, cpu = torch.device("cuda", 0), torch.device("cpu")
+    frame = (cfg.frame_height, cfg.frame_width)
+    host = host_state(card)
+    plain = load_host_state(init_r2d2_state(cfg, 18, cfg.seed, frame, device="cpu"), host)
+    step = build_r2d2_learn_step(cfg, 18)
+    g = torch.Generator().manual_seed(SEED + 32)
+    draws = {k: plain.net.sample_noise(g) for k in ("online", "target")}
+    on_card = {k: {n: (a.to(dev), b.to(dev)) for n, (a, b) in nz.items()}
+               for k, nz in draws.items()}
+    sample = memory.sample(R2D2_PARITY_BATCH, 0.4)
+    card, k_info = step(card, to_device_seq_batch(sample, dev), draws=on_card)
+    t0 = time.perf_counter()
+    plain, p_info = step(plain, to_device_seq_batch(sample, cpu), draws=draws)
+    cpu_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    out = {}
+    for key in ("loss", "priorities", "q_mean"):
+        got, want = k_info[key].cpu().double(), p_info[key].double()
+        err = (got - want).abs()
+        out[key] = float(err.max())
+        check(bool(torch.all(err <= LEARN_PATH_TOL["atol"] + LEARN_PATH_TOL["rtol"] * want.abs())),
+              f"r2d2_parity: {key} differs by {out[key]}")
+    gn_rel = abs(k_info["grad_norm"].item() - p_info["grad_norm"].item()) / p_info["grad_norm"].item()
+    check(gn_rel <= LEARN_GNORM_RTOL, f"r2d2_parity: grad_norm differs by {gn_rel} relative")
+    before = host["params"]
+    after_k = {k: v.cpu() for k, v in card.net.state_dict().items()}
+    after_p = plain.net.state_dict()
+    worst, worst_name = 0.0, ""
+    for k in before:
+        dk, dp = after_k[k] - before[k], after_p[k] - before[k]
+        rel = float((dk - dp).norm() / dp.norm().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_name = rel, k
+
+    # one act tick of the 16 lanes from a stored state, the same noise
+    lanes = cfg.num_envs_per_actor
+    rng = np.random.default_rng(SEED + 33)
+    obs = torch.from_numpy(rng.integers(0, 256, (lanes, *frame, cfg.history_length),
+                                        dtype=np.uint8))
+    state = tuple(torch.from_numpy((rng.standard_normal((lanes, cfg.lstm_size)) * 0.3)
+                                   .astype(np.float32)) for _ in range(2))
+    act = build_r2d2_act_step(cfg, 18)
+    noise = plain.net.sample_noise(g)
+    a_k, q_k, s_k = act(card.net, obs.to(dev), tuple(t.to(dev) for t in state), None,
+                        noise={n: (a.to(dev), b.to(dev)) for n, (a, b) in noise.items()})
+    a_p, q_p, s_p = act(plain.net, obs, state, None, noise=noise)
+    torch.cuda.synchronize()
+    q_err = float((q_k.cpu() - q_p).abs().max())
+    state_err = max(float((x.cpu() - y).abs().max()) for x, y in zip(s_k, s_p))
+    top2 = torch.sort(q_p, dim=-1).values[:, -2:]
+    # the two q vectors are within q_err of each other, so a gap above twice
+    # that leaves only one possible argmax
+    clear = (top2[:, 1] - top2[:, 0]) > 2 * q_err
+    same_actions = bool(torch.equal(a_k.cpu()[clear], a_p[clear]))
+    emit({"phase": "r2d2_parity", "batch": R2D2_PARITY_BATCH, "max_abs_err": out,
+          "tol": LEARN_PATH_TOL, "grad_norm_rel_err": gn_rel, "grad_norm_rtol": LEARN_GNORM_RTOL,
+          "update_rel_l2_worst": worst, "update_worst_tensor": worst_name,
+          "update_rtol": LEARN_UPDATE_RTOL,
+          "finite": [bool(k_info["finite"]), bool(p_info["finite"])], "cpu_step_s": cpu_s,
+          "act_lanes": lanes, "act_q_max_abs_err": q_err, "act_state_max_abs_err": state_err,
+          "act_tol": PATH_TOL, "act_clear_rows": int(clear.sum()),
+          "act_actions_agree": same_actions})
+    check(worst <= LEARN_UPDATE_RTOL,
+          f"r2d2_parity: the update of {worst_name} differs by {worst} (rel L2)")
+    check(bool(k_info["finite"]) and bool(p_info["finite"]), "r2d2_parity: a non-finite step")
+    check(q_err <= PATH_TOL and state_err <= PATH_TOL,
+          f"r2d2_parity: act tick q differs by {q_err}, state by {state_err}")
+    check(int(clear.sum()) > 0, "r2d2_parity: no act row has a clear Q gap")
+    check(same_actions, "r2d2_parity: greedy actions differ where the Q gap is clear")
+
+
+def phase_train_r2d2(torch):
+    """``python -m rainbow_iqn_apex_tpu_torch.train --role single
+    --architecture r2d2`` on toy:catch with the JAX package's own R2D2 catch
+    configuration (``catch_bar``'s r2d2 scenario: tests/test_r2d2.py's
+    test_r2d2_learns_catch, 20,000 frames) at R2D2_CATCH_SEEDS, one trainer
+    process each, all at once; the JAX test's bar: more than 100 learn steps
+    each and an evaluation mean above 0.3."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rainbow_iqn_apex_tpu_torch import catch_bar
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(R2D2_CATCH_SEEDS)) as pool:
+        runs = list(pool.map(lambda seed: catch_bar.run("r2d2", seed, "cuda:0"),
+                             R2D2_CATCH_SEEDS))
+    elapsed = time.perf_counter() - t0
+    failed = [r for r in runs if r["rc"] != 0]
+    check(not failed, f"train_r2d2: a trainer failed: {failed[:1]}")
+    evals = [r["eval_score_mean"] for r in runs]
+    mean = sum(evals) / len(evals)
+    emit({"phase": "train_r2d2", "env": "toy:catch", "seeds": list(R2D2_CATCH_SEEDS),
+          "evals": evals, "eval_mean": mean,
+          "train_returns": [r["train_return_mean"] for r in runs],
+          "learn_steps": [r["learn_steps"] for r in runs], "seconds": elapsed})
+    check(mean > catch_bar.R2D2_BAR, f"train_r2d2: mean catch eval {mean} <= {catch_bar.R2D2_BAR}")
+    check(all(r["learn_steps"] > catch_bar.R2D2_MIN_LEARN_STEPS for r in runs),
+          "train_r2d2: too few learn steps")
 
 
 def device_rows(torch, prof):
@@ -2241,7 +2755,10 @@ def main() -> int:
             replay_append,
             replay_assemble,
             replay_draw,
+            lstm,
+            r2d2_td,
             replay_writeback,
+            seq_stack,
             tau_embed,
         )
     except ImportError as e:
@@ -2271,30 +2788,43 @@ def main() -> int:
               "library": os.path.relpath(build.library_path(), ROOT), "ptxas": ptxas})
 
         results, counts = {}, {"serve": {}, "learn": {}, "anakin": {}, "apex": {},
-                               "serve_quant": {}, "apex_quant": {}}
+                               "serve_quant": {}, "apex_quant": {}, "learn_r2d2": {}}
         with open(os.path.join(ROOT, "configs", "serve_defaults.json")) as f:
             serve_cfg = Config.from_json(f.read())
         with open(os.path.join(ROOT, "configs", "reference_atari_defaults.json")) as f:
             learn_cfg = Config.from_json(f.read())
-        results.update(phase_kernels(torch, serve_cfg))
-        counts["serve"] = phase_serve(torch, serve_cfg)
-        results.update(phase_kernels_learn(torch, learn_cfg))
-        counts["learn"] = phase_learn(torch, learn_cfg)
-        phase_learn_parity(torch, learn_cfg)
-        phase_train(torch)
-        results.update(phase_kernels_replay(torch, learn_cfg))
-        counts["anakin"] = phase_anakin(torch, learn_cfg)
-        phase_anakin_parity(torch, learn_cfg)
-        phase_train_anakin(torch)
-        results.update(phase_kernels_frontier(torch, learn_cfg))
-        counts["apex"], apex_ctx = phase_apex(torch, learn_cfg)
-        results.update(phase_kernels_quant(torch, serve_cfg))
-        counts["apex_quant"] = phase_apex_quant(torch, learn_cfg, apex_ctx)
+        by_phase = {}
+
+        def timed(name, fn, *args):
+            t_phase = time.perf_counter()
+            out = fn(*args)
+            by_phase[name] = time.perf_counter() - t_phase
+            return out
+
+        results.update(timed("kernels", phase_kernels, torch, serve_cfg))
+        counts["serve"] = timed("serve", phase_serve, torch, serve_cfg)
+        results.update(timed("kernels_learn", phase_kernels_learn, torch, learn_cfg))
+        counts["learn"] = timed("learn", phase_learn, torch, learn_cfg)
+        timed("learn_parity", phase_learn_parity, torch, learn_cfg)
+        timed("train", phase_train, torch)
+        results.update(timed("kernels_replay", phase_kernels_replay, torch, learn_cfg))
+        counts["anakin"] = timed("anakin", phase_anakin, torch, learn_cfg)
+        timed("anakin_parity", phase_anakin_parity, torch, learn_cfg)
+        timed("train_anakin", phase_train_anakin, torch)
+        results.update(timed("kernels_frontier", phase_kernels_frontier, torch, learn_cfg))
+        counts["apex"], apex_ctx = timed("apex", phase_apex, torch, learn_cfg)
+        results.update(timed("kernels_quant", phase_kernels_quant, torch, serve_cfg))
+        counts["apex_quant"] = timed("apex_quant", phase_apex_quant, torch, learn_cfg, apex_ctx)
         del apex_ctx
-        counts["serve_quant"] = phase_serve_quant(torch, serve_cfg)
-        phase_apex_parity(torch, learn_cfg)
-        phase_train_apex(torch)
-        phase_train_apex_quant(torch)
+        counts["serve_quant"] = timed("serve_quant", phase_serve_quant, torch, serve_cfg)
+        timed("apex_parity", phase_apex_parity, torch, learn_cfg)
+        timed("train_apex", phase_train_apex, torch)
+        timed("train_apex_quant", phase_train_apex_quant, torch)
+        results.update(timed("kernels_r2d2", phase_kernels_r2d2, torch, learn_cfg))
+        counts["learn_r2d2"], r2d2_ctx = timed("learn_r2d2", phase_learn_r2d2, torch, learn_cfg)
+        timed("r2d2_parity", phase_r2d2_parity, torch, learn_cfg, r2d2_ctx)
+        del r2d2_ctx
+        timed("train_r2d2", phase_train_r2d2, torch)
     except SmokeFailure as e:
         emit({"ok": False, "error": str(e)})
         return 1
@@ -2302,7 +2832,8 @@ def main() -> int:
     rows = {}
     for mod in (tau_embed, noisy_linear, dueling_head, quantile_huber, replay_draw,
                 replay_writeback, replay_append, replay_assemble, frontier_draw,
-                frontier_writeback, quantize, noisy_linear_q, dequantize):
+                frontier_writeback, quantize, noisy_linear_q, dequantize, lstm, r2d2_td,
+                seq_stack):
         rows[mod.NAME] = (mod.SOURCE, mod.REPLACES)
         if hasattr(mod, "NAME_BWD"):
             rows[mod.NAME_BWD] = (mod.SOURCE_BWD, mod.REPLACES_BWD)
@@ -2315,7 +2846,8 @@ def main() -> int:
                      "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                      "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                      "bound_by": res["bound_by"], "library_ms": res["library_ms"]})
-    emit({"phase": "total", "seconds": time.perf_counter() - t_script})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_script,
+          "seconds_by_phase": by_phase})
     emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,14 @@ seeds, a few processes at a time, so that the spread can be read:
     python -m rainbow_iqn_apex_tpu_torch.catch_bar --role single --seeds 1-9 --parallel 4
     python -m rainbow_iqn_apex_tpu_torch.catch_bar --role apex --device-sampling false
     python -m rainbow_iqn_apex_tpu_torch.catch_bar --role apex --serve-quantize int8
+    python -m rainbow_iqn_apex_tpu_torch.catch_bar --role r2d2 --seeds 3-6
+
+The r2d2 scenario is the JAX package's own R2D2 catch run
+(``tests/test_r2d2.py::test_r2d2_learns_catch``: LSTM 64, 20,000 frames) in
+bf16 where the test runs fp32 (the card's K3 takes no other compute dtype;
+``--compute-dtype float32`` gives the test's own), with its bar: eval above
+0.3 and more than 100 learn steps.  ``scripts/r2d2_catch_jax.py`` runs the
+JAX ``train_r2d2`` on the same arguments.
 
 The apex scenario gives its frame budget as ``--t-max``, which the JAX
 package's CLI reads too, so the same arguments run the reference:
@@ -45,6 +53,9 @@ from typing import Dict, List
 BAR = 0.2  # evaluation mean a run must exceed
 MIN_LEARN_STEPS = 1500
 FRAMES = 4000
+R2D2_BAR = 0.3  # tests/test_r2d2.py::test_r2d2_learns_catch
+R2D2_MIN_LEARN_STEPS = 100
+R2D2_FRAMES = 20_000
 
 _COMMON = ["--env-id", "toy:catch", "--compute-dtype", "bfloat16", "--frame-height", "80",
            "--frame-width", "80", "--history-length", "2", "--hidden-size", "128",
@@ -67,18 +78,38 @@ _ROLE = {
              "--metrics-interval", "200", "--weight-publish-interval", "100",
              "--t-max", str(FRAMES)],
 }
+# tests/test_r2d2.py::test_r2d2_learns_catch, field for field but bf16 (its
+# own arguments: none of _COMMON's)
+_R2D2 = ["--role", "single", "--architecture", "r2d2", "--env-id", "toy:catch",
+         "--compute-dtype", "bfloat16", "--history-length", "1", "--hidden-size", "64",
+         "--lstm-size", "64", "--r2d2-burn-in", "2", "--r2d2-seq-len", "10",
+         "--r2d2-overlap", "4", "--multi-step", "2", "--gamma", "0.9", "--batch-size", "16",
+         "--learning-rate", "2e-3", "--target-update-period", "100",
+         "--memory-capacity", "40000", "--learn-start", "2000", "--frames-per-learn", "1",
+         "--num-envs-per-actor", "8", "--metrics-interval", "100",
+         "--checkpoint-interval", "0", "--eval-interval", "0", "--eval-episodes", "30",
+         "--max-frames", str(R2D2_FRAMES)]
+ROLES = (*_ROLE, "r2d2")
 
+# two CPU threads a run: the runs go to the card, and several trainer
+# processes share the host's cores
 _BOOT = ("import sys, torch; torch.backends.cudnn.deterministic = True; "
-         "torch.backends.cudnn.benchmark = False; "
+         "torch.backends.cudnn.benchmark = False; torch.set_num_threads(2); "
          "from rainbow_iqn_apex_tpu_torch.train import main; main(sys.argv[1:])")
 
 
 def argv(role: str, seed: int, workdir: str, device_sampling: bool = True,
-         serve_quantize: str = "off", quant_agreement_min: float = 0.0) -> List[str]:
+         serve_quantize: str = "off", quant_agreement_min: float = 0.0,
+         compute_dtype: str = "") -> List[str]:
     """The trainer's CLI arguments of ``role``'s catch scenario at ``seed``,
     writing results and checkpoints under ``workdir``; ``device_sampling``
     and ``serve_quantize`` are the apex scenario's sampling mode and actor
-    weights."""
+    weights; ``compute_dtype`` overrides the r2d2 scenario's bf16."""
+    if role == "r2d2":
+        dtype = ["--compute-dtype", compute_dtype] if compute_dtype else []
+        return [*_R2D2, *dtype, "--seed", str(seed),
+                "--results-dir", os.path.join(workdir, "results"),
+                "--checkpoint-dir", os.path.join(workdir, "ckpt")]
     extra = []
     if role == "apex":
         extra = ["--device-sampling", str(device_sampling).lower()]
@@ -137,8 +168,8 @@ def _seeds(text: str) -> List[int]:
 
 def main(args=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--role", choices=sorted(_ROLE), action="append",
-                   help="scenario (repeatable; default both)")
+    p.add_argument("--role", choices=sorted(ROLES), action="append",
+                   help="scenario (repeatable; default all but r2d2)")
     p.add_argument("--seeds", default="1-9", help="e.g. 1-9 or 7,7,7")
     p.add_argument("--parallel", type=int, default=4, help="runs at a time")
     p.add_argument("--device", default="cuda:0")
@@ -172,8 +203,10 @@ def main(args=None) -> int:
     failed_runs = any(r["rc"] != 0 for r in results)
     for role in sorted({r["role"] for r in results}):
         evals = [r["eval_score_mean"] for r in results if r["role"] == role and r["rc"] == 0]
-        print(json.dumps({"role": role, "bar": BAR, "evals": evals,
-                          "at_or_below_bar": sum(e <= BAR for e in evals)}), flush=True)
+        bar = R2D2_BAR if role == "r2d2" else BAR
+        print(json.dumps({"role": role, "bar": bar, "evals": evals,
+                          "eval_mean": sum(evals) / len(evals) if evals else None,
+                          "at_or_below_bar": sum(e <= bar for e in evals)}), flush=True)
     return 1 if failed_runs else 0
 
 

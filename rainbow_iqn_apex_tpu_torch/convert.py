@@ -1,20 +1,25 @@
-"""Carry Rainbow-IQN weights between the JAX package's flax params and the port.
+"""Carry Rainbow-IQN and R2D2 weights between the JAX package's flax params and the port.
 
-``from_flax`` takes the flax params tree (``TrainState.params``) with numpy
-leaves and returns the port's state dict (fp32 CPU tensors for
-``RainbowIQN``); ``to_flax`` goes back.  The round trip is exact: only
-layouts change, never values.
+``from_flax`` takes the flax params tree (``TrainState.params`` or
+``R2D2TrainState.params``) with numpy leaves and returns the port's state
+dict (fp32 CPU tensors for ``RainbowIQN`` or ``R2D2Net``); ``to_flax`` goes
+back.  The round trip is exact: only layouts change, never values.
 
 Layouts:
 - conv kernels are [kh, kw, in, out] in flax and [out, in, kh, kw] in torch;
 - the Dense ``embed`` kernel and NoisyLinear ``w_mu`` / ``w_sigma`` are
   [in, out] in flax and [out, in] in the port;
-- biases are the same [out] vectors.
+- biases are the same [out] vectors;
+- R2D2's flax ``OptimizedLSTMCell`` keeps one kernel per gate,
+  ``lstm/cell/{ii,if,ig,io}/kernel`` [F, H] (no bias) and
+  ``lstm/cell/{hi,hf,hg,ho}/{kernel,bias}`` [H, H] and [H]; the port holds
+  them concatenated in that gate order, as the cell concatenates them before
+  its products: ``lstm.w_i`` [F, 4H], ``lstm.w_h`` [H, 4H], ``lstm.b`` [4H].
 The trunk's flatten order (H, W, C) is kept by ``ConvTrunk`` itself, so no
 weight after it needs permuting.
 
 A whole learner state crosses too: ``from_flax_train_state`` takes the JAX
-``TrainState``'s pieces (params, target params, the optax
+``TrainState``'s (or ``R2D2TrainState``'s) pieces (params, target params, the optax
 ``ScaleByAdamState`` moments ``mu`` / ``nu`` and ``count``, and ``step``,
 all as numpy) and returns the port's host state (``ops.learn.host_state``
 form, for ``ops.learn.load_host_state``); ``to_flax_train_state`` goes back.
@@ -40,6 +45,8 @@ import torch
 
 _NOISY_HEADS = ("value_hidden", "value_out", "advantage_hidden", "advantage_out",
                 "q_hidden", "q_out")
+_GATES = "ifgo"  # flax OptimizedLSTMCell's gate order
+_LSTM = ("lstm.w_i", "lstm.w_h", "lstm.b")
 
 
 def _t(a: Any) -> torch.Tensor:
@@ -58,9 +65,10 @@ def _leaves(tree: Mapping[str, Any]):
         conv = trunk[f"Conv_{i}"]
         yield f"trunk.convs.{i}.weight", conv["kernel"], (3, 2, 0, 1)
         yield f"trunk.convs.{i}.bias", conv["bias"], None
-    embed = tree["CosineTauEmbedding_0"]["embed"]
-    yield "tau_embed.embed.weight", embed["kernel"], (1, 0)
-    yield "tau_embed.embed.bias", embed["bias"], None
+    if "CosineTauEmbedding_0" in tree:
+        embed = tree["CosineTauEmbedding_0"]["embed"]
+        yield "tau_embed.embed.weight", embed["kernel"], (1, 0)
+        yield "tau_embed.embed.bias", embed["bias"], None
     for name in _NOISY_HEADS:
         if name in tree:
             for p in ("w_mu", "b_mu", "w_sigma", "b_sigma"):
@@ -70,7 +78,7 @@ def _leaves(tree: Mapping[str, Any]):
 def _flax_tree(names, leaf) -> Dict[str, Any]:
     """The flax-shaped tree of ``leaf(name, axes)`` for the port's parameter
     ``names``; ``axes`` turns the port's layout into flax's, or is None."""
-    out: Dict[str, Any] = {"ConvTrunk_0": {}, "CosineTauEmbedding_0": {"embed": {}}}
+    out: Dict[str, Any] = {"ConvTrunk_0": {}}
     for name in names:
         parts = name.split(".")
         if parts[0] == "trunk":
@@ -79,8 +87,10 @@ def _flax_tree(names, leaf) -> Dict[str, Any]:
             node[key] = leaf(name, (2, 3, 1, 0) if key == "kernel" else None)
         elif parts[0] == "tau_embed":
             key = "kernel" if parts[2] == "weight" else "bias"
-            out["CosineTauEmbedding_0"]["embed"][key] = leaf(name, (1, 0) if key == "kernel"
-                                                             else None)
+            embed = out.setdefault("CosineTauEmbedding_0", {}).setdefault("embed", {})
+            embed[key] = leaf(name, (1, 0) if key == "kernel" else None)
+        elif parts[0] == "lstm":
+            continue  # the cell's per-gate tree: _lstm_to_flax
         else:
             out.setdefault(parts[0], {})[parts[1]] = leaf(
                 name, (1, 0) if parts[1][0] == "w" else None)
@@ -91,14 +101,42 @@ def _layout(a: np.ndarray, axes) -> np.ndarray:
     return a if axes is None else np.ascontiguousarray(np.transpose(a, axes))
 
 
+def _lstm_from_flax(cell: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``OptimizedLSTMCell`` params -> the port's concatenated ones."""
+    def cat(prefix: str, key: str) -> torch.Tensor:
+        return _t(np.concatenate([np.asarray(cell[prefix + g][key]) for g in _GATES], axis=-1))
+
+    return {"lstm.w_i": cat("i", "kernel"), "lstm.w_h": cat("h", "kernel"),
+            "lstm.b": cat("h", "bias")}
+
+
+def _lstm_to_flax(w_i: np.ndarray, w_h: np.ndarray, b: np.ndarray) -> Dict[str, Any]:
+    """The port's concatenated LSTM params -> flax ``lstm/cell`` per gate."""
+    hidden = w_h.shape[0]
+    cell: Dict[str, Any] = {}
+    for k, g in enumerate(_GATES):
+        cols = slice(k * hidden, (k + 1) * hidden)
+        cell["i" + g] = {"kernel": np.ascontiguousarray(w_i[:, cols])}
+        cell["h" + g] = {"kernel": np.ascontiguousarray(w_h[:, cols]),
+                         "bias": np.ascontiguousarray(b[cols])}
+    return {"cell": cell}
+
+
 def from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax params (numpy leaves) -> the port's ``RainbowIQN`` state dict."""
-    return {name: _t(_layout(np.asarray(a), axes)) for name, a, axes in _leaves(params)}
+    """flax params (numpy leaves) -> the port's ``RainbowIQN`` or ``R2D2Net``
+    state dict."""
+    out = {name: _t(_layout(np.asarray(a), axes)) for name, a, axes in _leaves(params)}
+    if "lstm" in params:
+        out.update(_lstm_from_flax(params["lstm"]["cell"]))
+    return out
 
 
 def to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """The port's state dict -> flax params with fp32 numpy leaves."""
-    return _flax_tree(state, lambda name, axes: _layout(_n(state[name]), axes))
+    out = _flax_tree(state, lambda name, axes: _layout(_n(state[name]), axes))
+    if "lstm.w_h" in state:
+        out["lstm"] = _lstm_to_flax(*(_n(state[name]) for name in _LSTM))
+    return out
 
 
 def from_flax_quantized(qtree: Mapping[str, Any]):

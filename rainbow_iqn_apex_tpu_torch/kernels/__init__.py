@@ -22,10 +22,15 @@ and which tests and ``chip_smoke.py`` hold the kernel against.
     K10q quantize.quantize                     int8 / fp8 quantization of every parameter
     K10g noisy_linear_q.noisy_linear_q         K3 on int8 / fp8 weights, dequantized in the tile load
     K10d dequantize.dequantize                 the conv and embedding weights of the quantized path
+    K9  lstm.lstm_forward                      R2D2's resettable LSTM recurrence (one launch per unroll)
+        lstm.lstm_backward                     its backward through time
+    K11 r2d2_td.r2d2_td                        R2D2's n-step TD, value rescale, masked Huber, priorities
+    K8s seq_stack.seq_stack                    R2D2's in-sequence frame stack
 
 Each backward has a ``torch.autograd.Function`` beside it in the same
 module (``TauEmbedFn``, ``NoisyLinearFn``, ``DuelingGatherFn``,
-``QuantileHuberFn``), which the model and the learner call.
+``QuantileHuberFn``, ``LSTMFn``, ``R2D2TDFn``), which the models and the
+learners call.
 
 ``launches`` counts kernel launches by name; ``reset_launches`` zeroes it.
 """

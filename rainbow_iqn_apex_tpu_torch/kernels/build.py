@@ -32,7 +32,8 @@ BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 SOURCES = ("tau_embed.cu", "noisy_linear.cu", "dueling_head.cu", "quantile_huber.cu",
            "tau_embed_bwd.cu", "noisy_linear_bwd.cu", "dueling_head_bwd.cu", "replay_draw.cu",
            "replay_writeback.cu", "replay_append.cu", "replay_assemble.cu", "frontier_draw.cu",
-           "frontier_writeback.cu", "quantize.cu", "noisy_linear_q.cu", "dequantize.cu")
+           "frontier_writeback.cu", "quantize.cu", "noisy_linear_q.cu", "dequantize.cu", "lstm.cu",
+           "r2d2_td.cu", "seq_stack.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -56,6 +57,10 @@ launches: Dict[str, int] = {
     "K10q_quantize": 0,
     "K10g_noisy_linear_q": 0,
     "K10d_dequantize": 0,
+    "K9_lstm": 0,
+    "K9_lstm_bwd": 0,
+    "K11_r2d2_td": 0,
+    "K8s_seq_stack": 0,
 }
 
 _lock = threading.Lock()

@@ -7,7 +7,9 @@ Counterpart of the params half of ``rainbow_iqn_apex_tpu/ops/learn.py``
   truncated at two standard deviations (flax's ``variance_scaling(1.0,
   "fan_in", "truncated_normal")``); zero biases;
 - NoisyLinear: mu ~ U(-1/sqrt(in), 1/sqrt(in)) for weight and bias, and
-  sigma = sigma0 / sqrt(in) for weight and bias.
+  sigma = sigma0 / sqrt(in) for weight and bias;
+- R2D2's LSTM (flax ``OptimizedLSTMCell``): each gate's input kernel
+  lecun-normal, each gate's recurrent kernel orthogonal, zero biases.
 
 The distributions are the same; the bits are not (JAX and torch generators
 differ).  Tests that need both frameworks on one model go through
@@ -24,6 +26,7 @@ from torch import nn
 from rainbow_iqn_apex_tpu_torch.config import Config
 from rainbow_iqn_apex_tpu_torch.models.iqn import RainbowIQN
 from rainbow_iqn_apex_tpu_torch.models.layers import NoisyLinear
+from rainbow_iqn_apex_tpu_torch.models.r2d2 import ResettableLSTM
 
 # stddev of a unit normal truncated to (-2, 2): flax rescales by it
 _TRUNC_STD = 0.87962566103423978
@@ -34,8 +37,9 @@ def _lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator
     nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
-def init_network_(net: RainbowIQN, generator: torch.Generator) -> RainbowIQN:
-    """Initialise every parameter of ``net`` in place; returns ``net``."""
+def init_network_(net: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialise every parameter of ``net`` (a ``RainbowIQN`` or an
+    ``R2D2Net``) in place; returns ``net``."""
     with torch.no_grad():
         for module in net.modules():
             if isinstance(module, nn.Conv2d):
@@ -50,6 +54,11 @@ def init_network_(net: RainbowIQN, generator: torch.Generator) -> RainbowIQN:
                 module.b_mu.uniform_(-bound, bound, generator=generator)
                 module.w_sigma.fill_(module.sigma0 * bound)
                 module.b_sigma.fill_(module.sigma0 * bound)
+            elif isinstance(module, ResettableLSTM):
+                _lecun_normal_(module.w_i, module.w_i.shape[0], generator)
+                for gate in module.w_h.split(module.features, dim=1):
+                    gate.copy_(nn.init.orthogonal_(torch.empty_like(gate), generator=generator))
+                module.b.zero_()
     return net
 
 

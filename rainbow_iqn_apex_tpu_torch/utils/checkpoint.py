@@ -3,9 +3,12 @@
 Counterpart of ``rainbow_iqn_apex_tpu/utils/checkpoint.py`` (Orbax there).
 A checkpoint is one file per step, ``step_<step>.pt`` under the run's
 directory, holding the full learner state (``ops.learn.host_state``:
-params, target params, the Adam moments and count, the step) and a JSON-able
-``extra`` side-car (frame counter, the generator's state), so resume is exact
-for the learner.
+params, target params, the Adam moments and count, the step; of a
+``TrainState`` or of R2D2's ``R2D2TrainState``, which has the same fields)
+and a JSON-able ``extra`` side-car (frame counter, the generator's state),
+so resume is exact for the learner.  Replay snapshots go through the
+replay's own ``snapshot`` / ``restore`` (``PrioritizedReplay``,
+``SequenceReplay``, ``ShardedReplay``).
 
 Crash safety: the host copy is taken at ``save``; the file is written by one
 background thread to a temporary name and renamed into place (atomic on
@@ -47,7 +50,8 @@ class Checkpointer:
         return os.path.join(self.directory, f"step_{int(step):09d}.pt")
 
     def save(self, step: int, state, extra: Optional[Dict[str, Any]] = None) -> None:
-        """Checkpoint ``state`` (a TrainState, or a ``host_state`` dict) at
+        """Checkpoint ``state`` (a TrainState or R2D2TrainState, or a
+        ``host_state`` dict) at
         ``step``.  A step that already exists is kept as it is (a rollback
         can replay the loop over a step that already checkpointed)."""
         self.wait()

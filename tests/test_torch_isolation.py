@@ -2,8 +2,9 @@
 chip_smoke.py import no JAX-family package and nothing of the JAX package
 rainbow_iqn_apex_tpu, the whole port imports, serves, takes a learn step,
 trains, takes a fused Anakin step (device replay), runs a short Ape-X
-loop with device sampling, serves an int8 and an fp8 request and runs a
-short Ape-X loop with int8 actors with those (and ``ml_dtypes``) blocked,
+loop with device sampling, serves an int8 and an fp8 request, runs a
+short Ape-X loop with int8 actors, takes an R2D2 learn step and trains
+R2D2 briefly with those (and ``ml_dtypes``) blocked,
 and nothing falls back to the CPU unless the caller asks for it.
 """
 
@@ -142,6 +143,26 @@ with tempfile.TemporaryDirectory() as tmp:
     with open(tmp + "/r/run0/metrics.jsonl") as f:
         modes = [r.get("mode") for r in map(json.loads, f) if r["kind"] == "publish"]
 assert summary["learn_steps"] > 0 and modes and set(modes) == {"int8"}, modes
+
+from rainbow_iqn_apex_tpu_torch.ops.r2d2 import (SequenceBatch, build_r2d2_learn_step,
+                                                 init_r2d2_state)
+rcfg = cfg.replace(architecture="r2d2", lstm_size=16, r2d2_burn_in=2, r2d2_seq_len=4,
+                   r2d2_overlap=2, multi_step=2)
+rstate = init_r2d2_state(rcfg, 3, 0, (44, 44), device="cpu")
+rb = SequenceBatch(obs=torch.zeros((2, 6, 44, 44, 1), dtype=torch.uint8),
+                   action=torch.ones((2, 6), dtype=torch.int32), reward=torch.ones((2, 6)),
+                   done=torch.zeros((2, 6), dtype=torch.bool),
+                   valid=torch.ones((2, 6), dtype=torch.bool), init_c=torch.zeros((2, 16)),
+                   init_h=torch.zeros((2, 16)), weight=torch.ones(2))
+rstate, info = build_r2d2_learn_step(rcfg, 3)(rstate, rb, torch.Generator().manual_seed(0))
+assert rstate.step == 1 and bool(info["finite"])
+with tempfile.TemporaryDirectory() as tmp:
+    summary = train(rcfg.replace(env_id="toy:catch", history_length=1, learn_start=48,
+                                 batch_size=4, memory_capacity=512, num_envs_per_actor=4,
+                                 eval_episodes=1, results_dir=tmp + "/r",
+                                 checkpoint_dir=tmp + "/c"),
+                    max_frames=160, device="cpu")
+assert summary["frames"] == 160 and summary["learn_steps"] > 0
 print("OK", len(mods))
 """
 

@@ -21,6 +21,10 @@ the card: K1 1e-5 (fp32, summation order); K2-bwd and K3-bwd 1e-2 abs/rel
 on their bf16 results (fp32 sums in another order move a bf16 rounding by
 one ulp; K3-bwd splits the fp32 dy into two bf16 halves, exact to ~2^-17);
 K4's gather mode and K4-bwd 1e-6 (one fp32 product and subtraction).
+R2D2's kernels on the card: K9 and K9-bwd 1e-4 abs/rel (fp32 products of
+512 (2048) terms per step summed in another order, carried through up to 120
+steps of the recurrence); K11 1e-5 (fp32, summation order); K8s-stack
+bit-equal (a byte copy).
 """
 
 import numpy as np
@@ -414,7 +418,10 @@ def _q_layer(mode, n, k, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(2048, 3136, 512), (2048, 512, 18), (2048, 512, 1),
-                                   (512, 3136, 512), (33, 48, 70)])
+                                   (512, 3136, 512), (33, 48, 70),
+                                   # the catch scenario's act tick: 8 lanes x 8 taus, F 2304
+                                   # (80x80x2), hidden 128, 3 actions
+                                   (64, 2304, 128), (64, 128, 3), (64, 128, 1)])
 @pytest.mark.parametrize("use_noise", [False, True], ids=["greedy", "noisy"])
 @pytest.mark.parametrize("mode", ["int8", "fp8"])
 def test_k10g_kernel_matches_plain(cuda, m, k, n, use_noise, mode):
@@ -488,3 +495,133 @@ def test_quantized_network_runs_k10_kernels_and_matches_the_cpu(cuda, mode, use_
     assert per_call["K10g_noisy_linear_q"] == 4 and per_call["K4_dueling_head"] == 1
     assert per_call["K3_noisy_linear"] == 0
     torch.testing.assert_close(got.quantiles.cpu(), want.quantiles, atol=3e-2, rtol=0)
+
+
+# ------------------------------------------------- R2D2's kernels on the card
+K9_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _lstm_inputs(batch, steps, hidden, seed, p_reset=0.05):
+    r = _rng(seed)
+    xw = _t(r.standard_normal((batch, steps, 4 * hidden)) * 0.5)
+    w_h = _t(r.standard_normal((hidden, 4 * hidden)) * hidden ** -0.5)
+    b = _t(r.standard_normal(4 * hidden) * 0.1)
+    reset = torch.from_numpy(r.random((batch, steps)) < p_reset)
+    c0, h0 = _t(r.standard_normal((batch, hidden)) * 0.5), _t(r.standard_normal((batch, hidden)) * 0.5)
+    return xw, w_h, b, reset, c0, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,steps,hidden", [(32, 120, 512), (32, 40, 512), (16, 1, 512),
+                                                (5, 7, 40)])
+def test_k9_kernel_matches_plain(cuda, batch, steps, hidden):
+    """The learner's unrolls (T 120 whole, 40 burn-in), an act tick (T 1)
+    and an odd shape, ~5 % resets planted: h_seq, the final (c, h) and what
+    the backward keeps (gate activations, c per step), against the twin run
+    on the card's tensors."""
+    from rainbow_iqn_apex_tpu_torch.kernels.lstm import lstm_forward, lstm_forward_plain
+
+    args = [t.to(cuda) for t in _lstm_inputs(batch, steps, hidden, 40)]
+    got = _counted("K9_lstm", lambda: lstm_forward(*args, save=True))
+    want = lstm_forward_plain(*args, save=True)
+    for g, w in zip((*got[:3], *got[3]), (*want[:3], *want[3])):
+        torch.testing.assert_close(g, w, **K9_TOL)
+    unsaved = lstm_forward(*args)  # nothing saved for a backward: the same outputs
+    torch.testing.assert_close(unsaved[0], got[0], atol=0, rtol=0)
+    assert unsaved[3] is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,steps,hidden", [(32, 80, 512), (5, 7, 40)])
+@pytest.mark.parametrize("final_grads", [False, True], ids=["seq_only", "with_final_state"])
+def test_k9_bwd_kernel_matches_plain(cuda, batch, steps, hidden, final_grads):
+    from rainbow_iqn_apex_tpu_torch.kernels.lstm import (
+        lstm_backward,
+        lstm_backward_plain,
+        lstm_forward_plain,
+    )
+
+    xw, w_h, b, reset, c0, h0 = [t.to(cuda) for t in _lstm_inputs(batch, steps, hidden, 41)]
+    _, _, _, (gates, c_seq) = lstm_forward_plain(xw, w_h, b, reset, c0, h0, save=True)
+    r = _rng(42)
+    dh_seq = _t(r.standard_normal((batch, steps, hidden))).to(cuda)
+    dh_last = _t(r.standard_normal((batch, hidden))).to(cuda) if final_grads else None
+    dc_last = _t(r.standard_normal((batch, hidden))).to(cuda) if final_grads else None
+    args = (dh_seq, dh_last, dc_last, w_h, reset, gates, c_seq, c0)
+    got = _counted("K9_lstm_bwd", lambda: lstm_backward(*args))
+    torch.testing.assert_close(got, lstm_backward_plain(*args), **K9_TOL)
+
+
+@pytest.mark.cuda
+def test_k9_autograd_on_the_card_matches_the_cpu(cuda):
+    """``LSTMFn`` (K9 + K9-bwd + the products for dW_h, db) on the card
+    against the same Function on the CPU twins."""
+    from rainbow_iqn_apex_tpu_torch.kernels.lstm import LSTMFn
+
+    inputs = _lstm_inputs(4, 12, 64, 43, p_reset=0.2)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        xw, w_h, b, reset, c0, h0 = [t.to(dev) for t in inputs]
+        xw, w_h, b = (t.clone().requires_grad_() for t in (xw, w_h, b))
+        h_seq, c, _ = LSTMFn.apply(xw, w_h, b, reset, c0, h0)
+        (h_seq.square().sum() + c.sum()).backward()
+        grads.append([t.grad.cpu() for t in (xw, w_h, b)])
+    for g, w in zip(*grads):
+        torch.testing.assert_close(g, w, **K9_TOL)
+
+
+def _td_inputs(batch, steps, actions, seed):
+    r = _rng(seed)
+    q_sel = _t(r.standard_normal((batch, steps, actions)) * 3)
+    q_sel[0, 0, :] = 1.0  # a tie: the first index wins
+    done = torch.from_numpy(r.random((batch, steps)) < 0.05)
+    valid = torch.ones((batch, steps), dtype=torch.bool)
+    valid[0, steps // 2:] = False  # a cut sequence
+    valid[-1] = False  # an empty one
+    done[1, steps // 3] = True
+    return (_t(r.standard_normal((batch, steps)) * 3), q_sel,
+            _t(r.standard_normal((batch, steps, actions)) * 3),
+            _t(r.standard_normal((batch, steps))), done, valid, _t(r.uniform(0.3, 1, batch)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,steps,actions,n", [(32, 80, 18, 3), (5, 9, 4, 2)])
+def test_k11_kernel_matches_plain(cuda, batch, steps, actions, n):
+    from rainbow_iqn_apex_tpu_torch.kernels.r2d2_td import TDParams, r2d2_td, r2d2_td_plain
+
+    p = TDParams(n, 0.99, 0.9, 1e-3)
+    args = [t.to(cuda) for t in _td_inputs(batch, steps, actions, 44)]
+    got = _counted("K11_r2d2_td", lambda: r2d2_td(*args, p))
+    want = r2d2_td_plain(*args, p)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+    assert float(got[1][-1]) == 0.0 and not got[3][-1].any()  # the empty sequence
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,history", [((32, 120, 84, 84), 4), ((3, 5, 7, 9), 3),
+                                           ((2, 6, 4, 5), 4), ((2, 6, 4, 4), 1)])
+def test_k8s_stack_kernel_equals_plain(cuda, shape, history):
+    from rainbow_iqn_apex_tpu_torch.kernels.seq_stack import seq_stack, seq_stack_plain
+
+    obs = torch.from_numpy(_rng(45).integers(0, 256, (*shape, 1), dtype=np.uint8)).to(cuda)
+    got = _counted("K8s_seq_stack", lambda: seq_stack(obs, history))
+    assert torch.equal(got, seq_stack_plain(obs, history))
+
+
+@pytest.mark.cuda
+def test_r2d2_kernels_refuse_what_they_do_not_take(cuda):
+    from rainbow_iqn_apex_tpu_torch.kernels.lstm import lstm_forward
+    from rainbow_iqn_apex_tpu_torch.kernels.r2d2_td import TDParams, r2d2_td
+    from rainbow_iqn_apex_tpu_torch.kernels.seq_stack import seq_stack
+
+    xw, w_h, b, reset, c0, h0 = [t.to(cuda) for t in _lstm_inputs(2, 3, 8, 46)]
+    with pytest.raises(ValueError):
+        lstm_forward(xw, w_h, b, reset.float(), c0, h0)
+    with pytest.raises(ValueError):
+        lstm_forward(xw[:, :, :8], w_h, b, reset, c0, h0)
+    args = [t.to(cuda) for t in _td_inputs(2, 5, 3, 47)]
+    with pytest.raises(ValueError):
+        r2d2_td(*args, TDParams(5, 0.99, 0.9, 1e-3))
+    with pytest.raises(ValueError):
+        seq_stack(torch.zeros((2, 3, 4, 4, 2), dtype=torch.uint8, device=cuda), 4)
