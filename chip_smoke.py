@@ -92,7 +92,24 @@ and runs every phase, in this order:
   card against the same through the plain twins on the CPU;
 - ``train_r2d2``: the CLI with ``--architecture r2d2`` on ``toy:catch`` with
   the JAX package's own R2D2 catch configuration, 20,000 frames, at seeds
-  3-6 in four processes, held to that test's bar (eval mean > 0.3).
+  3-6 in four processes, held to that test's bar (eval mean > 0.3);
+- ``kernels_r2d2_anakin``: the device sequence replay's kernels (K7s append
+  of 16 lanes of 120 x 84x84 steps and LSTM 512 into the config's uncut ring
+  of 8,333 sequences, wrapping; K5s draw over 8,333 priorities, dyadic, cold
+  and random, G 1 and 4, B 32; K8s gather and IS weights at B 32, G 1 and 4;
+  K6s write-back with repeated ids) against their twins, timed the same way;
+- ``anakin_r2d2``: ``--role anakin --architecture r2d2`` of the reference
+  config through the trainer's ``DeviceSequenceReplay`` at the uncut 8,333
+  sequences (~7.12 GB of device memory) and its ``act_append`` tick (K7s and
+  the act's K9, K3, K4) on 16 lanes of synthetic frames until past the warm
+  gate, with the one sanctioned read per tick, then 50 fused draw -> gather
+  -> learn -> write-back steps (``build_device_r2d2_learn``) under
+  ``forbid_host_sync()`` with exact launches per step, and a profile;
+- ``anakin_r2d2_parity``: one fused step on the card against the same step
+  through the plain twins on the CPU, over a 300-sequence ring;
+- ``train_anakin_r2d2``: the CLI with ``--role anakin --architecture r2d2``
+  on the same catch configuration at seeds 3-6 in four processes, held to
+  the same bar.
 
 One JSON object per line; the line before the last is the card's name and
 power limit from ``nvidia-smi``, and the last line is
@@ -159,7 +176,8 @@ ANAKIN_PER_STEP = {"K1_quantile_huber": 1, "K2_tau_embed": 3, "K2_tau_embed_bwd"
                    "K7_replay_append": 0, "K8_replay_assemble": 1, "K5f_frontier_draw": 0,
                    "K6f_frontier_writeback": 0, "K10q_quantize": 0, "K10g_noisy_linear_q": 0,
                    "K10d_dequantize": 0, "K9_lstm": 0, "K9_lstm_bwd": 0, "K11_r2d2_td": 0,
-                   "K8s_seq_stack": 0}
+                   "K8s_seq_stack": 0, "K7s_seq_append": 0, "K5s_seq_draw": 0,
+                   "K8s_seq_assemble": 0, "K6s_seq_writeback": 0}
 FRONTIER_SHARDS = 2  # kernels_frontier: the mirror of 2 shards, the second one dead
 FRONTIER_REL = 1e-6  # K5f prob and weight: K5's chained total against torch's sum
 APEX_FILL = 2000  # append ticks of 16 lanes before the apex runs (32,000 transitions)
@@ -200,6 +218,22 @@ K9_TOL = dict(atol=1e-4, rtol=1e-4)  # fp32 sums of 512 (2048) products per step
 K11_TOL = dict(atol=1e-5, rtol=1e-5)  # fp32, summation order only
 R2D2_PARITY_BATCH = 32
 R2D2_CATCH_SEEDS = (3, 4, 5, 6)  # train_r2d2: fixed before any run read them
+# R2D2 anakin (--role anakin --architecture r2d2): the device sequence replay
+SEQ_KERNELS = ("K7s_seq_append", "K5s_seq_draw", "K8s_seq_assemble", "K6s_seq_writeback")
+SEQ_P_TERM, SEQ_P_TRUNC = 0.002, 0.001  # synthetic ticks: rare terminals and truncations
+SEQ_KERNEL_TICKS = 400  # kernels_r2d2_anakin: K7s ticks of kernel and twin (the ring wraps)
+ANAKIN_R2D2_PAST_GATE = 16  # anakin_r2d2: sequences filled past the warm gate
+ANAKIN_R2D2_WARMUP = 5
+ANAKIN_R2D2_STEPS = 50
+ANAKIN_R2D2_PROFILE_STEPS = 10
+RING_R2D2_MIN_BYTES = 7_000_000_000  # the uncut ring of 8,333 sequences: ~7.12 GB
+# per learn step: R2D2_PER_STEP's learner, plus one draw (K5s), one gather
+# (K8s) and one write-back (K6s); nothing else
+ANAKIN_R2D2_PER_STEP = {**R2D2_PER_STEP, "K5s_seq_draw": 1, "K8s_seq_assemble": 1,
+                        "K6s_seq_writeback": 1}
+ANAKIN_R2D2_PARITY_SEQS = 300  # anakin_r2d2_parity: ring of the step against the CPU
+ANAKIN_R2D2_PARITY_TICKS = 1700  # 16 lanes: the 300 rows wrap
+R2D2_ANAKIN_CATCH_SEEDS = (3, 4, 5, 6)  # train_anakin_r2d2: fixed before any run read them
 
 
 def emit(obj) -> None:
@@ -2549,6 +2583,543 @@ def phase_train_r2d2(torch):
           "train_r2d2: too few learn steps")
 
 
+# ------------------------------------- R2D2 anakin: the device sequence replay
+def _r2d2_anakin_cfg(cfg):
+    """The reference Atari config as the R2D2 Anakin learner (``--role
+    anakin --architecture r2d2``), with the R2D2 phases' one cut of the
+    target period (printed)."""
+    return cfg.replace(role="anakin", architecture="r2d2", stall_timeout_s=0.0,
+                       target_update_period=R2D2_TARGET_PERIOD)
+
+
+def _seq_tick_data(np, rng, lanes, frame, lstm, p_term=SEQ_P_TERM, p_trunc=SEQ_P_TRUNC):
+    """One tick's synthetic appends: frames, actions, rewards, terminals,
+    truncations and pre-act (c, h), all host numpy."""
+    term = rng.random(lanes) < p_term
+    return (rng.integers(0, 256, (lanes, *frame), dtype=np.uint8),
+            rng.integers(0, 18, lanes).astype(np.int32), rng.normal(size=lanes).astype(np.float32),
+            term, (rng.random(lanes) < p_trunc) & ~term,
+            (rng.standard_normal((lanes, lstm)) * 0.3).astype(np.float32),
+            (rng.standard_normal((lanes, lstm)) * 0.3).astype(np.float32))
+
+
+def _fill_seq_ring(torch, np, replay, ss, ticks, seed):
+    """``ticks`` K7s appends of synthetic data into ``ss`` on the card."""
+    dev = replay.device
+    rng = np.random.default_rng(seed)
+    for _ in range(ticks):
+        f, a, r, term, trunc, c, h = _seq_tick_data(np, rng, replay.lanes, replay.frame_shape,
+                                                    replay.lstm_size)
+        replay.append(ss, torch.from_numpy(f).to(dev), torch.from_numpy(a).to(dev), r, term,
+                      trunc, torch.from_numpy(c).to(dev), torch.from_numpy(h).to(dev))
+    return ss
+
+
+def phase_kernels_r2d2_anakin(torch, cfg):
+    """K7s, K5s, K8s and K6s against their plain twins on the card at the
+    R2D2 Anakin learner's full width: the config's uncut ring of 8,333
+    sequences of L 120 (84x84, LSTM 512, 16 lanes, stride 80), B 32, G 1 and
+    4.  K7s: two rings (kernel, twin) driven through the same ticks from a
+    cursor 5 slots before the end, so emissions wrap past C inside one tick,
+    then timed on a tick where no lane emits and one where all 16 emit full
+    windows (its bytes go in the kernels line); K5s on dyadic priorities
+    (exact), a cold ring (exact) and random priorities (against an fp64
+    cdf); K8s and K6s on the filled ring.  The kernels line takes G 1."""
+    import numpy as np
+
+    from rainbow_iqn_apex_tpu_torch.kernels.seq_append import (
+        plan_append,
+        seq_append,
+        seq_append_plain,
+    )
+    from rainbow_iqn_apex_tpu_torch.kernels.seq_assemble import seq_assemble, seq_assemble_plain
+    from rainbow_iqn_apex_tpu_torch.kernels.seq_draw import seq_draw, seq_draw_plain
+    from rainbow_iqn_apex_tpu_torch.kernels.seq_writeback import (
+        seq_writeback,
+        seq_writeback_plain,
+    )
+    from rainbow_iqn_apex_tpu_torch.replay.device_sequence import DeviceSequenceReplay
+    from rainbow_iqn_apex_tpu_torch.train_anakin_r2d2 import _seq_geometry
+
+    cfg = _r2d2_anakin_cfg(cfg)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    seq, stride, capacity, _ = _seq_geometry(cfg)
+    lanes, lstm, batch = cfg.num_envs_per_actor, cfg.lstm_size, cfg.batch_size
+    frame = (cfg.frame_height, cfg.frame_width)
+    hw = frame[0] * frame[1]
+    eps, omega = cfg.priority_eps, cfg.priority_exponent
+    replay = DeviceSequenceReplay(capacity, seq, frame, lstm, lanes, stride, omega, eps,
+                                  device=dev)
+    results = {}
+
+    # K7s ------------------------------------------------------------------
+    got, want = replay.init_state(), replay.init_state()
+    for s in (got, want):
+        s.pos = s.filled = capacity - 5
+    rng = np.random.default_rng(SEED + 41)
+    for _ in range(SEQ_KERNEL_TICKS):
+        f, a, r, term, trunc, c, h = _seq_tick_data(np, rng, lanes, frame, lstm)
+        f, a, c, h = (torch.from_numpy(x).to(dev) for x in (f, a, c, h))
+        replay.append(got, f, a, r, term, trunc, c, h)
+        plan = plan_append(want.buf_len, term, trunc, want.pos, want.filled, capacity, seq,
+                           stride)
+        seq_append_plain(want, f, a, r, term, c, h, plan, stride)
+        want.buf_len, want.pos, want.filled = plan.buf_len, plan.pos, plan.filled
+    torch.cuda.synchronize()
+    differing = [n for n in ("frames", "actions", "rewards", "dones", "valids", "init_c",
+                             "init_h") if not torch.equal(getattr(got, n)[:capacity],
+                                                          getattr(want, n)[:capacity])]
+    differing += [n for n in ("priority", "max_priority")
+                  if not torch.equal(getattr(got, n), getattr(want, n))]
+    if (got.pos, got.filled) != (want.pos, want.filled) or not np.array_equal(got.buf_len,
+                                                                             want.buf_len):
+        differing.append("counters")
+    for lane, n in enumerate(want.buf_len):
+        differing += [f"{b}[{lane}]" for b in ("buf_frames", "buf_actions", "buf_rewards",
+                                               "buf_dones", "buf_c", "buf_h")
+                      if not torch.equal(getattr(got, b)[lane, :n], getattr(want, b)[lane, :n])]
+    wrapped = got.filled == capacity and got.pos < capacity - 5
+    f, a, r, term, trunc, c, h = _seq_tick_data(np, rng, lanes, frame, lstm, 0.0, 0.0)
+    f, a, c, h = (torch.from_numpy(x).to(dev) for x in (f, a, c, h))
+    none = plan_append(np.zeros(lanes, np.int32), term, trunc, 0, capacity, capacity, seq, stride)
+    full = plan_append(np.full(lanes, seq - 1, np.int32), term, trunc, 0, capacity, capacity,
+                       seq, stride)
+    times = {}
+    for name, plan in (("no_lane_emits", none), ("all_lanes_emit", full)):
+        times[name] = (time_ms(torch, lambda: seq_append(got, f, a, r, term, c, h, plan, stride)),
+                       time_ms(torch, lambda: seq_append_plain(want, f, a, r, term, c, h, plan,
+                                                               stride)))
+    step_bytes = hw + 4 + 4 + 1 + 2 * lstm * 4  # one builder step
+    window_read = (seq - 1) * (hw + 9) + (seq - stride) * 2 * lstm * 4 + 2 * lstm * 4
+    window_written = seq * (hw + 10) + 2 * lstm * 4 + 4 + (seq - stride) * step_bytes
+    nbytes = lanes * (2 * step_bytes + window_read + window_written) + 4
+    bms, by = bound_ms(nbytes, lanes * seq, FP32_FLOPS)
+    quiet_bms, quiet_by = bound_ms(lanes * 2 * step_bytes, lanes, FP32_FLOPS)
+    emit({"phase": "kernels_r2d2_anakin", "kernel": "K7s_seq_append",
+          "shape": [lanes, seq, *frame, lstm], "capacity": capacity, "stride": stride,
+          "ticks": SEQ_KERNEL_TICKS, "wrapped": wrapped, "fields_differing": differing,
+          "ok": not differing and wrapped,
+          "kernel_ms": times["all_lanes_emit"][0], "plain_ms": times["all_lanes_emit"][1],
+          "bound_ms": bms, "bound_by": by, "library_ms": None,
+          "no_lane_emits": {"kernel_ms": times["no_lane_emits"][0],
+                            "plain_ms": times["no_lane_emits"][1], "bound_ms": quiet_bms,
+                            "bound_by": quiet_by}})
+    check(not differing and wrapped, f"K7s disagrees with its twin on {differing[:8]} "
+                                     f"(wrapped {wrapped})")
+    results["K7s_seq_append"] = dict(max_abs_err=0.0, ms=times["all_lanes_emit"][0],
+                                     plain_ms=times["all_lanes_emit"][1], bound_ms=bms,
+                                     bound_by=by, library_ms=None)
+    del want
+    torch.cuda.empty_cache()
+    ss = got  # the kernel's ring: K8s and K6s below read it
+
+    # K5s ------------------------------------------------------------------
+    k = torch.arange(batch, device=dev, dtype=torch.float32)
+    for groups in (1, 4):
+        u = torch.rand((groups, batch), generator=gen, device=dev)
+        u[-1, -1] = 1.0 - 2.0 ** -24  # rounds u up to the total: clipped onto C - 1
+        dyadic = torch.randint(0, 9, (capacity,), generator=gen, device=dev).float() / 8
+        idx, meta = seq_draw(dyadic, capacity, u)
+        w_idx, w_meta = seq_draw_plain(dyadic, capacity, u)
+        exact = bool(torch.equal(idx, w_idx)) and bool(torch.equal(meta, w_meta))
+        zero = torch.zeros((capacity,), device=dev)
+        c_idx, c_meta = seq_draw(zero, 37, u)
+        w_idx, w_meta = seq_draw_plain(zero, 37, u)
+        cold = bool(torch.equal(c_idx, w_idx)) and bool(torch.equal(c_meta, w_meta)) and int(
+            c_idx.reshape(-1)[:-1].max()) < 37
+        p = torch.rand((capacity,), generator=gen, device=dev)
+        p[torch.rand((capacity,), generator=gen, device=dev) < 0.3] = 0.0
+        idx, meta = seq_draw(p, capacity, u)
+        u_abs = ((k + u) / batch * meta[0]).double()
+        cdf64 = torch.cumsum(p.double(), 0)
+        ref = torch.searchsorted(cdf64, u_abs, right=True).clamp(0, capacity - 1)
+        differ = idx.long() != ref
+        lo = torch.minimum(idx.long(), ref)[differ]
+        near = (u_abs[differ] - cdf64[lo]).abs() <= K5_BOUNDARY * float(meta[0])
+        zero_drawn = not bool((p[idx.reshape(-1)[:-1].long()] > 0).all())
+        torch.cuda.synchronize()
+        ok = exact and cold and bool(near.all()) and not zero_drawn
+        nbytes = capacity * 4 + groups * batch * (4 + 4) + 8
+        bms, by = bound_ms(nbytes, capacity, FP32_FLOPS)
+        k_ms = time_ms(torch, lambda: seq_draw(p, capacity, u))
+        p_ms = time_ms(torch, lambda: seq_draw_plain(p, capacity, u))
+        lib_ms = time_ms(torch, lambda: torch.searchsorted(torch.cumsum(p, 0), u_abs.float(),
+                                                           right=True))
+        emit({"phase": "kernels_r2d2_anakin", "kernel": "K5s_seq_draw",
+              "shape": [capacity, groups, batch], "dyadic_exact": exact, "cold_ring_exact": cold,
+              "fp64_mismatches": int(differ.sum()),
+              "fp64_mismatches_near_boundary": int(near.sum()), "zero_slot_drawn": zero_drawn,
+              "ok": ok, "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+              "library": "cumsum + searchsorted", "bound_ms": bms, "bound_by": by})
+        check(ok, f"K5s (G={groups}) disagrees: dyadic exact {exact}, cold ring {cold}, far "
+                  f"mismatches {int((~near).sum())}, zero slot drawn {zero_drawn}")
+        if groups == 1:
+            results["K5s_seq_draw"] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms,
+                                           library_ms=lib_ms, bound_ms=bms, bound_by=by)
+
+    # K8s on the filled ring ------------------------------------------------
+    filled = ss.filled
+    ss.priority.copy_(torch.rand((capacity,), generator=gen, device=dev) + 0.05)
+    _, meta = seq_draw(ss.priority, filled, ss.priority.new_empty((0, 1)))
+    worst = 0.0
+    for groups in (1, 4):
+        idx = torch.randint(0, filled, (groups * batch,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        args = (ss, idx, meta, 0.6, filled, batch, True)
+        got_g, want_g = seq_assemble(*args), seq_assemble_plain(*args)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(getattr(got_g, n), getattr(want_g, n))
+                    for n in ("obs", "action", "reward", "done", "valid", "init_c", "init_h"))
+        rel = max(float(((getattr(got_g, n) - getattr(want_g, n)).abs()
+                         / getattr(want_g, n).abs().clamp_min(1e-30)).max())
+                  for n in ("prob", "weight"))
+        abs_err = max(float((getattr(got_g, n) - getattr(want_g, n)).abs().max())
+                      for n in ("prob", "weight"))
+        worst = max(worst, abs_err)
+        ok = exact and rel <= REPLAY_REL
+        m = groups * batch
+        nbytes = m * (2 * seq * (hw + 4 + 4 + 1 + 1) + 2 * 2 * lstm * 4 + 4 + 4 + 4 + 4) + 8
+        bms, by = bound_ms(nbytes, m * 4, FP32_FLOPS)
+        k_ms = time_ms(torch, lambda: seq_assemble(*args))
+        p_ms = time_ms(torch, lambda: seq_assemble_plain(*args))
+        emit({"phase": "kernels_r2d2_anakin", "kernel": "K8s_seq_assemble",
+              "shape": [groups, batch, seq, *frame], "ring_filled": filled,
+              "fields_exact": exact, "prob_weight_max_rel_err": rel, "max_abs_err": abs_err,
+              "rel_tol": REPLAY_REL, "ok": ok, "kernel_ms": k_ms, "plain_ms": p_ms,
+              "library_ms": None, "bound_ms": bms, "bound_by": by})
+        check(ok, f"K8s (G={groups}) disagrees with its twin: fields exact {exact}, rel {rel}")
+        if groups == 1:
+            results["K8s_seq_assemble"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=None,
+                                               bound_ms=bms, bound_by=by)
+        del got_g, want_g
+    results["K8s_seq_assemble"]["max_abs_err"] = worst
+
+    # K6s ------------------------------------------------------------------
+    base = ss.priority.clone()
+    ids = torch.randint(0, 64, (4, batch), generator=gen, device=dev, dtype=torch.int32)
+    td = torch.rand((4 * batch,), generator=gen, device=dev) * 3
+    for groups in (4, 1):
+        got_p, got_max = base.clone(), torch.tensor(1.5, device=dev)
+        want_p, want_max = base.clone(), torch.tensor(1.5, device=dev)
+        args = (ids[:groups].contiguous(), td[:groups * batch].contiguous(), eps, omega)
+        seq_writeback(got_p, got_max, *args)
+        seq_writeback_plain(want_p, want_max, *args)
+        torch.cuda.synchronize()
+        err = float(((got_p - want_p).abs() / want_p.abs().clamp_min(1e-30)).max())
+        err = max(err, abs(float(got_max) - float(want_max)) / float(want_max))
+        ok = err <= REPLAY_REL
+        nbytes = groups * batch * 4 * 3 + 8
+        bms, by = bound_ms(nbytes, 2 * groups * batch, FP32_FLOPS)
+        k_ms = time_ms(torch, lambda: seq_writeback(got_p, got_max, *args))
+        p_ms = time_ms(torch, lambda: seq_writeback_plain(want_p, want_max, *args))
+        emit({"phase": "kernels_r2d2_anakin", "kernel": "K6s_seq_writeback",
+              "shape": [groups, batch], "omega": omega,
+              "repeated_ids": int(groups * batch - ids[:groups].unique().numel()),
+              "max_rel_err": err, "rel_tol": REPLAY_REL, "ok": ok, "kernel_ms": k_ms,
+              "plain_ms": p_ms, "library_ms": None, "bound_ms": bms, "bound_by": by})
+        check(ok, f"K6s (G={groups}) disagrees with its twin: max rel {err}")
+        if groups == 1:
+            results["K6s_seq_writeback"] = dict(max_abs_err=float((got_p - want_p).abs().max()),
+                                                ms=k_ms, plain_ms=p_ms, library_ms=None,
+                                                bound_ms=bms, bound_by=by)
+    del ss, got, base, replay
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_anakin_r2d2(torch, cfg):
+    """The R2D2 Anakin learner through the port's entry points: the trainer's
+    ``DeviceSequenceReplay`` at the config's uncut 8,333 sequences, filled
+    through the trainer's own ``act_append`` tick (K7s and the act's K9, K3,
+    K4) from 16 lanes of seeded synthetic frames, under ``forbid_host_sync()``
+    but for the one sanctioned read of the actions, until past the warm gate;
+    then ANAKIN_R2D2_STEPS ``build_device_r2d2_learn`` steps under
+    ``forbid_host_sync()`` with exact launches per step, and a profile."""
+    import numpy as np
+
+    from rainbow_iqn_apex_tpu_torch.agents.agent import put_frames
+    from rainbow_iqn_apex_tpu_torch.kernels import launches, reset_launches
+    from rainbow_iqn_apex_tpu_torch.ops.r2d2 import init_r2d2_state
+    from rainbow_iqn_apex_tpu_torch.replay.device_sequence import (
+        DeviceSequenceReplay,
+        build_device_r2d2_learn,
+    )
+    from rainbow_iqn_apex_tpu_torch.train import priority_beta
+    from rainbow_iqn_apex_tpu_torch.train_anakin_r2d2 import _seq_geometry, build_act_append
+    from rainbow_iqn_apex_tpu_torch.utils import hostsync
+
+    cfg = _r2d2_anakin_cfg(cfg)
+    lanes, lstm = cfg.num_envs_per_actor, cfg.lstm_size
+    frame = (cfg.frame_height, cfg.frame_width)
+    seq, stride, capacity, learn_start_seqs = _seq_geometry(cfg)
+    dev = torch.device("cuda", 0)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    replay = DeviceSequenceReplay(capacity, seq, frame, lstm, lanes, stride,
+                                  cfg.priority_exponent, cfg.priority_eps)  # cuda:0 by default
+    check(replay.device.type == "cuda", "the sequence replay did not pick the card by default")
+    ss = replay.init_state()
+    torch.cuda.synchronize()
+    ring_bytes = torch.cuda.memory_allocated() - mem0
+    ts = init_r2d2_state(cfg, 18, cfg.seed, frame)  # cuda:0 by default
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    act_append = build_act_append(cfg, 18, replay, gen)
+    rng = np.random.default_rng(SEED + 43)
+    pool = rng.integers(0, 256, (R2D2_FRAME_POOL, lanes, *frame), dtype=np.uint8)
+    stack = torch.zeros((lanes, *frame, cfg.history_length), dtype=torch.uint8, device=dev)
+    state = (torch.zeros((lanes, lstm), device=dev), torch.zeros((lanes, lstm), device=dev))
+    prev, cuts, ticks, tick_us = None, np.zeros(lanes, bool), 0, []
+    cut_info = {"frames": "synthetic seeded uint8 (no emulator on the machine)",
+                "target_update_period": cfg.target_update_period,
+                "ring": f"uncut: {capacity} sequences of {seq}"}
+
+    reset_launches()  # the main path: the ticks, the warm-up and the learn steps
+    torch.cuda.synchronize()
+    t_fill = time.perf_counter()
+    try:
+        with hostsync.forbid_host_sync():
+            while ss.filled < learn_start_seqs + ANAKIN_R2D2_PAST_GATE:
+                t = time.perf_counter()
+                frame_d = put_frames(pool[ticks % R2D2_FRAME_POOL], dev)
+                keep_d = put_frames((~cuts).astype(np.uint8), dev)
+                actions_d, state, pre = act_append(ts.net, stack, ss, state, frame_d, keep_d,
+                                                   prev)
+                with hostsync.sanctioned():
+                    hostsync.to_host(actions_d)  # the loop's one read: the env needs them
+                tick_us.append((time.perf_counter() - t) * 1e6)
+                rewards = rng.normal(size=lanes).astype(np.float32)
+                terms = rng.random(lanes) < SEQ_P_TERM
+                truncs = (rng.random(lanes) < SEQ_P_TRUNC) & ~terms
+                prev = (frame_d, actions_d, rewards, terms, truncs, pre[0], pre[1])
+                cuts = terms | truncs
+                ticks += 1
+    except RuntimeError as e:
+        raise SmokeFailure(f"a host sync in the act_append ticks: {e}")
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t_fill
+    tick_counts = dict(launches)
+    want_ticks = {name: 0 for name in tick_counts}
+    want_ticks.update({"K7s_seq_append": ticks - 1, "K9_lstm": ticks, "K3_noisy_linear": 4 * ticks,
+                       "K4_dueling_head": ticks})
+    check(tick_counts == want_ticks, f"launches of {ticks} act_append ticks {tick_counts}, "
+                                     f"want {want_ticks}")
+
+    fused = build_device_r2d2_learn(cfg, 18, replay)
+    beta = priority_beta(cfg, ticks * lanes)
+    for _ in range(ANAKIN_R2D2_WARMUP):
+        ts, ss, info = fused(ts, ss, gen, beta)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        target_before = torch.cat([p.flatten() for p in ts.target.parameters()])
+    step0 = ts.step
+    before = dict(launches)
+    torch.cuda.reset_peak_memory_stats()
+    losses, finite, lat_ms = [], [], []
+    t_run = time.perf_counter()
+    try:
+        with hostsync.forbid_host_sync():
+            for _ in range(ANAKIN_R2D2_STEPS):
+                t = time.perf_counter()
+                ts, ss, info = fused(ts, ss, gen, beta)
+                losses.append(info["loss"])
+                finite.append(info["finite"])
+                lat_ms.append((time.perf_counter() - t) * 1e3)
+    except RuntimeError as e:
+        raise SmokeFailure(f"a host sync in the R2D2 anakin learn steps: {e}")
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t_run
+    counts = dict(launches)
+    per_step = {name: (counts[name] - before[name]) / ANAKIN_R2D2_STEPS for name in counts}
+    want = {name: float(ANAKIN_R2D2_PER_STEP.get(name, 0)) for name in counts}
+    loss_t = torch.stack(losses)
+    all_finite = bool(torch.isfinite(loss_t).all()) and bool(torch.stack(finite).all())
+    with torch.no_grad():
+        target_after = torch.cat([p.flatten() for p in ts.target.parameters()])
+    copies = ts.step // cfg.target_update_period - step0 // cfg.target_update_period
+    lat = np.sort(np.asarray(lat_ms))
+    ticks_sorted = np.sort(np.asarray(tick_us))
+    emit({"phase": "anakin_r2d2", "steps": ANAKIN_R2D2_STEPS, "batch": cfg.batch_size,
+          "sequence": [cfg.r2d2_burn_in, cfg.r2d2_seq_len], "stride": stride, "lanes": lanes,
+          "capacity": capacity, "ring_bytes": ring_bytes, "ring_filled": ss.filled,
+          "warm_gate": learn_start_seqs, "append_ticks": ticks, "fill_seconds": fill_s,
+          "act_append_us_per_tick_p50": float(ticks_sorted[len(ticks_sorted) // 2]),
+          "act_append_us_per_tick_mean": float(ticks_sorted.mean()),
+          "tick_launches": tick_counts, "learn_steps_per_s": ANAKIN_R2D2_STEPS / elapsed,
+          "seconds": elapsed, "step_host_p50_ms": float(lat[len(lat) // 2]),
+          "step_host_p99_ms": float(lat[int(0.99 * (len(lat) - 1))]),
+          "launches_per_step": per_step,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "memory_allocated": torch.cuda.memory_allocated(),
+          "losses_finite": all_finite, "loss_first": float(loss_t[0]),
+          "loss_last": float(loss_t[-1]), "target_copies": copies,
+          "target_moved": not torch.equal(target_before, target_after), "cuts": cut_info})
+    check(ring_bytes >= RING_R2D2_MIN_BYTES, f"the sequence ring holds {ring_bytes} bytes")
+    check(per_step == want, f"launches per R2D2 anakin learn step {per_step}, want {want}")
+    check(all_finite, "a non-finite loss in the anakin_r2d2 phase")
+    check(copies >= 1 and not torch.equal(target_before, target_after),
+          "no target copy happened in the anakin_r2d2 phase")
+    profile_anakin_r2d2(torch, fused, ts, ss, gen, beta)
+    del ss, replay, ts, fused, stack, state, prev
+    torch.cuda.empty_cache()
+    return counts
+
+
+def profile_anakin_r2d2(torch, fused, ts, ss, gen, beta):
+    """Where the time of a full-width R2D2 anakin learn step goes: device
+    time by kernel name over ANAKIN_R2D2_PROFILE_STEPS steps, and the
+    device's idle share of the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ANAKIN_R2D2_PROFILE_STEPS):
+            ts, ss, _info = fused(ts, ss, gen, beta)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = device_rows(torch, prof)
+    device_us = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    n = ANAKIN_R2D2_PROFILE_STEPS
+    emit({"phase": "profile_anakin_r2d2", "steps": n, "wall_us_per_step": wall_us / n,
+          "device_us_per_step": device_us / n if rows else "not measured",
+          "device_busy_share": device_us / wall_us if rows else "not measured",
+          "device_idle_share": 1.0 - device_us / wall_us if rows else "not measured",
+          "top": [{"name": k[:80], "us_per_step": t / n, "calls_per_step": c / n}
+                  for k, t, c in rows[:15]]})
+
+
+def phase_anakin_r2d2_parity(torch, cfg):
+    """One full-width fused R2D2 anakin step on the card (kernels) against
+    the same step through the plain twins on the CPU: the same learner state
+    (three steps in), ring (ANAKIN_R2D2_PARITY_SEQS sequences filled through
+    K7s, its priorities set to multiples of 1/8 so that both sides' fp32 cdfs
+    are exact and draw the same slots), sampler uniforms and head noise."""
+    import numpy as np
+
+    from rainbow_iqn_apex_tpu_torch.ops.learn import host_state, load_host_state
+    from rainbow_iqn_apex_tpu_torch.ops.r2d2 import init_r2d2_state
+    from rainbow_iqn_apex_tpu_torch.replay.device_sequence import (
+        DeviceSequenceReplay,
+        build_device_r2d2_learn,
+    )
+    from rainbow_iqn_apex_tpu_torch.train_anakin_r2d2 import _seq_geometry
+
+    cfg = _r2d2_anakin_cfg(cfg)
+    dev, cpu = torch.device("cuda", 0), torch.device("cpu")
+    lanes, lstm = cfg.num_envs_per_actor, cfg.lstm_size
+    frame = (cfg.frame_height, cfg.frame_width)
+    seq, stride, _, _ = _seq_geometry(cfg)
+    kw = dict(capacity=ANAKIN_R2D2_PARITY_SEQS, seq_len=seq, frame_shape=frame, lstm_size=lstm,
+              lanes=lanes, stride=stride, priority_exponent=cfg.priority_exponent,
+              priority_eps=cfg.priority_eps)
+    replay, cpu_replay = DeviceSequenceReplay(**kw, device=dev), DeviceSequenceReplay(**kw,
+                                                                                        device=cpu)
+    ss = _fill_seq_ring(torch, np, replay, replay.init_state(), ANAKIN_R2D2_PARITY_TICKS,
+                        SEED + 44)
+    card = init_r2d2_state(cfg, 18, cfg.seed, frame)
+    fused = build_device_r2d2_learn(cfg, 18, replay)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 45)
+    for _ in range(3):  # warm the Adam moments
+        card, ss, _ = fused(card, ss, gen, 0.4)
+    g = torch.Generator().manual_seed(SEED + 46)
+    dyadic = torch.randint(1, 9, ss.priority.shape, generator=g).float() / 8
+    ss.priority.copy_(torch.where(ss.priority.cpu() > 0, dyadic, 0.0).to(dev))
+    host = host_state(card)
+    plain = load_host_state(init_r2d2_state(cfg, 18, cfg.seed, frame, device="cpu"), host)
+    ss_cpu = ss.to(cpu)
+    beta = 0.5
+    u = torch.rand((1, cfg.batch_size), generator=g)
+    draws = {k: plain.net.sample_noise(g) for k in ("online", "target")}
+    on_card = {k: {n: (a.to(dev), b.to(dev)) for n, (a, b) in nz.items()}
+               for k, nz in draws.items()}
+
+    # the sample alone: the same slots, sequences and scalars
+    idx_k, batch_k, prob_k = replay.sample_grouped(ss, cfg.batch_size, 1, beta, u=u.to(dev))
+    idx_p, batch_p, prob_p = cpu_replay.sample_grouped(ss_cpu, cfg.batch_size, 1, beta, u=u)
+    same_idx = bool(torch.equal(idx_k.cpu(), idx_p))
+    same_batch = all(torch.equal(getattr(batch_k, f).cpu(), getattr(batch_p, f))
+                     for f in ("obs", "action", "reward", "done", "valid", "init_c", "init_h"))
+    scalar_rel = max(float(((a.cpu() - b).abs() / b.abs().clamp_min(1e-30)).max())
+                     for a, b in ((batch_k.weight, batch_p.weight), (prob_k, prob_p)))
+    del batch_k, batch_p
+    # the fused step
+    card, ss, k_info = fused(card, ss, None, beta, u=u.to(dev), draws=on_card)
+    t0 = time.perf_counter()
+    plain, ss_cpu, p_info = build_device_r2d2_learn(cfg, 18, cpu_replay)(
+        plain, ss_cpu, None, beta, u=u, draws=draws)
+    cpu_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    errs = {}
+    for key, got, want in (("loss", k_info["loss"], p_info["loss"]),
+                           ("priorities", k_info["priorities"], p_info["priorities"]),
+                           ("q_mean", k_info["q_mean"], p_info["q_mean"]),
+                           ("replay_priority", ss.priority, ss_cpu.priority),
+                           ("max_priority", ss.max_priority, ss_cpu.max_priority)):
+        got, want = got.cpu().double(), want.double()
+        err = (got - want).abs()
+        errs[key] = float(err.max())
+        check(bool(torch.all(err <= LEARN_PATH_TOL["atol"] + LEARN_PATH_TOL["rtol"] * want.abs())),
+              f"anakin_r2d2_parity: {key} differs by {errs[key]}")
+    gn_rel = abs(k_info["grad_norm"].item() - p_info["grad_norm"].item()) / p_info["grad_norm"].item()
+    before = host["params"]
+    after_k = {k: v.cpu() for k, v in card.net.state_dict().items()}
+    after_p = plain.net.state_dict()
+    worst, worst_name = 0.0, ""
+    for k in before:
+        dk, dp = after_k[k] - before[k], after_p[k] - before[k]
+        rel = float((dk - dp).norm() / dp.norm().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_name = rel, k
+    emit({"phase": "anakin_r2d2_parity", "batch": cfg.batch_size, "ring": ANAKIN_R2D2_PARITY_SEQS,
+          "ring_filled": ss.filled, "same_idx": same_idx, "same_sequences": same_batch,
+          "weight_prob_max_rel_err": scalar_rel, "rel_tol": REPLAY_REL, "max_abs_err": errs,
+          "tol": LEARN_PATH_TOL, "grad_norm_rel_err": gn_rel, "grad_norm_rtol": LEARN_GNORM_RTOL,
+          "update_rel_l2_worst": worst, "update_worst_tensor": worst_name,
+          "update_rtol": LEARN_UPDATE_RTOL,
+          "finite": [bool(k_info["finite"]), bool(p_info["finite"])], "cpu_step_s": cpu_s})
+    check(same_idx and same_batch, "anakin_r2d2_parity: the card and the CPU sampled differently")
+    check(scalar_rel <= REPLAY_REL, f"anakin_r2d2_parity: weight/prob differ by {scalar_rel} rel")
+    check(gn_rel <= LEARN_GNORM_RTOL, f"anakin_r2d2_parity: grad_norm differs by {gn_rel} relative")
+    check(worst <= LEARN_UPDATE_RTOL,
+          f"anakin_r2d2_parity: the update of {worst_name} differs by {worst} (rel L2)")
+    check(bool(k_info["finite"]) and bool(p_info["finite"]), "anakin_r2d2_parity: a non-finite step")
+    del ss, ss_cpu, card, plain, replay
+    torch.cuda.empty_cache()
+
+
+def phase_train_anakin_r2d2(torch):
+    """``python -m rainbow_iqn_apex_tpu_torch.train --role anakin
+    --architecture r2d2`` on toy:catch with the JAX package's R2D2 catch
+    configuration (``catch_bar``'s r2d2_anakin scenario: tests/test_r2d2.py's
+    test_r2d2_learns_catch with ``--role anakin``, 20,000 frames) at
+    R2D2_ANAKIN_CATCH_SEEDS, one trainer process each, all at once; the JAX
+    test's bar: more than 100 learn steps each and an evaluation mean above
+    0.3."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rainbow_iqn_apex_tpu_torch import catch_bar
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(R2D2_ANAKIN_CATCH_SEEDS)) as pool:
+        runs = list(pool.map(lambda seed: catch_bar.run("r2d2_anakin", seed, "cuda:0"),
+                             R2D2_ANAKIN_CATCH_SEEDS))
+    elapsed = time.perf_counter() - t0
+    failed = [r for r in runs if r["rc"] != 0]
+    check(not failed, f"train_anakin_r2d2: a trainer failed: {failed[:1]}")
+    evals = [r["eval_score_mean"] for r in runs]
+    mean = sum(evals) / len(evals)
+    emit({"phase": "train_anakin_r2d2", "env": "toy:catch", "seeds": list(R2D2_ANAKIN_CATCH_SEEDS),
+          "evals": evals, "eval_mean": mean,
+          "train_returns": [r["train_return_mean"] for r in runs],
+          "learn_steps": [r["learn_steps"] for r in runs], "seconds": elapsed})
+    check(mean > catch_bar.R2D2_BAR,
+          f"train_anakin_r2d2: mean catch eval {mean} <= {catch_bar.R2D2_BAR}")
+    check(all(r["learn_steps"] > catch_bar.R2D2_MIN_LEARN_STEPS for r in runs),
+          "train_anakin_r2d2: too few learn steps")
+
+
 def device_rows(torch, prof):
     """(name, device us, calls) of the device-side events: kernels and
     copies.  CPU-side op rows carry the same device time again, and user
@@ -2758,7 +3329,11 @@ def main() -> int:
             lstm,
             r2d2_td,
             replay_writeback,
+            seq_append,
+            seq_assemble,
+            seq_draw,
             seq_stack,
+            seq_writeback,
             tau_embed,
         )
     except ImportError as e:
@@ -2788,7 +3363,8 @@ def main() -> int:
               "library": os.path.relpath(build.library_path(), ROOT), "ptxas": ptxas})
 
         results, counts = {}, {"serve": {}, "learn": {}, "anakin": {}, "apex": {},
-                               "serve_quant": {}, "apex_quant": {}, "learn_r2d2": {}}
+                               "serve_quant": {}, "apex_quant": {}, "learn_r2d2": {},
+                               "anakin_r2d2": {}}
         with open(os.path.join(ROOT, "configs", "serve_defaults.json")) as f:
             serve_cfg = Config.from_json(f.read())
         with open(os.path.join(ROOT, "configs", "reference_atari_defaults.json")) as f:
@@ -2825,6 +3401,10 @@ def main() -> int:
         timed("r2d2_parity", phase_r2d2_parity, torch, learn_cfg, r2d2_ctx)
         del r2d2_ctx
         timed("train_r2d2", phase_train_r2d2, torch)
+        results.update(timed("kernels_r2d2_anakin", phase_kernels_r2d2_anakin, torch, learn_cfg))
+        counts["anakin_r2d2"] = timed("anakin_r2d2", phase_anakin_r2d2, torch, learn_cfg)
+        timed("anakin_r2d2_parity", phase_anakin_r2d2_parity, torch, learn_cfg)
+        timed("train_anakin_r2d2", phase_train_anakin_r2d2, torch)
     except SmokeFailure as e:
         emit({"ok": False, "error": str(e)})
         return 1
@@ -2833,7 +3413,7 @@ def main() -> int:
     for mod in (tau_embed, noisy_linear, dueling_head, quantile_huber, replay_draw,
                 replay_writeback, replay_append, replay_assemble, frontier_draw,
                 frontier_writeback, quantize, noisy_linear_q, dequantize, lstm, r2d2_td,
-                seq_stack):
+                seq_stack, seq_append, seq_draw, seq_assemble, seq_writeback):
         rows[mod.NAME] = (mod.SOURCE, mod.REPLACES)
         if hasattr(mod, "NAME_BWD"):
             rows[mod.NAME_BWD] = (mod.SOURCE_BWD, mod.REPLACES_BWD)

@@ -12,5 +12,9 @@ and the act step (``ops/act.py``); ``--role single`` training
 (``train_anakin.py``) on the device-resident replay (``replay/device.py``);
 ``--role apex`` on one card (``parallel/apex.py``), sampling the host replay
 or, with ``device_sampling``, the device sample frontier
-(``replay/frontier.py``).
+(``replay/frontier.py``); int8 / fp8 serving and actors
+(``utils/quantize.py``, ``models/quantized.py``); R2D2 with ``--role
+single`` (``train_r2d2.py``, the host ``replay/sequence.py``) and ``--role
+anakin`` (``train_anakin_r2d2.py``, the device-resident
+``replay/device_sequence.py``).
 """

@@ -12,13 +12,16 @@ seeds, a few processes at a time, so that the spread can be read:
     python -m rainbow_iqn_apex_tpu_torch.catch_bar --role apex --device-sampling false
     python -m rainbow_iqn_apex_tpu_torch.catch_bar --role apex --serve-quantize int8
     python -m rainbow_iqn_apex_tpu_torch.catch_bar --role r2d2 --seeds 3-6
+    python -m rainbow_iqn_apex_tpu_torch.catch_bar --role r2d2_anakin --seeds 3-6
 
 The r2d2 scenario is the JAX package's own R2D2 catch run
 (``tests/test_r2d2.py::test_r2d2_learns_catch``: LSTM 64, 20,000 frames) in
 bf16 where the test runs fp32 (the card's K3 takes no other compute dtype;
 ``--compute-dtype float32`` gives the test's own), with its bar: eval above
-0.3 and more than 100 learn steps.  ``scripts/r2d2_catch_jax.py`` runs the
-JAX ``train_r2d2`` on the same arguments.
+0.3 and more than 100 learn steps.  The r2d2_anakin scenario is the same
+run with ``--role anakin``: the sequence replay on the device.
+``scripts/r2d2_catch_jax.py`` runs the JAX ``train_r2d2`` (or, with
+``--role anakin``, ``train_anakin_r2d2``) on the same arguments.
 
 The apex scenario gives its frame budget as ``--t-max``, which the JAX
 package's CLI reads too, so the same arguments run the reference:
@@ -89,7 +92,10 @@ _R2D2 = ["--role", "single", "--architecture", "r2d2", "--env-id", "toy:catch",
          "--num-envs-per-actor", "8", "--metrics-interval", "100",
          "--checkpoint-interval", "0", "--eval-interval", "0", "--eval-episodes", "30",
          "--max-frames", str(R2D2_FRAMES)]
-ROLES = (*_ROLE, "r2d2")
+# the same with the sequence replay on the device (train_anakin_r2d2)
+_R2D2_ANAKIN = ["--role", "anakin", *_R2D2[2:]]
+_R2D2_ROLES = {"r2d2": _R2D2, "r2d2_anakin": _R2D2_ANAKIN}
+ROLES = (*_ROLE, *_R2D2_ROLES)
 
 # two CPU threads a run: the runs go to the card, and several trainer
 # processes share the host's cores
@@ -104,10 +110,10 @@ def argv(role: str, seed: int, workdir: str, device_sampling: bool = True,
     """The trainer's CLI arguments of ``role``'s catch scenario at ``seed``,
     writing results and checkpoints under ``workdir``; ``device_sampling``
     and ``serve_quantize`` are the apex scenario's sampling mode and actor
-    weights; ``compute_dtype`` overrides the r2d2 scenario's bf16."""
-    if role == "r2d2":
+    weights; ``compute_dtype`` overrides the r2d2 scenarios' bf16."""
+    if role in _R2D2_ROLES:
         dtype = ["--compute-dtype", compute_dtype] if compute_dtype else []
-        return [*_R2D2, *dtype, "--seed", str(seed),
+        return [*_R2D2_ROLES[role], *dtype, "--seed", str(seed),
                 "--results-dir", os.path.join(workdir, "results"),
                 "--checkpoint-dir", os.path.join(workdir, "ckpt")]
     extra = []
@@ -169,7 +175,7 @@ def _seeds(text: str) -> List[int]:
 def main(args=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--role", choices=sorted(ROLES), action="append",
-                   help="scenario (repeatable; default all but r2d2)")
+                   help="scenario (repeatable; default all but the r2d2 ones)")
     p.add_argument("--seeds", default="1-9", help="e.g. 1-9 or 7,7,7")
     p.add_argument("--parallel", type=int, default=4, help="runs at a time")
     p.add_argument("--device", default="cuda:0")
@@ -203,7 +209,7 @@ def main(args=None) -> int:
     failed_runs = any(r["rc"] != 0 for r in results)
     for role in sorted({r["role"] for r in results}):
         evals = [r["eval_score_mean"] for r in results if r["role"] == role and r["rc"] == 0]
-        bar = R2D2_BAR if role == "r2d2" else BAR
+        bar = R2D2_BAR if role in _R2D2_ROLES else BAR
         print(json.dumps({"role": role, "bar": bar, "evals": evals,
                           "eval_mean": sum(evals) / len(evals) if evals else None,
                           "at_or_below_bar": sum(e <= bar for e in evals)}), flush=True)

@@ -28,7 +28,11 @@ The Adam moments have the params' layout, so they convert as params do.
 ``from_jax_device_replay_state`` takes a JAX ``DeviceReplayState`` with
 numpy leaves (``jax.device_get`` of one) and returns the port's
 ``replay.device.DeviceReplayState``: the same arrays (no layout changes),
-``pos`` and ``filled`` as host ints.
+``pos`` and ``filled`` as host ints.  ``from_jax_device_seq_state`` does the
+same for R2D2's ``DeviceSeqState`` (``pos``, ``filled`` and ``buf_len`` become
+host counters), and ``device_seq_state_arrays`` gives a port
+``replay.device_sequence.DeviceSeqState`` back as numpy arrays under the JAX
+field names (``DeviceSeqState(**{k: jnp.asarray(v) ...})`` on the JAX side).
 
 Quantized weights cross as well: ``from_flax_quantized`` takes a JAX
 ``quantize_tree_jax`` / ``cast_tree_fp8`` tree of ``{"q", "s"}`` cells and
@@ -213,3 +217,36 @@ def from_jax_device_replay_state(state: Any, device: Union[str, torch.device] = 
         cuts=put("cuts", np.bool_), priority=put("priority", np.float32),
         max_priority=put("max_priority", np.float32),
         pos=int(np.asarray(state.pos)), filled=int(np.asarray(state.filled)))
+
+
+_SEQ_DTYPES = {"frames": np.uint8, "actions": np.int32, "rewards": np.float32,
+               "dones": np.bool_, "valids": np.bool_, "init_c": np.float32,
+               "init_h": np.float32, "priority": np.float32, "pos": np.int32,
+               "filled": np.int32, "max_priority": np.float32, "buf_frames": np.uint8,
+               "buf_actions": np.int32, "buf_rewards": np.float32, "buf_dones": np.bool_,
+               "buf_c": np.float32, "buf_h": np.float32, "buf_len": np.int32}
+
+
+def from_jax_device_seq_state(state: Any, device: Union[str, torch.device] = "cpu"):
+    """A JAX ``DeviceSeqState`` (numpy leaves, or any object or mapping with
+    its fields) -> the port's, on ``device``."""
+    from rainbow_iqn_apex_tpu_torch.replay.device_sequence import HOST_FIELDS, DeviceSeqState
+
+    def get(name: str) -> np.ndarray:
+        value = state[name] if isinstance(state, Mapping) else getattr(state, name)
+        return np.array(value, dtype=_SEQ_DTYPES[name], copy=True, order="C")
+
+    fields = {name: torch.from_numpy(get(name)).to(device)
+              for name in _SEQ_DTYPES if name not in HOST_FIELDS}
+    return DeviceSeqState(**fields, pos=int(get("pos")), filled=int(get("filled")),
+                          buf_len=get("buf_len"))
+
+
+def device_seq_state_arrays(state) -> Dict[str, np.ndarray]:
+    """A port ``DeviceSeqState`` -> {JAX field name: numpy array}."""
+
+    def host(value: Any) -> Any:
+        return value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else value
+
+    return {name: np.asarray(host(getattr(state, name)), dtype=dtype)
+            for name, dtype in _SEQ_DTYPES.items()}

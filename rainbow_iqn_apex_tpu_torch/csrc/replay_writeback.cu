@@ -22,6 +22,14 @@
 // kernel is launch-bound.  Design: one block, one thread per draw of a group,
 // a barrier between the fence reads and the writes of each group; the
 // maximum is a block reduction, not an atomic.
+//
+// K6s, the write-back of R2D2's sequence replay (DeviceSequenceReplay
+// .update_priorities and update_priorities_grouped,
+// rainbow_iqn_apex_tpu/replay/device_sequence.py:285-305), is this kernel
+// without the fence (port_seq_writeback): p[idx[g, k]] = pri[g, k], a direct
+// set, with the same order (the last group, and in a group the last
+// occurrence of an id, wins) and the same running maximum.  The sequence ring
+// never invalidates a slot, so it has nothing to fence.
 #include <math.h>
 
 #include "common.cuh"
@@ -40,7 +48,7 @@ __device__ __forceinline__ float priority_of(float td, float eps, float omega) {
 
 __global__ void __launch_bounds__(MAX_THREADS) writeback_kernel(
     float* __restrict__ p, float* __restrict__ max_priority, const int* __restrict__ idx,
-    const float* __restrict__ td, int N, int G, int B, float eps, float omega) {
+    const float* __restrict__ td, int N, int G, int B, float eps, float omega, int fence) {
     __shared__ float warp_max[MAX_THREADS / 32];
     const int k = threadIdx.x;
     float m = -INFINITY;
@@ -54,8 +62,8 @@ __global__ void __launch_bounds__(MAX_THREADS) writeback_kernel(
             const float pri = priority_of(td[i], eps, omega);
             m = nan_max(m, pri);
             const bool inside = slot >= 0 && slot < N;
-            const float current = inside ? p[slot] : 0.f;  // what the earlier groups left
-            write = current > 0.f ? pri : 0.f;
+            // the fence reads what the earlier groups left
+            write = !fence || (inside && p[slot] > 0.f) ? pri : 0.f;
             last = inside;
             for (int j = k + 1; j < B; ++j) last = last && idx[g * B + j] != slot;
         }
@@ -73,15 +81,26 @@ __global__ void __launch_bounds__(MAX_THREADS) writeback_kernel(
     }
 }
 
+int launch(void* p, void* max_priority, const void* idx, const void* td, int N, int G, int B,
+           float eps, float omega, int fence, void* stream) {
+    if (B < 1 || B > MAX_THREADS || G < 1) return (int)cudaErrorInvalidValue;
+    const int threads = ((B + 31) / 32) * 32;
+    writeback_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<float*>(p), static_cast<float*>(max_priority), static_cast<const int*>(idx),
+        static_cast<const float*>(td), N, G, B, eps, omega, fence);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // p [N] f32 and max_priority [] f32 in place; idx [G, B] int32, td [G * B] f32.
 PORT_API int port_replay_writeback(void* p, void* max_priority, const void* idx, const void* td,
                                    int N, int G, int B, float eps, float omega, void* stream) {
-    if (B < 1 || B > MAX_THREADS || G < 1) return (int)cudaErrorInvalidValue;
-    const int threads = ((B + 31) / 32) * 32;
-    writeback_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<float*>(p), static_cast<float*>(max_priority), static_cast<const int*>(idx),
-        static_cast<const float*>(td), N, G, B, eps, omega);
-    return (int)cudaGetLastError();
+    return launch(p, max_priority, idx, td, N, G, B, eps, omega, 1, stream);
+}
+
+// K6s: the same without the fence.
+PORT_API int port_seq_writeback(void* p, void* max_priority, const void* idx, const void* td,
+                                int N, int G, int B, float eps, float omega, void* stream) {
+    return launch(p, max_priority, idx, td, N, G, B, eps, omega, 0, stream);
 }

@@ -26,6 +26,10 @@ and which tests and ``chip_smoke.py`` hold the kernel against.
         lstm.lstm_backward                     its backward through time
     K11 r2d2_td.r2d2_td                        R2D2's n-step TD, value rescale, masked Huber, priorities
     K8s seq_stack.seq_stack                    R2D2's in-sequence frame stack
+    K7s seq_append.seq_append                  one append tick into R2D2's device sequence ring
+    K5s seq_draw.seq_draw                      the sequence ring's draw over its effective priorities
+    K8s seq_assemble.seq_assemble              the sequence ring's gather and IS weights
+    K6s seq_writeback.seq_writeback            the sequence ring's priority write-back (unfenced K6)
 
 Each backward has a ``torch.autograd.Function`` beside it in the same
 module (``TauEmbedFn``, ``NoisyLinearFn``, ``DuelingGatherFn``,

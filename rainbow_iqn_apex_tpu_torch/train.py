@@ -12,13 +12,15 @@ instead: the learner with its replay on the device.  ``--role apex`` runs
 ``parallel.apex.train_apex``: Ape-X on one card, the replay sampled on the
 host or, with ``--device-sampling``, through the device sample frontier.
 ``--architecture r2d2`` with ``--role single`` runs
-``train_r2d2.train_r2d2``: the recurrent learner on sequence replay.
+``train_r2d2.train_r2d2``: the recurrent learner on sequence replay; with
+``--role anakin`` it runs ``train_anakin_r2d2.train_anakin_r2d2``: that
+learner with its sequence replay on the device, the envs on the host.
 
 Not ported (each raises NotImplementedError; ROADMAP.md lists them):
 league membership (``league_dir``), ``replay_ratio > 1``, ``obs_net``,
 ``trace_dir`` device traces, multi-game ids, ``architecture='r2d2'`` with
-``--role anakin`` or ``apex``, and every role other than ``single``,
-``anakin`` and ``apex``.
+``--role apex``, and every role other than ``single``, ``anakin`` and
+``apex``.
 
 Run it as ``python -m rainbow_iqn_apex_tpu_torch.train --env-id toy:catch``
 (any Config field is a ``--flag``; ``--device cpu`` runs on the CPU, the
@@ -94,12 +96,17 @@ def train(cfg: Config, max_frames: Optional[int] = None,
     summary dict (final eval, steps, fault counts).  ``--role anakin`` goes
     to ``train_anakin.train_anakin``, ``--role apex`` to
     ``parallel.apex.train_apex``, ``--architecture r2d2`` to
-    ``train_r2d2.train_r2d2``."""
+    ``train_r2d2.train_r2d2`` (``--role anakin``:
+    ``train_anakin_r2d2.train_anakin_r2d2``)."""
     if cfg.architecture == "r2d2":
+        if cfg.role == "anakin":
+            from rainbow_iqn_apex_tpu_torch.train_anakin_r2d2 import train_anakin_r2d2
+
+            return train_anakin_r2d2(cfg, max_frames=max_frames, device=device)
         if cfg.role != "single":
             raise NotImplementedError(
-                f"architecture='r2d2' with role={cfg.role!r}: only role 'single' is ported "
-                "(ROADMAP.md queue A items 5, R2D2 anakin, and 6, R2D2 apex)")
+                f"architecture='r2d2' with role={cfg.role!r}: only roles 'single' and "
+                "'anakin' are ported (ROADMAP.md queue A item 6, R2D2 apex)")
         from rainbow_iqn_apex_tpu_torch.train_r2d2 import train_r2d2
 
         return train_r2d2(cfg, max_frames=max_frames, device=device)

@@ -24,7 +24,12 @@ K4's gather mode and K4-bwd 1e-6 (one fp32 product and subtraction).
 R2D2's kernels on the card: K9 and K9-bwd 1e-4 abs/rel (fp32 products of
 512 (2048) terms per step summed in another order, carried through up to 120
 steps of the recurrence); K11 1e-5 (fp32, summation order); K8s-stack
-bit-equal (a byte copy).
+bit-equal (a byte copy).  The R2D2 Anakin sequence replay's kernels on the
+card: K7s bit-equal (ring rows [0, C), priorities, counters and each
+builder's valid prefix; byte and fp32 copies); K5s equal on dyadic
+priorities and a cold ring, and against an fp64 cdf within 1e-5 of the
+total at a boundary; K8s's gathers bit-equal, prob and weights 1e-6 relative
+(one division and powf against torch's); K6s 1e-6 relative (powf).
 """
 
 import numpy as np
@@ -625,3 +630,152 @@ def test_r2d2_kernels_refuse_what_they_do_not_take(cuda):
         r2d2_td(*args, TDParams(5, 0.99, 0.9, 1e-3))
     with pytest.raises(ValueError):
         seq_stack(torch.zeros((2, 3, 4, 4, 2), dtype=torch.uint8, device=cuda), 4)
+
+
+# ------------------------------- R2D2 anakin: the sequence replay's kernels
+SEQ_REL = dict(rtol=1e-6, atol=0.0)  # prob, weights, priorities: one powf / division vs torch's
+
+
+def _seq_replay(device, lanes, seq_len, stride, frame, lstm, capacity):
+    from rainbow_iqn_apex_tpu_torch.replay.device_sequence import DeviceSequenceReplay
+
+    return DeviceSequenceReplay(capacity, seq_len, frame, lstm, lanes, stride,
+                                priority_exponent=0.9, device=device)
+
+
+def _seq_tick(rng, lanes, frame, lstm, p_term=0.03, p_trunc=0.02):
+    term = rng.random(lanes) < p_term
+    return (rng.integers(0, 256, (lanes, *frame), dtype=np.uint8),
+            rng.integers(0, 18, lanes).astype(np.int32), rng.normal(size=lanes).astype(np.float32),
+            term, (rng.random(lanes) < p_trunc) & ~term,
+            rng.normal(size=(lanes, lstm)).astype(np.float32),
+            rng.normal(size=(lanes, lstm)).astype(np.float32))
+
+
+def _same_seq_state(got, want):
+    """Ring rows [0, C), the counters and each builder's valid prefix."""
+    capacity = want.priority.shape[0]
+    assert (got.pos, got.filled) == (want.pos, want.filled)
+    np.testing.assert_array_equal(got.buf_len, want.buf_len)
+    for name in ("frames", "actions", "rewards", "dones", "valids", "init_c", "init_h"):
+        assert torch.equal(getattr(got, name)[:capacity], getattr(want, name)[:capacity]), name
+    assert torch.equal(got.priority, want.priority) and torch.equal(got.max_priority,
+                                                                    want.max_priority)
+    for lane, n in enumerate(want.buf_len):
+        for name in ("buf_frames", "buf_actions", "buf_rewards", "buf_dones", "buf_c", "buf_h"):
+            assert torch.equal(getattr(got, name)[lane, :n], getattr(want, name)[lane, :n]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,seq_len,stride,frame,lstm,capacity,ticks", [
+    (16, 120, 80, (84, 84), 512, 64, 700),  # the reference config's widths, the ring wrapped
+    (3, 7, 2, (5, 7), 4, 16, 90),  # stride < L - stride, frames not a multiple of 16 bytes
+    (4, 6, 3, (8, 8), 8, 8, 60)])
+def test_k7s_kernel_matches_twin(cuda, lanes, seq_len, stride, frame, lstm, capacity, ticks):
+    from rainbow_iqn_apex_tpu_torch.kernels.seq_append import plan_append, seq_append_plain
+
+    replay = _seq_replay(cuda, lanes, seq_len, stride, frame, lstm, capacity)
+    got, want = replay.init_state(), replay.init_state()
+    rng = _rng(50)
+    before = launches["K7s_seq_append"]
+    for _ in range(ticks):
+        f, a, r, term, trunc, c, h = _seq_tick(rng, lanes, frame, lstm)
+        f, a, c, h = (torch.from_numpy(x).to(cuda) for x in (f, a, c, h))
+        replay.append(got, f, a, r, term, trunc, c, h)
+        plan = plan_append(want.buf_len, term, trunc, want.pos, want.filled, capacity, seq_len,
+                           stride)
+        seq_append_plain(want, f, a, r, term, c, h, plan, stride)
+        want.buf_len, want.pos, want.filled = plan.buf_len, plan.pos, plan.filled
+    torch.cuda.synchronize()
+    assert launches["K7s_seq_append"] == before + ticks
+    assert got.filled == capacity  # wrapped
+    _same_seq_state(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [8333, 5000, 100])
+@pytest.mark.parametrize("groups", [1, 4])
+def test_k5s_kernel_matches_twin(cuda, capacity, groups):
+    from rainbow_iqn_apex_tpu_torch.kernels.seq_draw import seq_draw, seq_draw_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(capacity + groups)
+    u = torch.rand((groups, 32), generator=gen, device=cuda)
+    u[-1, -1] = 1.0 - 2.0 ** -24  # rounds u up to the total: clipped onto C - 1
+    # dyadic priorities: every cdf exact, so the draws are equal
+    p = torch.randint(0, 9, (capacity,), generator=gen, device=cuda).float() / 8
+    idx, meta = _counted("K5s_seq_draw", lambda: seq_draw(p, capacity // 2, u))
+    want_idx, want_meta = seq_draw_plain(p, capacity // 2, u)
+    assert torch.equal(idx, want_idx) and torch.equal(meta, want_meta)
+    assert bool((p[idx.reshape(-1)[:-1].long()] > 0).all())
+    # the cold ring: uniform over the filled prefix, exact
+    zero = torch.zeros_like(p)
+    for filled in (0, 37 % capacity, capacity):
+        idx, meta = seq_draw(zero, filled, u)
+        want_idx, want_meta = seq_draw_plain(zero, filled, u)
+        assert torch.equal(idx, want_idx) and torch.equal(meta, want_meta)
+        assert float(meta[1]) == 1.0 and int(idx.reshape(-1)[:-1].max()) < max(filled, 1)
+    # random priorities: the kernel's monotone cdf against an fp64 one, equal
+    # but where u lies within fp32 rounding of a cdf boundary
+    p = torch.rand((capacity,), generator=gen, device=cuda)
+    p[torch.rand((capacity,), generator=gen, device=cuda) < 0.3] = 0.0
+    idx, meta = seq_draw(p, capacity, u)
+    k = torch.arange(32, device=cuda, dtype=torch.float32)
+    u_abs = ((k + u) / 32 * meta[0]).double()
+    cdf64 = torch.cumsum(p.double(), 0)
+    ref = torch.searchsorted(cdf64, u_abs, right=True).clamp(0, capacity - 1)
+    differ = idx.long() != ref
+    lo = torch.minimum(idx.long(), ref)[differ]
+    assert bool(((u_abs[differ] - cdf64[lo]).abs() <= 1e-5 * float(meta[0])).all())
+    assert bool((p[idx.reshape(-1)[:-1].long()] > 0).all())  # all but the clipped draw
+    assert abs(float(meta[0]) - float(cdf64[-1])) <= 1e-5 * float(cdf64[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame,seq_len,lstm", [((84, 84), 120, 512), ((5, 7), 7, 4)])
+@pytest.mark.parametrize("groups", [1, 4])
+def test_k8s_assemble_kernel_matches_twin(cuda, frame, seq_len, lstm, groups):
+    from rainbow_iqn_apex_tpu_torch.kernels.seq_assemble import seq_assemble, seq_assemble_plain
+    from rainbow_iqn_apex_tpu_torch.kernels.seq_draw import seq_draw
+
+    lanes, capacity, batch = 4, 40, 8
+    replay = _seq_replay(cuda, lanes, seq_len, max(seq_len // 3, 1), frame, lstm, capacity)
+    state = replay.init_state()
+    rng = _rng(51)
+    for _ in range(3 * seq_len):
+        f, a, r, term, trunc, c, h = _seq_tick(rng, lanes, frame, lstm, 0.05, 0.05)
+        replay.append(state, *(torch.from_numpy(x).to(cuda) for x in (f, a)), r, term, trunc,
+                      *(torch.from_numpy(x).to(cuda) for x in (c, h)))
+    state.priority[: state.filled] = torch.from_numpy(
+        rng.uniform(0.1, 2.0, state.filled).astype(np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, state.filled, groups * batch).astype(np.int32)).to(cuda)
+    for priority in (state.priority.clone(), torch.zeros_like(state.priority)):
+        state.priority.copy_(priority)
+        _, meta = seq_draw(state.priority, state.filled, state.priority.new_empty((0, 1)))
+        for with_weight in (True, False):
+            got = _counted("K8s_seq_assemble", lambda: seq_assemble(
+                state, idx, meta, 0.6, state.filled, batch, with_weight))
+            want = seq_assemble_plain(state, idx, meta, 0.6, state.filled, batch, with_weight)
+            for name in ("obs", "action", "reward", "done", "valid", "init_c", "init_h"):
+                assert torch.equal(getattr(got, name), getattr(want, name)), name
+            torch.testing.assert_close(got.prob, want.prob, **SEQ_REL)
+            torch.testing.assert_close(got.weight, want.weight, **SEQ_REL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("omega", [0.5, 0.9])
+@pytest.mark.parametrize("groups", [1, 4])
+def test_k6s_kernel_matches_twin_with_repeats_and_no_fence(cuda, groups, omega):
+    from rainbow_iqn_apex_tpu_torch.kernels.seq_writeback import seq_writeback, seq_writeback_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(groups)
+    p = torch.rand((8333,), generator=gen, device=cuda)
+    p[:20] = 0.0  # no fence: zero slots are written too
+    idx = torch.randint(0, 40, (groups, 32), generator=gen, device=cuda, dtype=torch.int32)
+    td = torch.rand((groups * 32,), generator=gen, device=cuda) * 3
+    got, got_max = p.clone(), torch.tensor(1.5, device=cuda)
+    want, want_max = p.clone(), torch.tensor(1.5, device=cuda)
+    _counted("K6s_seq_writeback", lambda: seq_writeback(got, got_max, idx, td, 1e-6, omega))
+    seq_writeback_plain(want, want_max, idx, td, 1e-6, omega)
+    torch.testing.assert_close(got, want, **SEQ_REL)
+    torch.testing.assert_close(got_max, want_max, **SEQ_REL)
+    assert bool((got[idx.reshape(-1).long()] > 0).all())

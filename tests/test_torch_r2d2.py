@@ -675,7 +675,8 @@ def test_cli_trains_r2d2_then_resumes_and_continues(tmp_path):
     assert s2["learn_steps"] > s1["learn_steps"] and s2["sequences"] > s1["sequences"]
 
 
-@pytest.mark.parametrize("kw,err", [(dict(role="anakin"), NotImplementedError),
+@pytest.mark.parametrize("kw,err", [(dict(role="anakin", env_id="jaxgame:catch", fused_env=True),
+                                     NotImplementedError),
                                     (dict(role="apex"), NotImplementedError),
                                     (dict(replay_ratio=2), ValueError)],
                          ids=["anakin", "apex", "reuse"])

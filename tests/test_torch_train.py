@@ -162,7 +162,7 @@ def test_prefetcher_batches_see_exactly_the_writes_before_their_request():
 
 
 @pytest.mark.parametrize("kw", [dict(role="standby"), dict(league_dir="x"), dict(replay_ratio=2),
-                                dict(architecture="r2d2", role="anakin"), dict(trace_dir="t"),
+                                dict(architecture="r2d2", role="apex"), dict(trace_dir="t"),
                                 dict(obs_net=True)],
                          ids=["role", "league", "reuse", "r2d2", "trace_dir", "obs_net"])
 def test_unported_parts_raise(tmp_path, kw):
