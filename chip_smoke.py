@@ -110,6 +110,24 @@ and runs every phase, in this order:
 - ``train_anakin_r2d2``: the CLI with ``--role anakin --architecture r2d2``
   on the same catch configuration at seeds 3-6 in four processes, held to
   the same bar.
+- ``kernels_games``: K12, the device games' tick, bit-equal to its plain
+  twins on the card for all ten games (the five games and their seeded-level
+  variants) at 16 and 4,096 lanes over 100 auto-reset ticks, each timed
+  beside its twin and its byte bound;
+- ``anakin_fused``: the fully fused ``--role anakin`` of the reference config
+  on ``jaxgame:breakout`` (80x80 frames) through ``init_fused_carry`` and
+  ``build_fused_segment``: the uncut 1,000,000-slot ring (~6.41 GB), cold
+  64-tick segments up to the warm gate of 20,000 stored frames (tick 1,250),
+  then a warm-up and 6 timed warm segments (act, K12, K7 and four learn
+  steps a tick), each under ``forbid_host_sync()`` and read once, with the
+  exact launches of every segment, and a profile of one more;
+- ``anakin_fused_parity``: one 24-tick segment on the card against the same
+  segment on the CPU through the twins (same state, key and draws; one learn
+  step on its last tick);
+- ``train_anakin_fused``: the CLI on ``jaxgame:catch`` with
+  tests/test_anakin_fused.py's catch configuration in bf16 at seeds 7,
+  53-55 in four processes, each held to that test's bar (eval > 0.5, more
+  than 2,500 learn steps).
 
 One JSON object per line; the line before the last is the card's name and
 power limit from ``nvidia-smi``, and the last line is
@@ -177,7 +195,7 @@ ANAKIN_PER_STEP = {"K1_quantile_huber": 1, "K2_tau_embed": 3, "K2_tau_embed_bwd"
                    "K6f_frontier_writeback": 0, "K10q_quantize": 0, "K10g_noisy_linear_q": 0,
                    "K10d_dequantize": 0, "K9_lstm": 0, "K9_lstm_bwd": 0, "K11_r2d2_td": 0,
                    "K8s_seq_stack": 0, "K7s_seq_append": 0, "K5s_seq_draw": 0,
-                   "K8s_seq_assemble": 0, "K6s_seq_writeback": 0}
+                   "K8s_seq_assemble": 0, "K6s_seq_writeback": 0, "K12_device_games": 0}
 FRONTIER_SHARDS = 2  # kernels_frontier: the mirror of 2 shards, the second one dead
 FRONTIER_REL = 1e-6  # K5f prob and weight: K5's chained total against torch's sum
 APEX_FILL = 2000  # append ticks of 16 lanes before the apex runs (32,000 transitions)
@@ -234,6 +252,19 @@ ANAKIN_R2D2_PER_STEP = {**R2D2_PER_STEP, "K5s_seq_draw": 1, "K8s_seq_assemble": 
 ANAKIN_R2D2_PARITY_SEQS = 300  # anakin_r2d2_parity: ring of the step against the CPU
 ANAKIN_R2D2_PARITY_TICKS = 1700  # 16 lanes: the 300 rows wrap
 R2D2_ANAKIN_CATCH_SEEDS = (3, 4, 5, 6)  # train_anakin_r2d2: fixed before any run read them
+# device games (K12) and the fully fused anakin (jaxgame:breakout)
+GAME_NAMES = ("catch", "breakout", "freeway", "asterix", "invaders",
+              "catch@var", "breakout@var", "freeway@var", "asterix@var", "invaders@var")
+GAME_LANES = (16, 4096)  # the training width, and a width where the bytes count
+GAME_CHECK_TICKS = 100  # kernels_games: auto-reset ticks of kernel and twin per game and width
+GAME_PLAIN_REPS = 5  # kernels_games: timed repetitions of the twin's ms-long eager tick
+FUSED_SEGMENTS = 6  # anakin_fused: timed warm segments after one warm-up segment
+# per fused tick: the act (K2 1, K3 4, K4 1), the games' tick (K12 1), the append (K7 1)
+FUSED_PER_TICK = {"K2_tau_embed": 1, "K3_noisy_linear": 4, "K4_dueling_head": 1,
+                  "K12_device_games": 1, "K7_replay_append": 1}
+RING_FUSED_MIN_BYTES = 6_400_000_000  # 16 lanes x 62,500 slots of 80x80 frames
+FUSED_PARITY_TICKS = 24  # anakin_fused_parity: one segment, warm on its last tick
+FUSED_CATCH_SEEDS = (7, 53, 54, 55)  # train_anakin_fused: fixed before any run read them
 
 
 def emit(obj) -> None:
@@ -3120,6 +3151,360 @@ def phase_train_anakin_r2d2(torch):
           "train_anakin_r2d2: too few learn steps")
 
 
+# ------------------------------------------------ device games, fused anakin
+def _fused_cfg(cfg):
+    """The reference config as the fully fused Anakin on jaxgame:breakout,
+    with the `anakin` phases' one cut (printed)."""
+    return cfg.replace(role="anakin", env_id="jaxgame:breakout",
+                       target_update_period=LEARN_TARGET_PERIOD)
+
+
+def _game_bytes(torch, game, lanes):
+    """K12's bytes of one auto-reset tick: the frames written, the state read
+    and written, the actions and episode returns read, the returns and the
+    five [L] outputs written."""
+    from rainbow_iqn_apex_tpu_torch.kernels.device_games import field_spec
+
+    state = 0
+    for name in game.state_type._fields:
+        dtype, shape = field_spec(name)
+        state += math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+    frame = game.frame_shape[0] * game.frame_shape[1]
+    return lanes * (frame + 2 * state + 4 + 2 * 4 + 4 + 1 + 1 + 4)
+
+
+def _states_equal(torch, got, want):
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _same_returns(torch, got, want):
+    return torch.equal(got.isnan(), want.isnan()) and torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+def phase_kernels_games(torch):
+    """K12 against its plain twins on the card, bit for bit, for all ten
+    games at 16 and 4,096 lanes: init, then GAME_CHECK_TICKS auto-reset
+    ticks with random actions; each game's tick timed beside its twin and
+    its byte bound.  The kernel line's K12 row is breakout at 16 lanes, the
+    `anakin_fused` phase's shape."""
+    from rainbow_iqn_apex_tpu_torch.envs import prng
+    from rainbow_iqn_apex_tpu_torch.envs.device_games import make_device_game
+    from rainbow_iqn_apex_tpu_torch.kernels.device_games import (
+        game_init,
+        game_init_plain,
+        game_tick,
+        game_tick_plain,
+    )
+
+    dev = torch.device("cuda", 0)
+    rows, failures, main_row = [], [], None
+    for name in GAME_NAMES:
+        game = make_device_game(name)
+        for lanes in GAME_LANES:
+            keys = prng.split(prng.prng_key(SEED + lanes), GAME_CHECK_TICKS + 1)
+            state, frames = game_init(game, keys[0], lanes, dev)
+            want, want_frames = game_init_plain(game, keys[0], lanes, dev)
+            equal = _states_equal(torch, state, want) and torch.equal(frames, want_frames)
+            ep, want_ep = (torch.zeros(lanes, device=dev) for _ in range(2))
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            cuts = 0
+            for t in range(1, GAME_CHECK_TICKS + 1):
+                a = torch.randint(0, game.num_actions, (lanes,), generator=gen, device=dev,
+                                  dtype=torch.int32)
+                got = game_tick(game, state, ep, a, keys[t])
+                want, want_ep, *outs = game_tick_plain(game, want, want_ep, a, keys[t])
+                equal = (equal and _states_equal(torch, state, want) and torch.equal(ep, want_ep)
+                         and all(torch.equal(g, w) for g, w in zip(got[:4], outs[:4]))
+                         and _same_returns(torch, got[4], outs[4]))
+                cuts += int((got[2] | got[3]).sum())
+            if not equal:
+                failures.append(f"{name} at {lanes} lanes")
+            ms = time_ms(torch, lambda: game_tick(game, state, ep, a, keys[1]))
+            plain_ms = time_ms(torch, lambda: game_tick_plain(game, want, want_ep, a, keys[1]),
+                               graph=False, reps=GAME_PLAIN_REPS)
+            b_ms, b_by = bound_ms(_game_bytes(torch, game, lanes), 0.0, FP32_FLOPS)
+            row = {"game": name, "lanes": lanes, "bit_equal": equal, "cuts": cuts,
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+            rows.append(row)
+            if name == "breakout" and lanes == GAME_LANES[0]:
+                main_row = row
+    emit({"phase": "kernels_games", "ticks": GAME_CHECK_TICKS, "rows": rows})
+    check(not failures, f"K12 differs from its twin: {failures}")
+    return {"K12_device_games": {"max_abs_err": 0.0, "ms": main_row["ms"],
+                                 "plain_ms": main_row["plain_ms"],
+                                 "bound_ms": main_row["bound_ms"],
+                                 "bound_by": main_row["bound_by"], "library_ms": None}}
+
+
+def _fused_expected(per_tick_kernels, ticks, learns):
+    """Launches of `ticks` fused ticks with `learns` learn steps in all."""
+    want = {name: 0 for name in ANAKIN_PER_STEP}
+    for name, n in FUSED_PER_TICK.items():
+        want[name] += n * ticks
+    for name, n in ANAKIN_PER_STEP.items():
+        want[name] += n * learns
+    return want
+
+
+def phase_anakin_fused(torch, cfg):
+    """The fully fused Anakin at full width on jaxgame:breakout through the
+    port's entry points (``init_fused_carry``, ``build_fused_segment`` over
+    ``build_device_learn``): the uncut 1,000,000-slot ring of 80x80 frames,
+    cold segments up to the config's warm gate of 20,000 stored frames, then
+    one warm-up and FUSED_SEGMENTS timed warm segments, each under
+    ``forbid_host_sync()`` and read once, with the exact launches of every
+    segment; then a profile of one more segment."""
+    import numpy as np
+
+    from rainbow_iqn_apex_tpu_torch.envs import prng
+    from rainbow_iqn_apex_tpu_torch.envs.device_games import make_device_game
+    from rainbow_iqn_apex_tpu_torch.kernels import launches, reset_launches
+    from rainbow_iqn_apex_tpu_torch.ops.learn import init_train_state
+    from rainbow_iqn_apex_tpu_torch.replay.device import DeviceReplay, build_device_learn
+    from rainbow_iqn_apex_tpu_torch.train_anakin import build_fused_segment, init_fused_carry
+    from rainbow_iqn_apex_tpu_torch.utils import hostsync
+
+    cfg = _fused_cfg(cfg)
+    game = make_device_game(cfg.env_id.split(":", 1)[1])
+    lanes, T = cfg.num_envs_per_actor, cfg.anakin_segment_ticks
+    seg = cfg.memory_capacity // lanes
+    learns_per_tick = lanes // cfg.frames_per_learn
+    dev = torch.device("cuda", 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    replay = DeviceReplay(lanes=lanes, seg=seg, frame_shape=game.frame_shape,
+                          history=cfg.history_length, n_step=cfg.multi_step, gamma=cfg.gamma,
+                          priority_exponent=cfg.priority_exponent,
+                          priority_eps=cfg.priority_eps)  # cuda:0 by default
+    ds = replay.init_state()
+    ring_bytes = torch.cuda.memory_allocated() - mem0
+    ts = init_train_state(cfg, game.num_actions, cfg.seed,
+                          state_shape=(*game.frame_shape, cfg.history_length))
+    segment = build_fused_segment(cfg, game, replay,
+                                  build_device_learn(cfg, game.num_actions, replay))
+    key = prng.prng_key(cfg.seed)
+    key, _, k_env = prng.split(key, 3)
+    carry = init_fused_carry(cfg, game, replay, ts, ds, k_env)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cuts = {"target_update_period": cfg.target_update_period,
+            "window": f"{FUSED_SEGMENTS} warm segments of {T} ticks after the warm gate, not t_max"}
+
+    reset_launches()  # the main path: every segment of this phase
+    cold_ms, warm_ms, cold_ok, warm_ok, losses, returns = [], [], [], [], [], []
+    first_warm_tick, segments, warm_seen = None, 0, 0
+    try:
+        while warm_seen < FUSED_SEGMENTS + 1:
+            key, k = prng.split(key, 2)
+            before, steps0 = dict(launches), carry[0].step
+            t0 = time.perf_counter()
+            with hostsync.forbid_host_sync():
+                carry, (out_ret, loss, _q, _g) = segment(carry, k, gen)
+            ret_h = hostsync.to_host(out_ret)  # the segment's one read
+            dt_ms = (time.perf_counter() - t0) * 1e3
+            segments += 1
+            learned = carry[0].step - steps0
+            per = {name: launches[name] - before[name] for name in launches}
+            want = _fused_expected(FUSED_PER_TICK, T, learned)
+            returns += [float(r) for r in ret_h[~np.isnan(ret_h)]]
+            if learned and first_warm_tick is None:
+                first_warm_tick = segments * T - learned // learns_per_tick + 1
+            if learned == 0:
+                cold_ms.append(dt_ms)
+                cold_ok.append(per == want)
+            elif learned == T * learns_per_tick:
+                warm_seen += 1
+                if warm_seen > 1:  # the first warm segment is the warm-up
+                    warm_ms.append(dt_ms)
+                    warm_ok.append(per == want)
+                    losses.append(hostsync.to_host(loss))
+    except RuntimeError as e:  # CUDA's sync debug mode, or a HostSyncError
+        raise SmokeFailure(f"a host sync inside a fused segment: {e}")
+    counts = dict(launches)
+    timed_s = sum(warm_ms) / 1e3
+    loss_all = np.concatenate([x.ravel() for x in losses])
+    lat = np.sort(np.asarray(warm_ms))
+    stored_at_warm = (first_warm_tick or 0) * lanes
+    row = {"phase": "anakin_fused", "env": cfg.env_id, "lanes": lanes, "capacity": cfg.memory_capacity,
+           "seg": seg, "frame": list(game.frame_shape), "ring_bytes": ring_bytes,
+           "segment_ticks": T, "learns_per_tick": learns_per_tick,
+           "learn_start": cfg.learn_start, "ticks_to_warm": first_warm_tick,
+           "stored_at_first_learn": stored_at_warm, "segments": segments,
+           "cold_segment_p50_ms": float(np.median(cold_ms)) if cold_ms else None,
+           "cold_frames_per_s": lanes * T * len(cold_ms) / (sum(cold_ms) / 1e3) if cold_ms else None,
+           "segments_per_s": len(warm_ms) / timed_s,
+           "learn_steps_per_s": len(warm_ms) * T * learns_per_tick / timed_s,
+           "frames_per_s": len(warm_ms) * T * lanes / timed_s,
+           "segment_host_p50_ms": float(lat[len(lat) // 2]),
+           "segment_host_p99_ms": float(lat[int(0.99 * (len(lat) - 1))]),
+           "peak_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": counts, "per_tick": FUSED_PER_TICK,
+           "launches_exact_cold": all(cold_ok), "launches_exact_warm": all(warm_ok),
+           "losses_finite": bool(np.isfinite(loss_all).all()), "episodes_ended": len(returns),
+           "return_mean": float(np.mean(returns)) if returns else None,
+           "learn_steps": carry[0].step, "cuts": cuts}
+    emit(row)
+    check(ring_bytes >= RING_FUSED_MIN_BYTES, f"the fused ring holds only {ring_bytes} B")
+    check(first_warm_tick == -(-cfg.learn_start // lanes),
+          f"first learn at tick {first_warm_tick}, want {-(-cfg.learn_start // lanes)}")
+    check(cold_ok and all(cold_ok), "launches of a cold fused segment differ from the prediction")
+    check(warm_ok and all(warm_ok), "launches of a warm fused segment differ from the prediction")
+    check(row["losses_finite"], "a non-finite loss in a fused segment")
+    check(all(math.isfinite(r) for r in returns) and returns, "no finite episode return")
+    profile_fused(torch, segment, carry, key, gen)
+    del carry, ds, replay, ts, segment
+    torch.cuda.empty_cache()
+    return counts
+
+
+def profile_fused(torch, segment, carry, key, gen):
+    """Where the time of a warm full-width fused segment goes: device time by
+    kernel name from torch.profiler, and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rainbow_iqn_apex_tpu_torch.envs import prng
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        carry, _outs = segment(carry, prng.split(key, 2)[1], gen)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = device_rows(torch, prof)
+    device_us = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    emit({"phase": "profile_anakin_fused", "segments": 1, "wall_us_per_segment": wall_us,
+          "device_us_per_segment": device_us if rows else "not measured",
+          "device_busy_share": device_us / wall_us if rows else "not measured",
+          "device_idle_share": 1.0 - device_us / wall_us if rows else "not measured",
+          "top": [{"name": k[:80], "us_per_segment": t, "calls": c} for k, t, c in rows[:15]]})
+
+
+def phase_anakin_fused_parity(torch, cfg):
+    """One fused segment on the card (kernels) against the same segment on
+    the CPU (plain twins): the same train state, lanes, key and injected
+    taus, noise and sampler uniforms.  The segment is FUSED_PARITY_TICKS
+    ticks over a 16 x 1,024 ring with the warm gate on its last tick and
+    one learn step there (frames_per_learn 16), so the learn step draws from
+    priorities that are equal on both sides.  The advantage head's output
+    layer is planted (weights and noise scales zero, biases 0, 0.5, 1.0) so
+    that every greedy action is clear by far more than the bf16 tolerance:
+    both sides take the same actions, and lanes, frames and the ring's
+    integer fields are compared exactly."""
+    from rainbow_iqn_apex_tpu_torch.envs import prng
+    from rainbow_iqn_apex_tpu_torch.envs.device_games import make_device_game
+    from rainbow_iqn_apex_tpu_torch.ops.learn import host_state, init_train_state, load_host_state
+    from rainbow_iqn_apex_tpu_torch.replay.device import DeviceReplay, build_device_learn
+    from rainbow_iqn_apex_tpu_torch.train_anakin import build_fused_segment, init_fused_carry
+
+    lanes = 16
+    cfg = _fused_cfg(cfg).replace(frames_per_learn=lanes, anakin_segment_ticks=FUSED_PARITY_TICKS,
+                                  learn_start=lanes * FUSED_PARITY_TICKS,
+                                  memory_capacity=lanes * 1024)
+    game = make_device_game("breakout")
+    A = game.num_actions
+    dev, cpu = torch.device("cuda", 0), torch.device("cpu")
+    kw = dict(lanes=lanes, seg=1024, frame_shape=game.frame_shape, history=cfg.history_length,
+              n_step=cfg.multi_step, gamma=cfg.gamma, priority_exponent=cfg.priority_exponent,
+              priority_eps=cfg.priority_eps)
+    replay, cpu_replay = DeviceReplay(**kw, device=dev), DeviceReplay(**kw, device=cpu)
+    card = init_train_state(cfg, A, cfg.seed, state_shape=(*game.frame_shape, cfg.history_length))
+    with torch.no_grad():
+        for net in (card.net, card.target):
+            head = net.advantage_out
+            for p in (head.w_mu, head.w_sigma, head.b_sigma):
+                p.zero_()
+            head.b_mu.copy_(torch.tensor([0.0, 0.5, 1.0], device=dev))
+    plain = load_host_state(init_train_state(cfg, A, cfg.seed, device=cpu,
+                                             state_shape=(*game.frame_shape, cfg.history_length)),
+                            host_state(card))
+    k_env = prng.split(prng.prng_key(cfg.seed), 3)[2]
+    card_carry = init_fused_carry(cfg, game, replay, card, replay.init_state(), k_env)
+    cpu_carry = init_fused_carry(cfg, game, cpu_replay, plain, cpu_replay.init_state(), k_env)
+    init_equal = (_states_equal(torch, [t.cpu() for t in card_carry[2]], cpu_carry[2])
+                  and torch.equal(card_carry[5].cpu(), cpu_carry[5]))
+    g = torch.Generator().manual_seed(SEED + 31)
+    draws_cpu, draws_card = [], []
+    for t in range(FUSED_PARITY_TICKS):
+        taus = torch.rand((lanes, cfg.num_quantile_samples), generator=g)
+        noise = {k: (torch.randn(getattr(plain.net, k).in_features, generator=g),
+                     torch.randn(getattr(plain.net, k).out_features, generator=g))
+                 for k in plain.net.noisy_names}
+        tick_cpu = {"act": {"taus": taus, "noise": noise}}
+        tick_card = {"act": {"taus": taus.to(dev),
+                             "noise": {k: (a.to(dev), b.to(dev)) for k, (a, b) in noise.items()}}}
+        if t == FUSED_PARITY_TICKS - 1:
+            u = torch.rand(cfg.batch_size, generator=g)
+            learn_cpu, learn_card = _learn_draws(torch, cfg, plain.net, g)
+            tick_cpu["learn"] = [{"u": u, "draws": learn_cpu}]
+            tick_card["learn"] = [{"u": u.to(dev), "draws": learn_card}]
+        draws_cpu.append(tick_cpu)
+        draws_card.append(tick_card)
+    key = prng.prng_key(SEED + 32)
+    card_seg = build_fused_segment(cfg, game, replay, build_device_learn(cfg, A, replay))
+    cpu_seg = build_fused_segment(cfg, game, cpu_replay, build_device_learn(cfg, A, cpu_replay))
+    card_carry, card_out = card_seg(card_carry, key, None, draws=draws_card)
+    t0 = time.perf_counter()
+    cpu_carry, cpu_out = cpu_seg(cpu_carry, key, None, draws=draws_cpu)
+    cpu_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    lanes_equal = (_states_equal(torch, [t.cpu() for t in card_carry[2]], cpu_carry[2])
+                   and all(torch.equal(card_carry[i].cpu(), cpu_carry[i]) for i in (3, 4, 5, 6)))
+    ring_equal = all(torch.equal(getattr(card_carry[1], f).cpu(), getattr(cpu_carry[1], f))
+                     for f in ("frames", "actions", "rewards", "terminals", "cuts"))
+    returns_equal = _same_returns(torch, card_out[0].cpu(), cpu_out[0])
+    errs = {}
+    for name, got, want in (("loss", card_out[1], cpu_out[1]), ("q_mean", card_out[2], cpu_out[2]),
+                            ("replay_priority", card_carry[1].priority, cpu_carry[1].priority),
+                            ("max_priority", card_carry[1].max_priority, cpu_carry[1].max_priority)):
+        got, want = got.cpu().double(), want.double()
+        finite = torch.isfinite(want)
+        err = (got[finite] - want[finite]).abs()
+        errs[name] = float(err.max()) if err.numel() else 0.0
+        check(torch.equal(torch.isfinite(got), finite) and bool(torch.all(
+            err <= LEARN_PATH_TOL["atol"] + LEARN_PATH_TOL["rtol"] * want[finite].abs())),
+            f"anakin_fused_parity: {name} differs by {errs[name]}")
+    learned = (card_carry[0].step, cpu_carry[0].step)
+    emit({"phase": "anakin_fused_parity", "env": cfg.env_id, "ticks": FUSED_PARITY_TICKS,
+          "ring": [lanes, 1024], "learn_steps": list(learned), "init_equal": init_equal,
+          "lanes_equal": lanes_equal, "ring_fields_equal": ring_equal,
+          "returns_equal": returns_equal,
+          "actions": sorted(set(card_carry[1].actions[:, :FUSED_PARITY_TICKS].flatten().tolist())),
+          "max_abs_err": errs, "tol": LEARN_PATH_TOL, "cpu_segment_s": cpu_s})
+    check(learned == (1, 1), f"anakin_fused_parity: learn steps {learned}, want one each")
+    check(init_equal and lanes_equal and ring_equal and returns_equal,
+          "anakin_fused_parity: lanes, frames or the ring differ between the card and the CPU")
+
+
+def phase_train_anakin_fused(torch):
+    """``python -m rainbow_iqn_apex_tpu_torch.train --role anakin`` on
+    jaxgame:catch, the fully fused path (``catch_bar``'s anakin_fused
+    scenario: tests/test_anakin_fused.py's test_fused_learns_catch in bf16,
+    8,000 frames) at FUSED_CATCH_SEEDS, one trainer process each, all at
+    once; the JAX test's bar in every run: eval above 0.5 and more than
+    2,500 learn steps."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rainbow_iqn_apex_tpu_torch import catch_bar
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(FUSED_CATCH_SEEDS)) as pool:
+        runs = list(pool.map(lambda seed: catch_bar.run("anakin_fused", seed, "cuda:0"),
+                             FUSED_CATCH_SEEDS))
+    elapsed = time.perf_counter() - t0
+    failed = [r for r in runs if r["rc"] != 0]
+    check(not failed, f"train_anakin_fused: a trainer failed: {failed[:1]}")
+    evals = [r["eval_score_mean"] for r in runs]
+    emit({"phase": "train_anakin_fused", "env": "jaxgame:catch", "seeds": list(FUSED_CATCH_SEEDS),
+          "evals": evals, "eval_mean": sum(evals) / len(evals),
+          "train_returns": [r["train_return_mean"] for r in runs],
+          "learn_steps": [r["learn_steps"] for r in runs], "seconds": elapsed})
+    check(all(e > catch_bar.FUSED_BAR for e in evals),
+          f"train_anakin_fused: a catch eval at or below {catch_bar.FUSED_BAR}: {evals}")
+    check(all(r["learn_steps"] > catch_bar.FUSED_MIN_LEARN_STEPS for r in runs),
+          "train_anakin_fused: too few learn steps")
+
+
 def device_rows(torch, prof):
     """(name, device us, calls) of the device-side events: kernels and
     copies.  CPU-side op rows carry the same device time again, and user
@@ -3315,6 +3700,7 @@ def main() -> int:
         from rainbow_iqn_apex_tpu_torch.config import Config
         from rainbow_iqn_apex_tpu_torch.kernels import (
             build,
+            device_games,
             dueling_head,
             dequantize,
             frontier_draw,
@@ -3364,7 +3750,7 @@ def main() -> int:
 
         results, counts = {}, {"serve": {}, "learn": {}, "anakin": {}, "apex": {},
                                "serve_quant": {}, "apex_quant": {}, "learn_r2d2": {},
-                               "anakin_r2d2": {}}
+                               "anakin_r2d2": {}, "anakin_fused": {}}
         with open(os.path.join(ROOT, "configs", "serve_defaults.json")) as f:
             serve_cfg = Config.from_json(f.read())
         with open(os.path.join(ROOT, "configs", "reference_atari_defaults.json")) as f:
@@ -3405,6 +3791,10 @@ def main() -> int:
         counts["anakin_r2d2"] = timed("anakin_r2d2", phase_anakin_r2d2, torch, learn_cfg)
         timed("anakin_r2d2_parity", phase_anakin_r2d2_parity, torch, learn_cfg)
         timed("train_anakin_r2d2", phase_train_anakin_r2d2, torch)
+        results.update(timed("kernels_games", phase_kernels_games, torch))
+        counts["anakin_fused"] = timed("anakin_fused", phase_anakin_fused, torch, learn_cfg)
+        timed("anakin_fused_parity", phase_anakin_fused_parity, torch, learn_cfg)
+        timed("train_anakin_fused", phase_train_anakin_fused, torch)
     except SmokeFailure as e:
         emit({"ok": False, "error": str(e)})
         return 1
@@ -3413,7 +3803,7 @@ def main() -> int:
     for mod in (tau_embed, noisy_linear, dueling_head, quantile_huber, replay_draw,
                 replay_writeback, replay_append, replay_assemble, frontier_draw,
                 frontier_writeback, quantize, noisy_linear_q, dequantize, lstm, r2d2_td,
-                seq_stack, seq_append, seq_draw, seq_assemble, seq_writeback):
+                seq_stack, seq_append, seq_draw, seq_assemble, seq_writeback, device_games):
         rows[mod.NAME] = (mod.SOURCE, mod.REPLACES)
         if hasattr(mod, "NAME_BWD"):
             rows[mod.NAME_BWD] = (mod.SOURCE_BWD, mod.REPLACES_BWD)

@@ -13,6 +13,7 @@ seeds, a few processes at a time, so that the spread can be read:
     python -m rainbow_iqn_apex_tpu_torch.catch_bar --role apex --serve-quantize int8
     python -m rainbow_iqn_apex_tpu_torch.catch_bar --role r2d2 --seeds 3-6
     python -m rainbow_iqn_apex_tpu_torch.catch_bar --role r2d2_anakin --seeds 3-6
+    python -m rainbow_iqn_apex_tpu_torch.catch_bar --role anakin_fused --seeds 7,53-55
 
 The r2d2 scenario is the JAX package's own R2D2 catch run
 (``tests/test_r2d2.py::test_r2d2_learns_catch``: LSTM 64, 20,000 frames) in
@@ -22,6 +23,11 @@ bf16 where the test runs fp32 (the card's K3 takes no other compute dtype;
 run with ``--role anakin``: the sequence replay on the device.
 ``scripts/r2d2_catch_jax.py`` runs the JAX ``train_r2d2`` (or, with
 ``--role anakin``, ``train_anakin_r2d2``) on the same arguments.
+
+The anakin_fused scenario is ``tests/test_anakin_fused.py::test_fused_learns_catch``
+field for field (``jaxgame:catch`` on the device, K12 for the env, 8,000
+frames) in bf16 where the test runs fp32, with its bar: eval above 0.5 and
+more than 2,500 learn steps.
 
 The apex scenario gives its frame budget as ``--t-max``, which the JAX
 package's CLI reads too, so the same arguments run the reference:
@@ -59,6 +65,9 @@ FRAMES = 4000
 R2D2_BAR = 0.3  # tests/test_r2d2.py::test_r2d2_learns_catch
 R2D2_MIN_LEARN_STEPS = 100
 R2D2_FRAMES = 20_000
+FUSED_BAR = 0.5  # tests/test_anakin_fused.py::test_fused_learns_catch
+FUSED_MIN_LEARN_STEPS = 2500
+FUSED_FRAMES = 8000
 
 _COMMON = ["--env-id", "toy:catch", "--compute-dtype", "bfloat16", "--frame-height", "80",
            "--frame-width", "80", "--history-length", "2", "--hidden-size", "128",
@@ -95,7 +104,22 @@ _R2D2 = ["--role", "single", "--architecture", "r2d2", "--env-id", "toy:catch",
 # the same with the sequence replay on the device (train_anakin_r2d2)
 _R2D2_ANAKIN = ["--role", "anakin", *_R2D2[2:]]
 _R2D2_ROLES = {"r2d2": _R2D2, "r2d2_anakin": _R2D2_ANAKIN}
-ROLES = (*_ROLE, *_R2D2_ROLES)
+# tests/test_anakin_fused.py::test_fused_learns_catch, field for field but
+# bf16: the fully fused anakin with the env on the device
+_ANAKIN_FUSED = ["--role", "anakin", "--env-id", "jaxgame:catch", "--compute-dtype", "bfloat16",
+                 "--history-length", "2", "--hidden-size", "128", "--num-cosines", "32",
+                 "--num-tau-samples", "8", "--num-tau-prime-samples", "8",
+                 "--num-quantile-samples", "4", "--batch-size", "32", "--learning-rate", "1e-3",
+                 "--multi-step", "3", "--gamma", "0.9", "--memory-capacity", "8192",
+                 "--learn-start", "512", "--frames-per-learn", "2",
+                 "--target-update-period", "200", "--num-envs-per-actor", "8",
+                 "--anakin-segment-ticks", "32", "--learner-devices", "1",
+                 "--metrics-interval", "100", "--eval-interval", "0",
+                 "--checkpoint-interval", "0", "--eval-episodes", "40",
+                 "--max-frames", str(FUSED_FRAMES)]
+_OWN_ARGS = {**_R2D2_ROLES, "anakin_fused": _ANAKIN_FUSED}
+ROLES = (*_ROLE, *_OWN_ARGS)
+BARS = {"r2d2": R2D2_BAR, "r2d2_anakin": R2D2_BAR, "anakin_fused": FUSED_BAR}
 
 # two CPU threads a run: the runs go to the card, and several trainer
 # processes share the host's cores
@@ -110,10 +134,11 @@ def argv(role: str, seed: int, workdir: str, device_sampling: bool = True,
     """The trainer's CLI arguments of ``role``'s catch scenario at ``seed``,
     writing results and checkpoints under ``workdir``; ``device_sampling``
     and ``serve_quantize`` are the apex scenario's sampling mode and actor
-    weights; ``compute_dtype`` overrides the r2d2 scenarios' bf16."""
-    if role in _R2D2_ROLES:
+    weights; ``compute_dtype`` overrides the r2d2 and anakin_fused
+    scenarios' bf16."""
+    if role in _OWN_ARGS:
         dtype = ["--compute-dtype", compute_dtype] if compute_dtype else []
-        return [*_R2D2_ROLES[role], *dtype, "--seed", str(seed),
+        return [*_OWN_ARGS[role], *dtype, "--seed", str(seed),
                 "--results-dir", os.path.join(workdir, "results"),
                 "--checkpoint-dir", os.path.join(workdir, "ckpt")]
     extra = []
@@ -175,7 +200,7 @@ def _seeds(text: str) -> List[int]:
 def main(args=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--role", choices=sorted(ROLES), action="append",
-                   help="scenario (repeatable; default all but the r2d2 ones)")
+                   help="scenario (repeatable; default all but the r2d2 and anakin_fused ones)")
     p.add_argument("--seeds", default="1-9", help="e.g. 1-9 or 7,7,7")
     p.add_argument("--parallel", type=int, default=4, help="runs at a time")
     p.add_argument("--device", default="cuda:0")
@@ -209,7 +234,7 @@ def main(args=None) -> int:
     failed_runs = any(r["rc"] != 0 for r in results)
     for role in sorted({r["role"] for r in results}):
         evals = [r["eval_score_mean"] for r in results if r["role"] == role and r["rc"] == 0]
-        bar = R2D2_BAR if role in _R2D2_ROLES else BAR
+        bar = BARS.get(role, BAR)
         print(json.dumps({"role": role, "bar": bar, "evals": evals,
                           "eval_mean": sum(evals) / len(evals) if evals else None,
                           "at_or_below_bar": sum(e <= bar for e in evals)}), flush=True)

@@ -34,6 +34,14 @@ host counters), and ``device_seq_state_arrays`` gives a port
 ``replay.device_sequence.DeviceSeqState`` back as numpy arrays under the JAX
 field names (``DeviceSeqState(**{k: jnp.asarray(v) ...})`` on the JAX side).
 
+Device-game states cross too: ``from_jax_game_state`` takes a JAX game
+state ``NamedTuple`` (``CatchState``, ..., ``InvadersVarState``) of numpy
+[L, ...] leaves and returns the port's state of the same name
+(``envs.device_games``) with the same arrays; ``game_state_arrays`` goes
+back to {field: numpy}.  ``from_jax_fused_carry`` takes the lane half of a
+JAX fused-Anakin carry, ``(env_s, ep, stack, frame, keep)``, and returns the
+port's; ``fused_carry_arrays`` goes back.
+
 Quantized weights cross as well: ``from_flax_quantized`` takes a JAX
 ``quantize_tree_jax`` / ``cast_tree_fp8`` tree of ``{"q", "s"}`` cells and
 returns the port's ``utils.quantize.QuantizedParams``, each q laid out as
@@ -250,3 +258,40 @@ def device_seq_state_arrays(state) -> Dict[str, np.ndarray]:
 
     return {name: np.asarray(host(getattr(state, name)), dtype=dtype)
             for name, dtype in _SEQ_DTYPES.items()}
+
+
+def from_jax_game_state(state: Any, device: Union[str, torch.device] = "cpu"):
+    """A JAX device-game state (numpy [L, ...] leaves) -> the port's, on ``device``."""
+    from rainbow_iqn_apex_tpu_torch.envs import device_games
+    from rainbow_iqn_apex_tpu_torch.kernels.device_games import field_spec
+
+    cls = getattr(device_games, type(state).__name__)
+    fields = {}
+    for name in cls._fields:
+        dtype = field_spec(name)[0]
+        arr = np.array(getattr(state, name), copy=True, order="C")
+        fields[name] = torch.from_numpy(arr).to(device=device, dtype=dtype)
+    return cls(**fields)
+
+
+def game_state_arrays(state: Any) -> Dict[str, np.ndarray]:
+    """A port device-game state -> {JAX field name: numpy array}."""
+    return {name: value.detach().cpu().numpy() for name, value in zip(state._fields, state)}
+
+
+def from_jax_fused_carry(env_s: Any, ep: Any, stack: Any, frame: Any, keep: Any,
+                         device: Union[str, torch.device] = "cpu"):
+    """The lane half of a JAX fused-Anakin carry (numpy leaves) -> the port's
+    ``(env_s, ep [L] f32, stack [L, H, W, C] u8, frame [L, H, W] u8, keep [L] u8)``."""
+    def put(a: Any, dtype: torch.dtype) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, copy=True, order="C")).to(device=device, dtype=dtype)
+
+    return (from_jax_game_state(env_s, device), put(ep, torch.float32), put(stack, torch.uint8),
+            put(frame, torch.uint8), put(keep, torch.uint8))
+
+
+def fused_carry_arrays(env_s: Any, ep: torch.Tensor, stack: torch.Tensor, frame: torch.Tensor,
+                       keep: torch.Tensor) -> Dict[str, Any]:
+    """The port's lane carry -> numpy, under the JAX carry's names."""
+    return {"env_s": game_state_arrays(env_s), "ep": _n(ep), "stack": _n(stack),
+            "frame": _n(frame), "keep": _n(keep)}

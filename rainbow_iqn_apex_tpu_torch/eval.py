@@ -49,7 +49,7 @@ def evaluate(
 ) -> Dict[str, Any]:
     """Run E eval episodes on a fresh env; returns score stats."""
     episodes = episodes or cfg.eval_episodes
-    env = make_env(cfg.env_id, seed=seed)
+    env = make_env(cfg.env_id, seed=seed, device=agent.device)
     scores = []
     for ep in range(episodes):
         stacker = FrameStacker(1, env.frame_shape, cfg.history_length)

@@ -30,6 +30,8 @@ and which tests and ``chip_smoke.py`` hold the kernel against.
     K5s seq_draw.seq_draw                      the sequence ring's draw over its effective priorities
     K8s seq_assemble.seq_assemble              the sequence ring's gather and IS weights
     K6s seq_writeback.seq_writeback            the sequence ring's priority write-back (unfenced K6)
+    K12 device_games.game_tick                 the device games' auto-reset tick (JAX's Threefry stream)
+        device_games.game_init / game_step / game_render   its init, reset-free step and render modes
 
 Each backward has a ``torch.autograd.Function`` beside it in the same
 module (``TauEmbedFn``, ``NoisyLinearFn``, ``DuelingGatherFn``,

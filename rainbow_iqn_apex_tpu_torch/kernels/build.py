@@ -33,8 +33,9 @@ SOURCES = ("tau_embed.cu", "noisy_linear.cu", "dueling_head.cu", "quantile_huber
            "tau_embed_bwd.cu", "noisy_linear_bwd.cu", "dueling_head_bwd.cu", "replay_draw.cu",
            "replay_writeback.cu", "replay_append.cu", "replay_assemble.cu", "frontier_draw.cu",
            "frontier_writeback.cu", "quantize.cu", "noisy_linear_q.cu", "dequantize.cu", "lstm.cu",
-           "r2d2_td.cu", "seq_stack.cu", "seq_append.cu", "seq_draw.cu", "seq_assemble.cu")
-HEADERS = ("common.cuh",)
+           "r2d2_td.cu", "seq_stack.cu", "seq_append.cu", "seq_draw.cu", "seq_assemble.cu",
+           "device_games.cu")
+HEADERS = ("common.cuh", "threefry.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -65,6 +66,7 @@ launches: Dict[str, int] = {
     "K5s_seq_draw": 0,
     "K8s_seq_assemble": 0,
     "K6s_seq_writeback": 0,
+    "K12_device_games": 0,
 }
 
 _lock = threading.Lock()

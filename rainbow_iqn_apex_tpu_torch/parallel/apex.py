@@ -281,7 +281,7 @@ def train_apex(cfg: Config, max_frames: Optional[int] = None,
     lanes, lane_lo = plan.lanes, plan.lane_lo
     local_batch = plan.local_batch
     # per-lane seeds are carved from the global lane space
-    env = make_vector_env(cfg.env_id, lanes, seed=cfg.seed + lane_lo)
+    env = make_vector_env(cfg.env_id, lanes, seed=cfg.seed + lane_lo, device=device)
     driver = ApexDriver(cfg, env.num_actions,
                         state_shape=(*env.frame_shape, cfg.history_length), device=device)
     shards = cfg.replay_shards

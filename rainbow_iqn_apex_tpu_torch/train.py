@@ -122,7 +122,7 @@ def train(cfg: Config, max_frames: Optional[int] = None,
     device = resolve_device(device)
     total_frames = max_frames or cfg.t_max
     lanes = cfg.num_envs_per_actor
-    env = make_vector_env(cfg.env_id, lanes, seed=cfg.seed)
+    env = make_vector_env(cfg.env_id, lanes, seed=cfg.seed, device=device)
 
     agent = Agent(cfg, env.num_actions, cfg.seed,
                   state_shape=(*env.frame_shape, cfg.history_length), device=device)

@@ -17,9 +17,16 @@ Per tick:
   2. the fused learn steps when due: sample (K5, K8), learn, priority
      write-back (K6), with no host sync between metrics rows.
 
-Not ported (each raises NotImplementedError): the fused variant with the env
-on the device (``train_anakin_fused`` and its helpers, for ``jaxgame:``
-envs) and ``replay_ratio > 1``.
+With a ``jaxgame:`` env and ``fused_env`` on (the default), ``train_anakin``
+goes to ``train_anakin_fused``: the counterpart of the JAX module's fully
+fused variant (:245-542), with the env on the card as well.  Per tick: act
+(K2, K3, K4), the games' tick (K12), the replay append (K7), and ``lanes //
+frames_per_learn`` learn steps when warm (K5, K8, K1-K4 and their backward
+kernels, K6); segments of ``anakin_segment_ticks`` ticks run under
+``forbid_host_sync()``, read once each for metrics.
+
+Not ported (raises NotImplementedError): ``replay_ratio > 1``, as in the JAX
+package, and the fused path over several GPUs (``learner_devices > 1``).
 
 Run it as ``python -m rainbow_iqn_apex_tpu_torch.train --role anakin ...``.
 """
@@ -37,7 +44,12 @@ from rainbow_iqn_apex_tpu_torch.agents.agent import put_frames
 from rainbow_iqn_apex_tpu_torch.config import Config
 from rainbow_iqn_apex_tpu_torch.envs import make_vector_env
 from rainbow_iqn_apex_tpu_torch.obs import RunObs
-from rainbow_iqn_apex_tpu_torch.ops.act import DeviceLike, build_act_step, resolve_device
+from rainbow_iqn_apex_tpu_torch.ops.act import (
+    DeviceLike,
+    build_act_step,
+    load_network,
+    resolve_device,
+)
 from rainbow_iqn_apex_tpu_torch.ops.learn import check_supported, init_train_state, load_host_state
 from rainbow_iqn_apex_tpu_torch.parallel.multihost import shift_stack
 from rainbow_iqn_apex_tpu_torch.replay.device import (
@@ -98,7 +110,7 @@ def train_anakin(cfg: Config, max_frames: Optional[int] = None,
             "apex/single loops; the anakin learner is already fused "
             "device-resident (as in the JAX package)")
     if cfg.fused_env and cfg.env_id.startswith("jaxgame:"):
-        return train_anakin_fused(cfg, max_frames)
+        return train_anakin_fused(cfg, max_frames, device=device)
     check_supported(cfg)
     device = resolve_device(device)
     if device.type == "cuda":
@@ -107,7 +119,7 @@ def train_anakin(cfg: Config, max_frames: Optional[int] = None,
         torch.backends.cudnn.allow_tf32 = False
     total_frames = max_frames or cfg.t_max
     lanes = cfg.num_envs_per_actor
-    env = make_vector_env(cfg.env_id, lanes, seed=cfg.seed)
+    env = make_vector_env(cfg.env_id, lanes, seed=cfg.seed, device=device)
     if cfg.memory_capacity % lanes:
         raise ValueError(
             f"memory capacity {cfg.memory_capacity} not divisible by {lanes} lanes")
@@ -237,30 +249,275 @@ def _eval(cfg: Config, env, ts) -> Dict[str, Any]:
     return evaluate_state(cfg, env, ts, seed=cfg.seed + 977)
 
 
-# ---------------------------------------------------------------------------
-# Fully fused Anakin: the env on the device (jaxgame:* games) -- not ported
-# ---------------------------------------------------------------------------
-def _needs_device_games(name: str):
-    raise NotImplementedError(
-        f"{name}: the fused Anakin trainer needs the on-device games "
-        "(envs/device_games.py), which are not ported yet")
 
 
-def train_anakin_fused(cfg: Config, max_frames: Optional[int] = None) -> Dict[str, Any]:
-    _needs_device_games("train_anakin_fused")
+# ---------------------------------------------------------------------------
+# Fully fused Anakin: the env on the device too (jaxgame:* games, K12)
+# ---------------------------------------------------------------------------
+def fused_beta(cfg: Config, frames: int) -> float:
+    """The IS exponent of the fused tick in fp32, as the JAX graph computes
+    ``bw + (1 - bw) * min(frames / t_max, 1)``."""
+    frac = np.minimum(np.float32(frames) / np.float32(cfg.t_max), np.float32(1.0))
+    return float(np.float32(cfg.priority_weight) + np.float32(1.0 - cfg.priority_weight) * frac)
 
 
 def build_fused_segment(cfg: Config, game, replay: DeviceReplay, learn_fn):
-    _needs_device_games("build_fused_segment")
+    """The fused Anakin segment: ``(carry, key, generator, *, draws=None) ->
+    (carry, outs)`` runs ``cfg.anakin_segment_ticks`` ticks of act (K2, K3,
+    K4) -> env step (K12) -> replay append (K7) -> ``lanes //
+    frames_per_learn`` learn steps when warm, all on the device with no host
+    sync (eager launches).
+
+    carry = (ts, ds, env_states, ep_returns, stack, frame, keep, frames):
+    the train and replay states and the lanes are updated in place, and
+    ``frames`` is a host int.  outs = per tick (ep_return [T, L], NaN except
+    on cuts; loss, q_mean, grad_norm [T, learns_per_tick], NaN when cold),
+    device tensors to read once per segment.
+
+    The env's keys are JAX's: ``split(key, T)`` tick keys, each split into
+    (act, step, learn) keys, of which the env step takes the second.  The
+    network's taus and noise and the sampler's uniforms come from
+    ``generator``; ``draws`` (one dict per tick: ``"act"``: the act step's
+    ``taus`` / ``noise``; ``"learn"``: a list of the learn calls' ``u`` /
+    ``draws``) replaces them in tests.  The warm gate and beta are computed
+    on the host from the replay's host counters, so they need no read-back."""
+    from rainbow_iqn_apex_tpu_torch.envs import prng
+    from rainbow_iqn_apex_tpu_torch.envs.device_games import batched_reset_step
+
+    lanes = cfg.num_envs_per_actor
+    learns_per_tick = lanes // cfg.frames_per_learn
+    seg = replay.seg
+    act_fn = build_act_step(cfg, game.num_actions, use_noise=True)
+    env_step = batched_reset_step(game)
+    ticks = cfg.anakin_segment_ticks
+
+    def segment(carry, key, generator: Optional[torch.Generator], *, draws=None):
+        ts, ds, env_s, ep, stack, frame, keep, frames = carry
+        keys = prng.split(prng.split(prng.as_key(key), ticks), 3)  # [T, (act, step, learn), 2]
+        dev = ds.device
+        out_ret = torch.empty((ticks, lanes), dtype=torch.float32, device=dev)
+        infos = torch.full((3, ticks, learns_per_tick), float("nan"), device=dev)
+        for t in range(ticks):
+            tick_draws = draws[t] if draws is not None else {}
+            shift_stack(stack, frame, keep)
+            actions, _q = act_fn(ts.net, stack, generator, **tick_draws.get("act", {}))
+            env_s, ep, next_frame, reward, term, trunc, out_ret[t] = env_step(
+                env_s, ep, actions, keys[t, 1])
+            # the completed transition, appended the same tick
+            replay.append(ds, frame, actions, reward, term, trunc)
+            frames += lanes
+            stored = min(ds.filled, seg) * lanes
+            if stored >= cfg.learn_start and ds.filled > cfg.multi_step:
+                beta = fused_beta(cfg, frames)
+                learn_draws = tick_draws.get("learn", [{}] * learns_per_tick)
+                for i in range(learns_per_tick):
+                    ts, ds, info = learn_fn(ts, ds, generator, beta, **learn_draws[i])
+                    infos[:, t, i] = torch.stack([info["loss"], info["q_mean"],
+                                                  info["grad_norm"]])
+            keep = (~(term | trunc)).to(torch.uint8)
+            frame = next_frame
+        return (ts, ds, env_s, ep, stack, frame, keep, frames), (out_ret, *infos)
+
+    return segment
 
 
-def build_fused_eval(cfg: Config, game, episodes: int, max_ticks: int = 1024):
-    _needs_device_games("build_fused_eval")
+def build_fused_eval(cfg: Config, game, episodes: int, max_ticks: int = 1024,
+                     device: DeviceLike = None):
+    """Evaluation on the device: ``episodes`` lanes played greedily (noise
+    off, per-tick taus as in eval.py) for up to ``max_ticks``, through the
+    shared rollout core (``envs.device_games.build_rollout``): each lane
+    scores its first episode, capped at the budget.  Returns ``eval_fn(net,
+    key, generator=None, *, taus=None) -> returns [episodes]``: the online
+    ``net``'s weights go into a greedy copy; ``taus`` (one [episodes, K]
+    tensor per tick) replaces the generator's in tests."""
+    from rainbow_iqn_apex_tpu_torch.envs.device_games import build_rollout
+
+    act_fn = build_act_step(cfg, game.num_actions, use_noise=False)
+    dev = resolve_device(device)
+    greedy = []
+
+    def eval_fn(net, key, generator: Optional[torch.Generator] = None, *, taus=None):
+        if not greedy:
+            greedy.append(load_network(cfg, game.num_actions, net.state_dict(), dev,
+                                       use_noise=False,
+                                       state_shape=(*game.frame_shape, cfg.history_length)))
+        else:
+            with torch.no_grad():
+                greedy[0].load_state_dict(net.state_dict())
+        tick_taus = iter(taus) if taus is not None else None
+
+        def action_fn(aux, states, stack, gen):
+            actions, _q = act_fn(greedy[0], stack, gen,
+                                 taus=None if tick_taus is None else next(tick_taus))
+            return actions
+
+        rollout = build_rollout(game, action_fn, episodes, max_ticks,
+                                history=cfg.history_length, device=dev)
+        return rollout(None, key, generator)
+
+    return eval_fn
 
 
-def fused_eval_scores(eval_fn, params, key) -> Dict[str, Any]:
-    _needs_device_games("fused_eval_scores")
+def fused_eval_scores(eval_fn, net, key, generator: Optional[torch.Generator] = None
+                      ) -> Dict[str, Any]:
+    """Host summary of ``build_fused_eval``'s returns, with the keys of
+    ``eval.evaluate`` (so metrics rows are interchangeable)."""
+    scores = hostsync.to_host(eval_fn(net, key, generator))
+    return {
+        "episodes": int(len(scores)),
+        "score_mean": float(scores.mean()),
+        "score_median": float(np.median(scores)),
+        "score_min": float(scores.min()),
+        "score_max": float(scores.max()),
+    }
 
 
-def init_fused_carry(cfg: Config, game, replay: DeviceReplay, ts, ds, key, *args, **kwargs):
-    _needs_device_games("init_fused_carry")
+def init_fused_carry(cfg: Config, game, replay: DeviceReplay, ts, ds, key, frames: int = 0):
+    """Fresh lanes (``batched_init`` from ``key``, K12 on the card) and an
+    empty device stack for ``build_fused_segment``, on the replay's device."""
+    from rainbow_iqn_apex_tpu_torch.kernels.device_games import game_init
+
+    lanes = cfg.num_envs_per_actor
+    h, w = game.frame_shape
+    dev = replay.device
+    env_s, frame = game_init(game, key, lanes, dev)
+    ep = torch.zeros(lanes, dtype=torch.float32, device=dev)
+    stack = torch.zeros((lanes, h, w, cfg.history_length), dtype=torch.uint8, device=dev)
+    keep = torch.ones(lanes, dtype=torch.uint8, device=dev)
+    return (ts, ds, env_s, ep, stack, frame, keep, int(frames))
+
+
+def train_anakin_fused(cfg: Config, max_frames: Optional[int] = None,
+                       device: DeviceLike = None) -> Dict[str, Any]:
+    """Everything on the card: act -> env step -> replay append -> (learn x
+    k), ``anakin_segment_ticks`` ticks per segment, with a handful of host
+    reads per segment for metrics.  The semantics of the host-fed loop:
+    the same learn step, max-priority fresh insertion, two-channel cuts, beta
+    anneal and warm gate.  One deliberate difference, the JAX package's own:
+    the learn cadence is ``lanes / frames_per_learn`` steps per warm tick
+    (lanes must divide by frames_per_learn).  Runs on ``device`` (``cuda:0``
+    unless named); returns the summary dict."""
+    from rainbow_iqn_apex_tpu_torch.envs import prng
+    from rainbow_iqn_apex_tpu_torch.envs.device_games import make_device_game, tick_budget
+
+    total_frames = max_frames or cfg.t_max
+    lanes = cfg.num_envs_per_actor
+    if lanes % cfg.frames_per_learn:
+        raise ValueError(
+            f"fused anakin needs lanes ({lanes}) divisible by frames_per_learn "
+            f"({cfg.frames_per_learn}) — the learn cadence is in-graph")
+    if cfg.learner_devices > 1:
+        raise NotImplementedError(
+            f"learner_devices={cfg.learner_devices}: the lane-sharded fused anakin over "
+            "several GPUs is not ported yet (ROADMAP.md queue A item 9)")
+    check_supported(cfg)
+    device = resolve_device(device)
+    if device.type == "cuda":
+        # TF32 would round fp32 operands to 10 mantissa bits (as Agent does)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    ticks = cfg.anakin_segment_ticks
+    game_name = cfg.env_id.split(":", 1)[1]
+    game = make_device_game(game_name)
+    h, w = game.frame_shape
+    if cfg.memory_capacity % lanes:
+        raise ValueError(
+            f"memory capacity {cfg.memory_capacity} not divisible by {lanes} lanes")
+    seg = cfg.memory_capacity // lanes
+    replay = DeviceReplay(
+        lanes=lanes, seg=seg, frame_shape=(h, w),
+        history=cfg.history_length, n_step=cfg.multi_step, gamma=cfg.gamma,
+        priority_exponent=cfg.priority_exponent, priority_eps=cfg.priority_eps,
+        device=device,
+    )
+    key = prng.prng_key(cfg.seed)
+    key, _k_init, k_env = prng.split(key, 3)
+    ts = init_train_state(cfg, game.num_actions, cfg.seed,
+                          state_shape=(h, w, cfg.history_length), device=device)
+    generator = torch.Generator(device=device).manual_seed(int(cfg.seed))
+    segment = build_fused_segment(cfg, game, replay,
+                                  build_device_learn(cfg, game.num_actions, replay))
+
+    run_dir = os.path.join(cfg.results_dir, cfg.run_id)
+    metrics = MetricsLogger(os.path.join(run_dir, "metrics.jsonl"), cfg.run_id)
+    ckpt = Checkpointer(os.path.join(cfg.checkpoint_dir, cfg.run_id))
+    obs_run = RunObs(cfg, metrics, role="learner", device=device)
+
+    frames = 0
+    ds = replay.init_state()
+    restored = maybe_resume(cfg, ckpt)
+    if restored is not None:
+        host, extra, _ = restored
+        load_host_state(ts, host)
+        frames = int(extra.get("frames", 0))
+        # the replay snapshot only on an actual resume: a fresh run with the
+        # same run_id cold-starts its ring
+        _maybe_restore_replay(cfg, ds)
+        metrics.log("resume", step=ts.step, frames=frames)
+    learn_steps = ts.step
+    carry = init_fused_carry(cfg, game, replay, ts, ds, k_env, frames)
+
+    eval_fn = build_fused_eval(cfg, game, cfg.eval_episodes,
+                               max_ticks=tick_budget(game_name, 1024), device=device)
+    eval_gen = torch.Generator(device=device)
+
+    def run_eval(step_no: int) -> Dict[str, Any]:
+        # deterministic per eval point: the env keys from the JAX eval key,
+        # the taus from a generator seeded from the same point
+        k = prng.fold_in(prng.prng_key(cfg.seed + 977), step_no)
+        eval_gen.manual_seed((cfg.seed + 977) * 1_000_003 + step_no)
+        return fused_eval_scores(eval_fn, carry[0].net, k, eval_gen)
+
+    returns: collections.deque = collections.deque(maxlen=100)
+
+    def crossed(interval: int, before: int, after: int) -> bool:
+        return interval > 0 and before // interval != after // interval
+
+    def nan_mean(x: np.ndarray) -> float:
+        return float(np.nanmean(x)) if np.any(~np.isnan(x)) else float("nan")
+
+    try:
+        while frames < total_frames:
+            key, k = prng.split(key, 2)
+            with obs_run.span("segment", ticks=ticks):
+                with hostsync.forbid_host_sync():
+                    carry, (out_ret, loss, q_mean, grad_norm) = segment(carry, k, generator)
+                ts, ds, frames = carry[0], carry[1], carry[7]
+                prev_steps, learn_steps = learn_steps, ts.step
+                # the segment's one read: its per-tick returns and learn rows
+                ret_h = hostsync.to_host(out_ret)
+            obs_run.after_learn_step(learn_steps)
+            for r in ret_h[~np.isnan(ret_h)]:
+                returns.append(float(r))
+
+            if crossed(cfg.metrics_interval, prev_steps, learn_steps):
+                metrics.log(
+                    "learn",
+                    step=learn_steps,
+                    frames=frames,
+                    fps=metrics.fps(frames),
+                    loss=nan_mean(hostsync.to_host(loss)),
+                    q_mean=nan_mean(hostsync.to_host(q_mean)),
+                    grad_norm=nan_mean(hostsync.to_host(grad_norm)),
+                    mean_return=float(np.mean(returns)) if returns else float("nan"),
+                )
+                obs_run.periodic(learn_steps, frames)
+            if crossed(cfg.eval_interval, prev_steps, learn_steps):
+                metrics.log("eval", step=learn_steps, **run_eval(learn_steps))
+            if crossed(cfg.checkpoint_interval, prev_steps, learn_steps):
+                ckpt.save(learn_steps, ts, {"frames": frames})
+                _save_replay(cfg, ds)
+    finally:
+        obs_run.close(learn_steps, frames)
+    final_eval = run_eval(learn_steps)
+    metrics.log("eval", step=learn_steps, **final_eval)
+    ckpt.save(learn_steps, ts, {"frames": frames})
+    _save_replay(cfg, ds)
+    ckpt.wait()
+    metrics.close()
+    return {
+        "frames": frames,
+        "learn_steps": learn_steps,
+        "train_return_mean": float(np.mean(returns)) if returns else float("nan"),
+        **{f"eval_{k}": v for k, v in final_eval.items()},
+    }

@@ -28,9 +28,9 @@ Per tick:
      step, priority write-back (K6s), with no host sync between metrics rows.
 
 Not ported (each raises NotImplementedError): the fully fused loop with the
-env on the device (``jaxgame:`` ids with ``fused_env``: it needs the device
-games, ROADMAP.md A18, kernel K12) and ``learner_devices > 1`` (queue A
-item 9).  ``replay_ratio > 1`` raises ValueError, as in JAX.
+env on the device (``jaxgame:`` ids with ``fused_env``: its own slice in
+ROADMAP.md queue A, on A18's device games and K12) and ``learner_devices >
+1`` (queue A item 9).  ``replay_ratio > 1`` raises ValueError, as in JAX.
 
 Run it as ``python -m rainbow_iqn_apex_tpu_torch.train --role anakin
 --architecture r2d2 ...`` (``cuda:0`` unless ``--device`` names another).
@@ -101,8 +101,9 @@ def _learn_cadence(cfg: Config):
 
 def _needs_device_games(name: str):
     raise NotImplementedError(
-        f"{name}: the fused R2D2 Anakin loop runs the env on the device (jaxgame: ids), which "
-        "needs the device games and their tick kernel K12 (ROADMAP.md A18), not ported yet")
+        f"{name}: the fused R2D2 Anakin loop (the env on the device, jaxgame: ids) is not "
+        "ported yet; it waits on its own slice in ROADMAP.md queue A, after A18's device "
+        "games and K12")
 
 
 def build_fused_r2d2_segment(cfg: Config, game, replay: DeviceSequenceReplay, learn_fn,
@@ -214,7 +215,7 @@ def _train_anakin_r2d2_hostfed(cfg: Config, max_frames: Optional[int] = None,
         torch.backends.cudnn.allow_tf32 = False
     total_frames = max_frames or cfg.t_max
     lanes = cfg.num_envs_per_actor
-    env = make_vector_env(cfg.env_id, lanes, seed=cfg.seed)
+    env = make_vector_env(cfg.env_id, lanes, seed=cfg.seed, device=device)
     h, w = env.frame_shape
     seq_total, stride, capacity, learn_start_seqs = _seq_geometry(cfg)
     replay = DeviceSequenceReplay(

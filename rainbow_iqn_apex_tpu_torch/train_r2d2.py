@@ -107,7 +107,7 @@ def evaluate_r2d2(cfg: Config, agent: R2D2Agent, episodes: Optional[int] = None,
                   seed: int = 0, max_steps: int = 200_000, env=None) -> Dict[str, Any]:
     """E greedy episodes (noise off unless ``cfg.eval_noisy``) on a fresh env."""
     episodes = episodes or cfg.eval_episodes
-    env = env if env is not None else make_env(cfg.env_id, seed=seed)
+    env = env if env is not None else make_env(cfg.env_id, seed=seed, device=agent.device)
     scores = []
     for _ in range(episodes):
         frame = env.reset()
@@ -148,7 +148,7 @@ def train_r2d2(cfg: Config, max_frames: Optional[int] = None,
     device = resolve_device(device)
     total_frames = max_frames or cfg.t_max
     lanes = cfg.num_envs_per_actor
-    env = make_vector_env(cfg.env_id, lanes, seed=cfg.seed)
+    env = make_vector_env(cfg.env_id, lanes, seed=cfg.seed, device=device)
     agent = R2D2Agent(cfg, env.num_actions, env.frame_shape, cfg.seed, device=device)
 
     seq_total = cfg.r2d2_burn_in + cfg.r2d2_seq_len

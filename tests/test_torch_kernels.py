@@ -779,3 +779,74 @@ def test_k6s_kernel_matches_twin_with_repeats_and_no_fence(cuda, groups, omega):
     torch.testing.assert_close(got, want, **SEQ_REL)
     torch.testing.assert_close(got_max, want_max, **SEQ_REL)
     assert bool((got[idx.reshape(-1).long()] > 0).all())
+
+
+# ------------------------------------------------- K12: the device games' tick
+GAME_NAMES = ("catch", "breakout", "freeway", "asterix", "invaders",
+              "catch@var", "breakout@var", "freeway@var", "asterix@var", "invaders@var-test")
+
+
+def _game_states_equal(got, want, what):
+    for name, a, b in zip(got._fields, got, want):
+        assert torch.equal(a, b), f"{what}: {name}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [16, 4096])
+@pytest.mark.parametrize("name", GAME_NAMES)
+def test_k12_kernel_matches_twin_bit_for_bit(cuda, name, lanes):
+    """batched_init (K12's init mode), then 500 auto-reset ticks with random
+    actions: K12's states, frames, rewards, flags, returns and episode
+    returns equal to the plain twins run on the same card, every tick."""
+    from rainbow_iqn_apex_tpu_torch.envs import prng
+    from rainbow_iqn_apex_tpu_torch.envs.device_games import make_device_game
+    from rainbow_iqn_apex_tpu_torch.kernels.device_games import (
+        game_init, game_init_plain, game_render, game_tick, game_tick_plain)
+
+    game = make_device_game(name)
+    key = prng.prng_key(lanes + len(name))
+    keys = prng.split(key, 501)
+    before = launches["K12_device_games"]
+    state, frames = game_init(game, keys[0], lanes, cuda)
+    want, want_frames = game_init_plain(game, keys[0], lanes, cuda)
+    _game_states_equal(state, want, "init")
+    assert torch.equal(frames, want_frames) and torch.equal(game_render(game, state), frames)
+    ep = torch.zeros(lanes, device=cuda)
+    want_ep = ep.clone()
+    gen = torch.Generator(device=cuda).manual_seed(lanes)
+    cuts = 0
+    for t in range(1, 501):
+        a = torch.randint(0, game.num_actions, (lanes,), generator=gen, device=cuda,
+                          dtype=torch.int32)
+        got = game_tick(game, state, ep, a, keys[t])
+        want, want_ep, *want_out = game_tick_plain(game, want, want_ep, a, keys[t])
+        _game_states_equal(state, want, f"tick {t}")
+        assert torch.equal(ep, want_ep), f"tick {t}: ep_ret"
+        for field, g, w in zip(("frames", "reward", "term", "trunc", "out_ret"), got, want_out):
+            assert torch.equal(g, w) or (field == "out_ret" and torch.equal(g.isnan(), w.isnan())
+                                         and torch.equal(g.nan_to_num(), w.nan_to_num())), \
+                f"tick {t}: {field}"
+        cuts += int((got[2] | got[3]).sum())
+    torch.cuda.synchronize()
+    assert launches["K12_device_games"] - before == 502  # init, render, 500 ticks
+    assert cuts > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["breakout", "asterix@var"])
+def test_k12_host_adapter_step_matches_twin(cuda, name):
+    """The reset-free step mode with the key itself (JaxGameEnv on the card)
+    against the same adapter on the CPU."""
+    from rainbow_iqn_apex_tpu_torch.envs.device_games import JaxGameEnv
+
+    card, cpu = JaxGameEnv(name, seed=3, device=cuda), JaxGameEnv(name, seed=3, device="cpu")
+    np.testing.assert_array_equal(card.reset(), cpu.reset())
+    rng = _rng(8)
+    for _ in range(200):
+        a = int(rng.integers(0, card.num_actions))
+        got, want = card.step(a), cpu.step(a)
+        np.testing.assert_array_equal(got.obs, want.obs)
+        assert (got.reward, got.terminal, got.truncated, got.info) == (
+            want.reward, want.terminal, want.truncated, want.info)
+        if got.terminal or got.truncated:
+            np.testing.assert_array_equal(card.reset(), cpu.reset())
