@@ -127,7 +127,26 @@ and runs every phase, in this order:
 - ``train_anakin_fused``: the CLI on ``jaxgame:catch`` with
   tests/test_anakin_fused.py's catch configuration in bf16 at seeds 7,
   53-55 in four processes, each held to that test's bar (eval > 0.5, more
-  than 2,500 learn steps).
+  than 2,500 learn steps);
+- ``kernels_mt``: the multi-game modes, K2g (the game embedding in K2, and
+  K2g-bwd with dE), K4m (the per-game action mask) and K4l (the log-softmax
+  at the taken action, masked and not), against their twins at the
+  multi-game path's shapes (B 32, N 64, K 32, F 2304, A 5, G 4) and at
+  serving's (B 64, F 3136, A 18), timed the same way (dE's yardstick
+  ``index_add_``, K4l's ``log_softmax`` + ``gather``);
+- ``apex_mt``: ``train_apex`` with ``games`` = four jaxgame games (3, 5, 4
+  and 3 actions, 80x80, 4 lanes each) and ``replay_ratio`` 2 over the
+  reference config: a ``MultiGameReplay`` of the uncut 1,000,000 slots, the
+  uncut ``learn_start`` of 20,000 frames, the loop's backlog of sampled
+  batches at the first warm tick, then a window of 40 ticks, with exact
+  launches per act, env step and sampled batch, no masked action taken,
+  per-game learn shares and occupancy, clip_frac, a profile and peak
+  memory;
+- ``apex_mt_parity``: one full-width multi-game K = 2 step (a pad-slot a*
+  planted) and one single-game K = 2 step on the card against the CPU;
+- ``train_apex_mt``: the JAX acceptance runs of multi-game Ape-X and of
+  multi-game reuse (``tests/test_multitask.py``, ``tests/test_replay_reuse.py``)
+  on the card with their own assertions.
 
 One JSON object per line; the line before the last is the card's name and
 power limit from ``nvidia-smi``, and the last line is
@@ -166,6 +185,11 @@ K1_OPS_PER_PAIR = 16  # flops per (i, j) pair in the loss, |u|, weight and gradi
 K2B_TOL = dict(atol=1e-2, rtol=1e-2)  # bf16 results of fp32 sums in another order: ~1 ulp
 K3B_TOL = dict(atol=1e-2, rtol=1e-2)  # bf16 dx / dW (fp32 sums, split dy); db fp32
 K4B_TOL = dict(atol=1e-6, rtol=1e-6)  # fp32, one product and one subtraction per element
+# K2g-bwd: the CPU tests' bound for bf16 gradients, 4 bf16 ulps (2^-6) of each
+# element and of the output's largest element: dphi sums 64 products of dh and
+# psi, and psi = bf16(Dense) can round one ulp apart under two fp32 orders of
+# the Dense product, which an elementwise 1e-2 misses where the sum cancels
+GRAD_BF16_REL = 2.0 ** -6
 SERVE_KERNELS = ("K2_tau_embed", "K3_noisy_linear", "K4_dueling_head")  # the serving path's
 LEARN_KERNELS = ("K1_quantile_huber", "K2_tau_embed", "K2_tau_embed_bwd", "K3_noisy_linear",
                  "K3_noisy_linear_bwd", "K4_dueling_head", "K4_dueling_head_bwd")  # a learn step's
@@ -195,7 +219,9 @@ ANAKIN_PER_STEP = {"K1_quantile_huber": 1, "K2_tau_embed": 3, "K2_tau_embed_bwd"
                    "K6f_frontier_writeback": 0, "K10q_quantize": 0, "K10g_noisy_linear_q": 0,
                    "K10d_dequantize": 0, "K9_lstm": 0, "K9_lstm_bwd": 0, "K11_r2d2_td": 0,
                    "K8s_seq_stack": 0, "K7s_seq_append": 0, "K5s_seq_draw": 0,
-                   "K8s_seq_assemble": 0, "K6s_seq_writeback": 0, "K12_device_games": 0}
+                   "K8s_seq_assemble": 0, "K6s_seq_writeback": 0, "K12_device_games": 0,
+                   "K2g_tau_embed_game": 0, "K2g_tau_embed_game_bwd": 0,
+                   "K4m_dueling_head_mask": 0, "K4l_dueling_head_logp": 0}
 FRONTIER_SHARDS = 2  # kernels_frontier: the mirror of 2 shards, the second one dead
 FRONTIER_REL = 1e-6  # K5f prob and weight: K5's chained total against torch's sum
 APEX_FILL = 2000  # append ticks of 16 lanes before the apex runs (32,000 transitions)
@@ -265,6 +291,23 @@ FUSED_PER_TICK = {"K2_tau_embed": 1, "K3_noisy_linear": 4, "K4_dueling_head": 1,
 RING_FUSED_MIN_BYTES = 6_400_000_000  # 16 lanes x 62,500 slots of 80x80 frames
 FUSED_PARITY_TICKS = 24  # anakin_fused_parity: one segment, warm on its last tick
 FUSED_CATCH_SEEDS = (7, 53, 54, 55)  # train_anakin_fused: fixed before any run read them
+# multi-game Ape-X (--games) with replay reuse: the four-game suite of 3, 5, 4 and 3 actions
+MT_GAMES = "jaxgame:breakout,jaxgame:asterix,jaxgame:invaders,jaxgame:freeway"
+MT_KERNELS = ("K2g_tau_embed_game", "K2g_tau_embed_game_bwd", "K4m_dueling_head_mask",
+              "K4l_dueling_head_logp")
+MT_REPLAY_RATIO = 2
+MT_METRICS = 50  # apex_mt: metrics_interval, so games and learn rows fall in the run (config: 1,000)
+MT_WINDOW_TICKS = 40  # apex_mt: env ticks after the learn_start backlog's tick
+MT_PROFILE_FROM = 24  # apex_mt: the profiler spans window ticks 24 .. 24 + MT_PROFILE_TICKS
+MT_PROFILE_TICKS = 8
+# per sampled batch at K = 2: two logp forwards (K2g, K3 x4, K4l) and two
+# learn passes (select: K2g, K3 x4, K4m; target and online: K2g, K3 x4, K4
+# gather; K1; backward: K4-bwd, K3-bwd x4, K2g-bwd); nothing else
+MT_PER_BATCH = {"K2g_tau_embed_game": 8, "K3_noisy_linear": 32, "K4m_dueling_head_mask": 2,
+                "K4l_dueling_head_logp": 2, "K1_quantile_huber": 2, "K4_dueling_head": 4,
+                "K4_dueling_head_bwd": 2, "K3_noisy_linear_bwd": 8, "K2g_tau_embed_game_bwd": 2}
+# per act tick: K2g, K3 x4, K4m (the env's K12 launches are per lane step and reset)
+MT_PER_ACT = {"K2g_tau_embed_game": 1, "K3_noisy_linear": 4, "K4m_dueling_head_mask": 1}
 
 
 def emit(obj) -> None:
@@ -3505,6 +3548,584 @@ def phase_train_anakin_fused(torch):
           "train_anakin_fused: too few learn steps")
 
 
+# ------------------------------------------------- multi-game Ape-X (slice 9)
+def _mt_spec():
+    from rainbow_iqn_apex_tpu_torch.multitask.spec import MultiGameSpec
+
+    return MultiGameSpec.probe(tuple(MT_GAMES.split(",")), device="cuda")
+
+
+def _mt_mask(torch, counts, actions, dev):
+    mask = torch.zeros((len(counts), actions), dtype=torch.bool, device=dev)
+    for g, n in enumerate(counts):
+        mask[g, :n] = True
+    return mask
+
+
+def phase_kernels_mt(torch, cfg):
+    """K2g (forward and backward), K4m and K4l against their plain twins at
+    the multi-game path's shapes (learn B 32, N 64 and K 32, F 2304 of 80x80
+    frames, A 5, G 4) and at serving's (B 64, K 32, F 3136, A 18), timed
+    beside the twin, the bound and the nearest PyTorch call."""
+    from rainbow_iqn_apex_tpu_torch.kernels.dueling_head import (
+        dueling_head,
+        dueling_head_plain,
+        dueling_logp,
+        dueling_logp_plain,
+    )
+    from rainbow_iqn_apex_tpu_torch.kernels.tau_embed import (
+        game_embed_grad,
+        tau_embed,
+        tau_embed_bwd,
+        tau_embed_bwd_plain,
+        tau_embed_plain,
+    )
+    from rainbow_iqn_apex_tpu_torch.models.layers import trunk_features
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+    bf = torch.bfloat16
+    cos_n, games = cfg.num_cosines, 4
+    shapes = {  # name: (B, N of K2g, K of K4m / K4l, F, A, per-game action counts)
+        "path": (cfg.batch_size, cfg.num_tau_samples, cfg.num_quantile_samples,
+                 trunk_features(80, 80), 5, (3, 5, 4, 3)),
+        "serving": (BUCKET, cfg.num_quantile_samples, cfg.num_quantile_samples,
+                    trunk_features(84, 84), 18, (18, 9, 6, 4)),
+    }
+    results = {}
+    for where, (batch, n, k, feat, actions, counts) in shapes.items():
+        m = batch * n
+        game = torch.arange(batch, device=dev, dtype=torch.int32) % games
+        game = game[torch.randperm(batch, generator=gen, device=dev)].contiguous()
+        taus = torch.rand((batch, n), generator=gen, device=dev)
+        w_e = (torch.randn((feat, cos_n), generator=gen, device=dev) * cos_n ** -0.5).to(bf)
+        b_e = torch.randn((feat,), generator=gen, device=dev) * 0.1
+        phi = torch.randn((batch, feat), generator=gen, device=dev).relu().to(bf)
+        emb = torch.randn((games, feat), generator=gen, device=dev) * 0.3  # non-zero: routing shows
+        args = (taus, w_e, b_e, phi, game, emb)
+        got, want = tau_embed(*args), tau_embed_plain(*args)
+        torch.cuda.synchronize()
+        max_abs, max_rel, ok = errors(torch, got, want, K2_TOL)
+        nbytes = (m * 4 + feat * cos_n * 2 + feat * 4 + batch * feat * 2 + games * feat * 4
+                  + batch * 4 + m * feat * 2)
+        bms, by = bound_ms(nbytes, 2 * m * feat * cos_n, BF16_FLOPS)
+        k_ms, p_ms = time_ms(torch, lambda: tau_embed(*args)), time_ms(torch, lambda: tau_embed_plain(*args))
+        emit({"phase": "kernels_mt", "kernel": "K2g_tau_embed_game", "shape": [m, feat, cos_n, games],
+              "at": where, "max_abs_err": max_abs, "max_rel_err": max_rel, "tol": K2_TOL, "ok": ok,
+              "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": None, "bound_ms": bms,
+              "bound_by": by})
+        check(ok, f"K2g disagrees with its plain twin at {where}: max abs {max_abs}")
+        if where == "path":
+            results["K2g_tau_embed_game"] = dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms,
+                                                 bound_ms=bms, bound_by=by, library_ms=None)
+
+        dh = torch.randn((m, feat), generator=gen, device=dev).to(bf)
+        got = tau_embed_bwd(*args[:4], dh, game, emb)
+        want = tau_embed_bwd_plain(*args[:4], dh, game, emb)
+        torch.cuda.synchronize()
+        errs, ok = {}, True
+        for name, g_, w_ in zip(("dphi", "dW_e", "db_e", "dE"), got, want):
+            scale = w_.float().abs().max().item()
+            tol = dict(atol=GRAD_BF16_REL * scale, rtol=GRAD_BF16_REL)
+            a_err, _, good = errors(torch, g_, w_, tol)
+            errs[name], ok = a_err, ok and good
+        # dE is the per-game fp32 sum of the kernel's own bf16 dphi
+        de_err, _, de_ok = errors(torch, got[3], game_embed_grad(got[0], game, games), K4_TOL)
+        ok = ok and de_ok
+        nbytes = (m * 4 + feat * cos_n * 2 + feat * 4 + batch * feat * 2 + m * feat * 2
+                  + games * feat * 4 + batch * 4 + batch * feat * 2 + feat * cos_n * 2 + feat * 4
+                  + games * feat * 4)
+        bms, by = bound_ms(nbytes, 4 * m * feat * cos_n, BF16_FLOPS)
+        k_ms = time_ms(torch, lambda: tau_embed_bwd(*args[:4], dh, game, emb))
+        p_ms = time_ms(torch, lambda: tau_embed_bwd_plain(*args[:4], dh, game, emb))
+        dphi32, game64 = got[0].float(), game.long()
+        out = torch.zeros((games, feat), device=dev)
+        lib_ms = time_ms(torch, lambda: out.zero_().index_add_(0, game64, dphi32))
+        emit({"phase": "kernels_mt", "kernel": "K2g_tau_embed_game_bwd",
+              "shape": [m, feat, cos_n, games], "at": where, "max_abs_err": errs,
+              "dE_vs_own_dphi_max_abs": de_err,
+              "tol": "4 bf16 ulps (2^-6) of each element and of the output's largest",
+              "ok": ok, "kernel_ms": k_ms,
+              "plain_ms": p_ms, "library_ms": lib_ms, "library": "index_add_ of dE alone",
+              "bound_ms": bms, "bound_by": by})
+        check(ok, f"K2g-bwd disagrees with its plain twin at {where}: {errs}, dE {de_err}")
+        if where == "path":
+            results["K2g_tau_embed_game_bwd"] = dict(
+                max_abs_err=max(errs.values()), ms=k_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms)
+
+        # K4m: rows whose unmasked argmax is a pad slot are planted
+        mk = batch * k
+        mask = _mt_mask(torch, counts, actions, dev)
+        value = torch.randn((mk, 1), generator=gen, device=dev)
+        adv = torch.randn((mk, actions), generator=gen, device=dev)
+        pad_rows = [b for b in range(batch) if counts[int(game[b])] < actions][:4]
+        for b in pad_rows:
+            adv[b * k:(b + 1) * k, actions - 1] += 8.0
+        got, want = dueling_head(value, adv, k, game, mask), dueling_head_plain(value, adv, k, game, mask)
+        torch.cuda.synchronize()
+        max_abs, ok = 0.0, True
+        for g_, w_ in zip(got[:2], want[:2]):
+            a_err, _, good = errors(torch, g_, w_, K4_TOL)
+            max_abs, ok = max(max_abs, a_err), ok and good
+        ok = ok and bool(torch.equal(got[2], want[2]))
+        limit = torch.tensor(counts, device=dev)[game.long()]
+        inside = bool((got[2] < limit).all())
+        unmasked = want[0].mean(dim=1).argmax(dim=-1)
+        planted = all(int(unmasked[b]) == actions - 1 for b in pad_rows)
+        nbytes = mk * 4 + mk * actions * 4 + batch * 4 + games * actions + mk * actions * 4 \
+            + batch * actions * 4 + batch * 4
+        bms, by = bound_ms(nbytes, 4 * mk * actions, FP32_FLOPS)
+        k_ms = time_ms(torch, lambda: dueling_head(value, adv, k, game, mask))
+        p_ms = time_ms(torch, lambda: dueling_head_plain(value, adv, k, game, mask))
+        emit({"phase": "kernels_mt", "kernel": "K4m_dueling_head_mask", "shape": [batch, k, actions],
+              "at": where, "pad_rows_planted": len(pad_rows), "pad_rows_unmasked_argmax_pad": planted,
+              "actions_inside_game": inside, "max_abs_err": max_abs, "tol": K4_TOL, "ok": ok,
+              "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": None, "bound_ms": bms,
+              "bound_by": by})
+        check(ok and inside and planted and pad_rows,
+              f"K4m disagrees with its twin, or takes a masked action, at {where}")
+        if where == "path":
+            results["K4m_dueling_head_mask"] = dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms,
+                                                    bound_ms=bms, bound_by=by, library_ms=None)
+
+        # K4l: masked (the multi-game reuse ratio) and unmasked (single-game)
+        take = (torch.randint(0, 1 << 20, (batch,), generator=gen, device=dev) % limit).to(torch.int32)
+        row = {}
+        for masked in (True, False):
+            margs = (game, mask) if masked else ()
+            got, want = dueling_logp(value, adv, k, take, *margs), dueling_logp_plain(value, adv, k, take, *margs)
+            again = dueling_logp(value, adv, k, take, *margs)
+            torch.cuda.synchronize()
+            a_err, _, ok = errors(torch, got[0], want[0], K4_TOL)
+            q_err, _, q_ok = errors(torch, got[1], want[1], K4_TOL)
+            repeat = bool(torch.equal(again[0], got[0]))
+            k_ms = time_ms(torch, lambda: dueling_logp(value, adv, k, take, *margs))
+            p_ms = time_ms(torch, lambda: dueling_logp_plain(value, adv, k, take, *margs))
+            q_in, take64 = want[1].clone(), take.long()[:, None]
+            lib_ms = time_ms(torch, lambda: torch.log_softmax(q_in, dim=-1).gather(1, take64))
+            nbytes = mk * 4 + mk * actions * 4 + batch * 4 + (batch * 4 + games * actions
+                                                              if masked else 0) \
+                + batch * actions * 4 + batch * 4
+            bms, by = bound_ms(nbytes, 4 * mk * actions + 3 * batch * actions, FP32_FLOPS)
+            row[masked] = dict(max_abs_err=max(a_err, q_err), ms=k_ms, plain_ms=p_ms,
+                               bound_ms=bms, bound_by=by, library_ms=lib_ms)
+            emit({"phase": "kernels_mt", "kernel": "K4l_dueling_head_logp",
+                  "shape": [batch, k, actions], "at": where, "masked": masked,
+                  "max_abs_err": a_err, "q_max_abs_err": q_err, "tol": K4_TOL,
+                  "repeat_bit_equal": repeat, "ok": ok and q_ok and repeat, "kernel_ms": k_ms,
+                  "plain_ms": p_ms, "library_ms": lib_ms,
+                  "library": "log_softmax + gather on K4's q", "bound_ms": bms, "bound_by": by})
+            check(ok and q_ok and repeat, f"K4l (masked={masked}) disagrees at {where}")
+        if where == "path":
+            results["K4l_dueling_head_logp"] = row[True]
+    return results
+
+
+def phase_apex_mt(torch, cfg):
+    """Multi-game Ape-X at full width through ``train_apex``: the reference
+    config with ``games`` = the four-game jaxgame suite (16 lanes, 4 a
+    game, one ``JaxGameEnv`` each: K12 per lane step), ``replay_ratio`` 2,
+    ``multitask_schedule`` uniform, a ``MultiGameReplay`` of four game shard
+    blocks over the uncut 1,000,000 slots of 80x80 frames, past the uncut
+    ``learn_start`` of 20,000 frames: the loop's backlog of sampled batches
+    (frames // frames_per_learn at the first warm tick), then a window of
+    MT_WINDOW_TICKS ticks.  Hooks on ``ApexDriver`` and ``VectorEnv`` read
+    the launch counters around each act, env step and learn call (exact per
+    call), the clocks, and whether any masked action was taken; a profile
+    spans MT_PROFILE_TICKS window ticks."""
+    import tempfile
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from rainbow_iqn_apex_tpu_torch.envs.base import VectorEnv
+    from rainbow_iqn_apex_tpu_torch.envs.device_games import JaxGameEnv
+    from rainbow_iqn_apex_tpu_torch.kernels import launches, reset_launches
+    from rainbow_iqn_apex_tpu_torch.parallel.apex import ApexDriver, train_apex
+
+    spec = _mt_spec()
+    lanes = cfg.num_actors * cfg.num_envs_per_actor
+    limit = np.repeat(np.asarray(spec.num_actions), lanes // spec.num_games)
+    work = tempfile.mkdtemp(prefix="apex_mt-")
+    run = cfg.replace(games=MT_GAMES, replay_ratio=MT_REPLAY_RATIO, multitask_schedule="uniform",
+                      target_update_period=LEARN_TARGET_PERIOD, weight_publish_interval=APEX_PUBLISH,
+                      metrics_interval=MT_METRICS, eval_episodes=1, stall_timeout_s=0.0,
+                      run_id="apex_mt", results_dir=os.path.join(work, "results"),
+                      checkpoint_dir=os.path.join(work, "ckpt"))
+    ticks_to_warm = -(-run.learn_start // lanes)
+    max_frames = (ticks_to_warm + MT_WINDOW_TICKS) * lanes
+    rec = {"tick_t": [], "tick_batches": [], "batches": 0, "batch_launch_bad": [],
+           "act_launch_bad": [], "env_launch_bad": [], "masked_taken": 0, "acts": 0,
+           "resets": 0, "prof": None, "prof_t": None, "prof_wall": None, "learn_t": []}
+    names = sorted(set(MT_PER_BATCH) | set(MT_PER_ACT) | {"K12_device_games"} | set(launches))
+    orig = (ApexDriver.learn_batch, ApexDriver.act_frames, ApexDriver.act, VectorEnv.step,
+            JaxGameEnv.reset)
+
+    def delta(before):
+        return {n: launches[n] - before[n] for n in names if launches[n] != before[n]}
+
+    def learn_batch(self, batch, draws=None):
+        before = dict(launches)
+        info = orig[0](self, batch, draws)
+        got = delta(before)
+        if got != MT_PER_BATCH:
+            rec["batch_launch_bad"].append(got)
+        rec["batches"] += 1
+        rec["learn_t"].append(time.perf_counter())
+        return info
+
+    def acted(self, fn, *a):
+        before = dict(launches)
+        actions, q = fn(self, *a)
+        if delta(before) != MT_PER_ACT:
+            rec["act_launch_bad"].append(delta(before))
+        rec["acts"] += 1
+        rec["masked_taken"] += int((np.asarray(actions) >= limit).sum())
+        return actions, q
+
+    def env_step(self, actions):
+        tick = len(rec["tick_t"])
+        window = tick - ticks_to_warm  # 0 on the backlog's tick
+        if window == MT_PROFILE_FROM:
+            torch.cuda.synchronize()
+            rec["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            rec["prof"].__enter__()
+            rec["prof_t"] = time.perf_counter()
+        elif window == MT_PROFILE_FROM + MT_PROFILE_TICKS and rec["prof"] is not None:
+            torch.cuda.synchronize()
+            rec["prof_wall"] = time.perf_counter() - rec["prof_t"]
+            rec["prof"].__exit__(None, None, None)
+        rec["tick_t"].append(time.perf_counter())
+        rec["tick_batches"].append(rec["batches"])
+        before, resets = dict(launches), rec["resets"]
+        out = orig[3](self, actions)
+        want = {"K12_device_games": len(self.envs) + rec["resets"] - resets}
+        if delta(before) != want:
+            rec["env_launch_bad"].append(delta(before))
+        return out
+
+    def reset(self):
+        rec["resets"] += 1
+        return orig[4](self)
+
+    ApexDriver.learn_batch = learn_batch
+    ApexDriver.act_frames = lambda self, *a: acted(self, orig[1], *a)
+    ApexDriver.act = lambda self, *a: acted(self, orig[2], *a)
+    VectorEnv.step = env_step
+    JaxGameEnv.reset = reset
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        summary = train_apex(run, max_frames=max_frames)  # cuda:0 by default
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        counts = dict(launches)
+    finally:
+        (ApexDriver.learn_batch, ApexDriver.act_frames, ApexDriver.act, VectorEnv.step,
+         JaxGameEnv.reset) = orig
+    peak = torch.cuda.max_memory_allocated()
+    tick_t, tick_b = np.asarray(rec["tick_t"]), np.asarray(rec["tick_batches"])
+    # tick_b[i]: batches dispatched before env step i.  The first warm tick
+    # (the learn_start backlog's) is the last with none before its successor
+    warm = int(np.argmax(tick_b[1:] > 0)) if rec["batches"] else -1
+    backlog = int(tick_b[warm + 1] if warm + 1 < len(tick_b) else rec["batches"])
+    learn_t = np.asarray(rec["learn_t"])
+    backlog_s = float(learn_t[backlog - 1] - learn_t[0]) if backlog > 1 else float("nan")
+    w0, w1 = warm + 1, len(tick_t) - 1  # window: the ticks after the backlog's tick
+    window_s = float(tick_t[w1] - tick_t[w0])
+    window_batches = int(tick_b[w1] - tick_b[w0])
+    window_ticks = w1 - w0
+    fill_s = float(tick_t[warm] - tick_t[0]) if warm > 0 else float("nan")
+    prof_rows = device_rows(torch, rec["prof"]) if rec["prof"] is not None else []
+    busy_us = sum(r[1] for r in prof_rows)
+    idle = (1.0 - busy_us / (rec["prof_wall"] * 1e6)) if prof_rows and rec["prof_wall"] else None
+    prof_rows.sort(key=lambda r: -r[1])
+    rows = [json.loads(line) for line in open(os.path.join(run.results_dir, run.run_id,
+                                                            "metrics.jsonl"))]
+    games_rows = [r for r in rows if r["kind"] == "games"]
+    learn_rows = [r for r in rows if r["kind"] == "learn"]
+    evals = {r["game"]: r["score_mean"] for r in rows if r["kind"] == "eval" and r.get("game")}
+    last = games_rows[-1]["games"] if games_rows else {}
+    shares = {g: e.get("learn_share") for g, e in last.items()}
+    occupancy = {g: e.get("replay_occupancy") for g, e in last.items()}
+    emit({"phase": "apex_mt", "games": list(spec.games), "num_actions": list(spec.num_actions),
+          "lanes": lanes, "replay_ratio": MT_REPLAY_RATIO, "capacity": run.memory_capacity,
+          "frame": list(spec.frame_shape), "learn_start": run.learn_start,
+          "cuts": {"target_update_period": run.target_update_period,
+                   "weight_publish_interval": run.weight_publish_interval,
+                   "metrics_interval": run.metrics_interval, "eval_episodes": run.eval_episodes,
+                   "max_frames": max_frames},
+          "frames": summary["frames"], "learn_steps": summary["learn_steps"],
+          "sampled_batches": rec["batches"], "seconds": total_s,
+          "fill_ticks": warm + 1, "fill_seconds": fill_s,
+          "fill_env_frames_per_s": warm * lanes / fill_s if warm > 0 else None,
+          "backlog_batches": backlog, "backlog_seconds": backlog_s,
+          "backlog_batches_per_s": (backlog - 1) / backlog_s if backlog > 1 else None,
+          "backlog_sgd_steps_per_s": MT_REPLAY_RATIO * (backlog - 1) / backlog_s
+          if backlog > 1 else None,
+          "window_ticks": window_ticks, "window_batches": window_batches, "window_seconds": window_s,
+          "window_env_frames_per_s": window_ticks * lanes / window_s,
+          "window_batches_per_s": window_batches / window_s,
+          "window_sgd_steps_per_s": MT_REPLAY_RATIO * window_batches / window_s,
+          "learn_share": shares, "replay_occupancy": occupancy,
+          "clip_frac": [r.get("clip_frac") for r in learn_rows],
+          "device_idle_share": idle if idle is not None else "not measured",
+          "profile_ticks": MT_PROFILE_TICKS, "peak_memory_allocated": peak,
+          "launches": counts, "launches_per_batch": MT_PER_BATCH, "launches_per_act": MT_PER_ACT,
+          "batch_launch_mismatches": rec["batch_launch_bad"][:3],
+          "act_launch_mismatches": rec["act_launch_bad"][:3],
+          "env_launch_mismatches": rec["env_launch_bad"][:3], "lane_resets": rec["resets"],
+          "masked_actions_taken": rec["masked_taken"], "acts": rec["acts"],
+          "eval": evals, "eval_hn_games": summary.get("eval_hn_games"),
+          "rollbacks": summary["rollbacks"],
+          "top": [{"name": k_[:80], "us_per_tick": t_ / MT_PROFILE_TICKS,
+                   "calls_per_tick": c_ / MT_PROFILE_TICKS} for k_, t_, c_ in prof_rows[:12]]})
+    check(summary["rollbacks"] == 0, "apex_mt rolled back")
+    check(summary["learn_steps"] == MT_REPLAY_RATIO * rec["batches"],
+          "apex_mt: the step counter does not advance K per sampled batch")
+    check(rec["batches"] == max_frames // run.frames_per_learn,
+          f"apex_mt: {rec['batches']} sampled batches, want {max_frames // run.frames_per_learn}")
+    check(window_ticks >= MT_WINDOW_TICKS - 2 and window_batches > 0, "apex_mt: no window")
+    check(not rec["batch_launch_bad"], f"apex_mt: launches per batch {rec['batch_launch_bad'][:1]}")
+    check(not rec["act_launch_bad"], f"apex_mt: launches per act {rec['act_launch_bad'][:1]}")
+    check(not rec["env_launch_bad"], f"apex_mt: K12 launches per env step {rec['env_launch_bad'][:1]}")
+    check(rec["masked_taken"] == 0, f"apex_mt: {rec['masked_taken']} masked actions taken")
+    check(len(shares) == spec.num_games and all(
+        s is not None and abs(s - 1.0 / spec.num_games) <= 0.05 for s in shares.values()),
+        f"apex_mt: per-game learn shares {shares}")
+    check(set(evals) == set(spec.games), f"apex_mt: eval rows for {sorted(evals)}")
+    check(all(MT_PER_BATCH.get(n, 0) == 0 or counts[n] > 0 for n in MT_KERNELS),
+          "apex_mt: a multi-game kernel was never launched")
+    return counts
+
+
+def _mt_batch(torch, np, spec, cfg, rng, dev):
+    """A synthetic full-width multi-game batch (8 rows a game, actions in
+    each row's own game) on ``dev``."""
+    from rainbow_iqn_apex_tpu_torch.ops.learn import Batch
+
+    b = cfg.batch_size
+    game = np.repeat(np.arange(spec.num_games, dtype=np.int32), b // spec.num_games)
+    h, w = spec.frame_shape
+    host = dict(
+        obs=rng.integers(0, 256, (b, h, w, cfg.history_length), dtype=np.uint8),
+        action=np.asarray([rng.integers(0, spec.num_actions[g]) for g in game], np.int32),
+        reward=rng.normal(size=b).astype(np.float32),
+        next_obs=rng.integers(0, 256, (b, h, w, cfg.history_length), dtype=np.uint8),
+        discount=np.where(rng.random(b) < 0.1, 0.0, cfg.gamma ** cfg.multi_step).astype(np.float32),
+        weight=rng.uniform(0.3, 1.0, b).astype(np.float32), game=game)
+    return Batch(**{k: torch.from_numpy(v).to(dev) for k, v in host.items()})
+
+
+def _reuse_parity(torch, cfg, card, plain, batch_card, batch_cpu, what):
+    """One K-pass learn step on the card (kernels) and on the CPU (twins)
+    from equal states, under the same draws; returns the comparison row."""
+    from rainbow_iqn_apex_tpu_torch.ops.learn import build_learn_step, host_state, make_policy_logp
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator().manual_seed(SEED + 93)
+    passes, passes_card = [], []
+    for _ in range(cfg.replay_ratio):
+        d, dc = _learn_draws(torch, cfg, plain.net, g)
+        passes.append(d)
+        passes_card.append(dc)
+    taus = torch.rand((cfg.batch_size, cfg.num_quantile_samples), generator=g)
+    noise = plain.net.sample_noise(g)
+    ratio = (taus, noise)
+    ratio_card = (taus.to(dev), {k: (a.to(dev), b.to(dev)) for k, (a, b) in noise.items()})
+    logp = make_policy_logp(cfg)
+    lp_card = logp(card.net, batch_card, *ratio_card)
+    lp_cpu = logp(plain.net, batch_cpu, *ratio)
+    before = host_state(card)["params"]
+    step = build_learn_step(cfg, card.net.num_actions)
+    card, k_info = step(card, batch_card, draws={"ratio": ratio_card, "passes": passes_card})
+    plain, p_info = step(plain, batch_cpu, draws={"ratio": ratio, "passes": passes})
+    torch.cuda.synchronize()
+    out = {"logp": float((lp_card.cpu() - lp_cpu).abs().max())}
+    ok = bool(torch.all((lp_card.cpu() - lp_cpu).abs()
+                        <= LEARN_PATH_TOL["atol"] + LEARN_PATH_TOL["rtol"] * lp_cpu.abs()))
+    for key in ("loss", "priorities", "q_mean", "target_q_mean"):
+        got, want = k_info[key].cpu().double(), p_info[key].double()
+        err = (got - want).abs()
+        out[key] = float(err.max())
+        ok = ok and bool(torch.all(err <= LEARN_PATH_TOL["atol"] + LEARN_PATH_TOL["rtol"] * want.abs()))
+    clip = [float(k_info["clip_frac"]), float(p_info["clip_frac"])]
+    gn_rel = abs(k_info["grad_norm"].item() - p_info["grad_norm"].item()) / p_info["grad_norm"].item()
+    after_k = {k: v.cpu() for k, v in card.net.state_dict().items()}
+    after_p = plain.net.state_dict()
+    worst, worst_name = 0.0, ""
+    for k in before:
+        dk, dp = after_k[k] - before[k], after_p[k] - before[k]
+        rel = float((dk - dp).norm() / dp.norm().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_name = rel, k
+    row = {"what": what, "replay_ratio": cfg.replay_ratio, "max_abs_err": out,
+           "clip_frac": clip, "grad_norm_rel_err": gn_rel, "update_rel_l2_worst": worst,
+           "update_worst_tensor": worst_name, "step": [card.step, plain.step],
+           "finite": [bool(k_info["finite"]), bool(p_info["finite"])], "tol": LEARN_PATH_TOL,
+           "update_rtol": LEARN_UPDATE_RTOL}
+    if "game_embed" in before:
+        de_k, de_p = after_k["game_embed"] - before["game_embed"], after_p["game_embed"] - before["game_embed"]
+        row["game_embed_update_rel_l2"] = float((de_k - de_p).norm() / de_p.norm().clamp_min(1e-30))
+    check(ok, f"apex_mt_parity ({what}): {out}")
+    check(clip[0] == clip[1], f"apex_mt_parity ({what}): clip_frac {clip}")
+    check(gn_rel <= LEARN_GNORM_RTOL and worst <= LEARN_UPDATE_RTOL,
+          f"apex_mt_parity ({what}): grad_norm {gn_rel}, update of {worst_name} {worst}")
+    check(card.step == plain.step and all(row["finite"]), f"apex_mt_parity ({what}): steps or finite")
+    return row
+
+
+def phase_apex_mt_parity(torch, cfg):
+    """One full-width multi-game learn step at replay_ratio 2 through the
+    kernels on the card against the same step through the plain twins on
+    the CPU (same state, batch and draws), with a row planted whose
+    unmasked greedy a* is a pad slot; then one single-game K = 2 step
+    (replay reuse without masks) the same way."""
+    import numpy as np
+
+    from rainbow_iqn_apex_tpu_torch.multitask.ops import init_mt_train_state
+    from rainbow_iqn_apex_tpu_torch.ops.learn import host_state, init_train_state, load_host_state
+
+    dev, cpu = torch.device("cuda", 0), torch.device("cpu")
+    spec = _mt_spec()
+    mcfg = cfg.replace(games=MT_GAMES, replay_ratio=MT_REPLAY_RATIO, target_update_period=100)
+    card = init_mt_train_state(mcfg, spec, cfg.seed)
+    with torch.no_grad():  # a moved embedding, and a pad slot every game's greedy pass prefers
+        card.net.game_embed.normal_(0.0, 0.05, generator=torch.Generator(device=dev).manual_seed(5))
+        card.net.advantage_out.b_mu[spec.max_actions - 1] += 4.0
+    host = host_state(card)
+    plain = load_host_state(init_mt_train_state(mcfg, spec, cfg.seed, device="cpu"), host)
+    rng = np.random.default_rng(SEED + 94)
+    batch_card = _mt_batch(torch, np, spec, mcfg, rng, dev)
+    batch_cpu = type(batch_card)(**{k: None if v is None else v.cpu()
+                                    for k, v in vars(batch_card).items()})
+    g = torch.Generator().manual_seed(SEED + 95)
+    taus = torch.rand((mcfg.batch_size, mcfg.num_quantile_samples), generator=g)
+    noise = plain.net.sample_noise(g)
+    with torch.no_grad():
+        out_k = card.net(batch_card.next_obs, mcfg.num_quantile_samples, taus=taus.to(dev),
+                         noise={k: (a.to(dev), b.to(dev)) for k, (a, b) in noise.items()},
+                         game=batch_card.game)
+        out_p = plain.net(batch_cpu.next_obs, mcfg.num_quantile_samples, taus=taus, noise=noise,
+                          game=batch_cpu.game)
+    unmasked = out_p.quantiles.mean(dim=1).argmax(dim=-1)
+    limit = torch.tensor(spec.num_actions)[batch_cpu.game.long()]
+    planted = int(((unmasked == spec.max_actions - 1) & (limit < spec.max_actions)).sum())
+    top2 = torch.sort(out_p.q, dim=-1).values[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 2 * PATH_Q_TOL
+    a_star_equal = bool(torch.equal(out_k.action.cpu()[clear], out_p.action[clear]))
+    inside = bool((out_k.action.cpu() < limit).all() and (out_p.action < limit).all())
+    rows = [_reuse_parity(torch, mcfg, card, plain, batch_card, batch_cpu, "multi-game")]
+    rows[0].update({"pad_rows_planted": planted, "a_star_equal_where_clear": a_star_equal,
+                    "a_star_clear_rows": int(clear.sum()), "a_star_inside_game": inside})
+    check(planted > 0, "apex_mt_parity: no row's unmasked a* is a pad slot")
+    check(inside and a_star_equal, "apex_mt_parity: a* left its game or differs card vs CPU")
+
+    scfg = cfg.replace(replay_ratio=MT_REPLAY_RATIO, target_update_period=100)
+    card = init_train_state(scfg, 18, cfg.seed)
+    host = host_state(card)
+    plain = load_host_state(init_train_state(scfg, 18, cfg.seed, device="cpu"), host)
+    rng = np.random.default_rng(SEED + 96)
+    sspec = type(spec)(games=("x",), num_actions=(18,), frame_shape=(84, 84))
+    batch_card = _mt_batch(torch, np, sspec, scfg, rng, dev)
+    batch_card.game = None
+    batch_cpu = type(batch_card)(**{k: None if v is None else v.cpu()
+                                    for k, v in vars(batch_card).items()})
+    rows.append(_reuse_parity(torch, scfg, card, plain, batch_card, batch_cpu, "single-game"))
+    emit({"phase": "apex_mt_parity", "rows": rows})
+
+
+def phase_train_apex_mt(torch):
+    """On the card, the two JAX acceptance runs of multi-game Ape-X:
+    tests/test_multitask.py's two-game toy run (:389-437) and
+    tests/test_replay_reuse.py's reuse run (:284-302), each config field
+    for field but bf16 (the card's path takes no other compute dtype) and,
+    in the reuse run, 16 cosines for the test's 8 (K2 and K2-bwd take the
+    cosine count in multiples of the bf16 MMA's depth of 16), with
+    those tests' own assertions (the JSONL lint of scripts/lint_jsonl.py
+    against the port's schema: the script imports the JAX package's)."""
+    import tempfile
+
+    import numpy as np
+
+    from rainbow_iqn_apex_tpu_torch.config import Config
+    from rainbow_iqn_apex_tpu_torch.obs.schema import validate_row
+    from rainbow_iqn_apex_tpu_torch.parallel.apex import train_apex
+
+    work = tempfile.mkdtemp(prefix="train_apex_mt-")
+    t0 = time.perf_counter()
+    e2e = Config(
+        compute_dtype="bfloat16", history_length=2, hidden_size=64, num_cosines=16,
+        num_tau_samples=8, num_tau_prime_samples=8, num_quantile_samples=4, multi_step=3,
+        gamma=0.9, games="toy:catch,toy:chain", batch_size=16, learning_rate=1e-3,
+        memory_capacity=4096, learn_start=256, frames_per_learn=4, target_update_period=200,
+        num_envs_per_actor=8, metrics_interval=50, eval_interval=0, checkpoint_interval=0,
+        eval_episodes=2, run_id="mt_e2e", results_dir=os.path.join(work, "results"),
+        checkpoint_dir=os.path.join(work, "ckpt"))
+    summary = train_apex(e2e, max_frames=768)
+
+    def lint(line):  # scripts/lint_jsonl.py's lint_line over the port's schema
+        def non_finite(token):
+            raise ValueError(f"non-finite JSON constant {token!r}")
+
+        try:
+            row = json.loads(line, parse_constant=non_finite)
+        except ValueError as e:
+            return str(e)
+        if not isinstance(row, dict):
+            return "not an object"
+        errs = validate_row(row, require_known_kind=True) if "kind" in row else []
+        return "; ".join(errs) or None
+
+    lines = [line for line in open(os.path.join(e2e.results_dir, "mt_e2e", "metrics.jsonl"))
+             if line.strip()]
+    bad_rows = [err for err in map(lint, lines) if err is not None]
+    rows = [json.loads(line) for line in lines]
+    eval_games = {r["game"] for r in rows if r["kind"] == "eval" and r.get("game")}
+    games_rows = [r for r in rows if r["kind"] == "games"]
+    shares = ([g["learn_share"] for g in games_rows[-1]["games"].values()] if games_rows else [])
+    mt_rows = [r for r in rows if r["kind"] == "eval_mt"]
+    e2e_ok = (summary["frames"] == 768 and summary["learn_steps"] > 0
+              and summary["eval_hn_games"] == 2 and np.isfinite(summary["eval_hn_median"])
+              and not bad_rows and eval_games == {"toy:catch", "toy:chain"}
+              and bool(games_rows) and set(games_rows[-1]["games"]) == eval_games
+              and all(abs(s - 0.5) <= 0.05 for s in shares)
+              and bool(mt_rows) and mt_rows[-1]["hn_median"] is not None)
+    reuse = Config(  # num_cosines 16 where the test has 8: K2 takes multiples of 16
+        env_id="toy:catch", compute_dtype="bfloat16", frame_height=44, frame_width=44,
+        history_length=2, hidden_size=32, num_cosines=16, num_tau_samples=4,
+        num_tau_prime_samples=4, num_quantile_samples=4, batch_size=16, learning_rate=1e-3,
+        multi_step=3, gamma=0.9, memory_capacity=4096, learn_start=256, frames_per_learn=4,
+        target_update_period=100, num_envs_per_actor=8, metrics_interval=50, eval_interval=0,
+        checkpoint_interval=0, eval_episodes=2, stall_timeout_s=0.0, writeback_depth=2,
+        replay_shards=1, weight_publish_interval=100, seed=3, run_id="reuse_mt",
+        games="toy:catch,toy:chain", replay_ratio=2,
+        results_dir=os.path.join(work, "reuse", "results"),
+        checkpoint_dir=os.path.join(work, "reuse", "ckpt"))
+    r_summary = train_apex(reuse, max_frames=768)
+    r_rows = [json.loads(line) for line in open(os.path.join(reuse.results_dir, "reuse_mt",
+                                                              "metrics.jsonl"))]
+    r_learn = [r for r in r_rows if r["kind"] == "learn"]
+    reuse_ok = (r_summary["rollbacks"] == 0
+                and r_summary["learn_steps"] == 2 * (768 // reuse.frames_per_learn)
+                and bool(r_learn) and all(r["replay_ratio"] == 2 for r in r_learn)
+                and any(r["kind"] == "games" for r in r_rows))
+    emit({"phase": "train_apex_mt", "runs": [
+        {"test": "tests/test_multitask.py::test_two_game_apex_run_end_to_end", "ok": e2e_ok,
+         "frames": summary["frames"], "learn_steps": summary["learn_steps"],
+         "eval_hn_games": summary["eval_hn_games"], "eval_hn_median": summary["eval_hn_median"],
+         "learn_shares": shares, "invalid_rows": bad_rows[:5]},
+        {"test": "tests/test_replay_reuse.py::test_reuse_composes_with_multitask",
+         "ok": reuse_ok, "learn_steps": r_summary["learn_steps"],
+         "rollbacks": r_summary["rollbacks"]}],
+        "compute_dtype": "bfloat16", "reuse_num_cosines": reuse.num_cosines,
+        "seconds": time.perf_counter() - t0})
+    check(e2e_ok, "train_apex_mt: the two-game acceptance run failed its assertions")
+    check(reuse_ok, "train_apex_mt: the multi-game reuse run failed its assertions")
+
+
 def device_rows(torch, prof):
     """(name, device us, calls) of the device-side events: kernels and
     copies.  CPU-side op rows carry the same device time again, and user
@@ -3750,7 +4371,7 @@ def main() -> int:
 
         results, counts = {}, {"serve": {}, "learn": {}, "anakin": {}, "apex": {},
                                "serve_quant": {}, "apex_quant": {}, "learn_r2d2": {},
-                               "anakin_r2d2": {}, "anakin_fused": {}}
+                               "anakin_r2d2": {}, "anakin_fused": {}, "apex_mt": {}}
         with open(os.path.join(ROOT, "configs", "serve_defaults.json")) as f:
             serve_cfg = Config.from_json(f.read())
         with open(os.path.join(ROOT, "configs", "reference_atari_defaults.json")) as f:
@@ -3795,6 +4416,10 @@ def main() -> int:
         counts["anakin_fused"] = timed("anakin_fused", phase_anakin_fused, torch, learn_cfg)
         timed("anakin_fused_parity", phase_anakin_fused_parity, torch, learn_cfg)
         timed("train_anakin_fused", phase_train_anakin_fused, torch)
+        results.update(timed("kernels_mt", phase_kernels_mt, torch, learn_cfg))
+        counts["apex_mt"] = timed("apex_mt", phase_apex_mt, torch, learn_cfg)
+        timed("apex_mt_parity", phase_apex_mt_parity, torch, learn_cfg)
+        timed("train_apex_mt", phase_train_apex_mt, torch)
     except SmokeFailure as e:
         emit({"ok": False, "error": str(e)})
         return 1
@@ -3807,6 +4432,11 @@ def main() -> int:
         rows[mod.NAME] = (mod.SOURCE, mod.REPLACES)
         if hasattr(mod, "NAME_BWD"):
             rows[mod.NAME_BWD] = (mod.SOURCE_BWD, mod.REPLACES_BWD)
+    # the multi-game modes of K2 and K4, each counted under its own name
+    rows[tau_embed.NAME_GAME] = (tau_embed.SOURCE, tau_embed.REPLACES_GAME)
+    rows[tau_embed.NAME_GAME_BWD] = (tau_embed.SOURCE_BWD, tau_embed.REPLACES_GAME)
+    rows[dueling_head.NAME_MASK] = (dueling_head.SOURCE, dueling_head.REPLACES_MASK)
+    rows[dueling_head.NAME_LOGP] = (dueling_head.SOURCE, dueling_head.REPLACES_LOGP)
     line = []
     for name, res in results.items():
         by_path = {path: c.get(name, 0) for path, c in counts.items()}

@@ -47,9 +47,9 @@ def put_frames(x: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def to_device_batch(sample: SampledBatch, device: torch.device) -> Batch:
-    """Host SampledBatch -> device Batch (non-blocking pinned uploads)."""
-    if getattr(sample, "game", None) is not None:
-        raise NotImplementedError("multi-game batches are not ported yet")
+    """Host SampledBatch -> device Batch (non-blocking pinned uploads); a
+    multi-game sample's game ids go along."""
+    game = getattr(sample, "game", None)
     return Batch(
         obs=put_frames(sample.obs, device),
         action=put_frames(np.asarray(sample.action, np.int32), device),
@@ -57,6 +57,7 @@ def to_device_batch(sample: SampledBatch, device: torch.device) -> Batch:
         next_obs=put_frames(sample.next_obs, device),
         discount=put_frames(np.asarray(sample.discount, np.float32), device),
         weight=put_frames(np.asarray(sample.weight, np.float32), device),
+        game=None if game is None else put_frames(np.asarray(game, np.int32), device),
     )
 
 
@@ -94,7 +95,8 @@ class Agent:
             # TF32 would round fp32 operands to 10 mantissa bits
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        self.reuse_k = 1  # replay_ratio > 1 raises in init_train_state
+        # replay reuse: one learn_batch call is K passes, so step advances K
+        self.reuse_k = max(int(cfg.replay_ratio), 1)
         self.state: TrainState = init_train_state(
             cfg, num_actions, seed, state_shape=state_shape, device=self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(int(seed))

@@ -15,6 +15,8 @@ Layouts:
   ``lstm/cell/{hi,hf,hg,ho}/{kernel,bias}`` [H, H] and [H]; the port holds
   them concatenated in that gate order, as the cell concatenates them before
   its products: ``lstm.w_i`` [F, 4H], ``lstm.w_h`` [H, 4H], ``lstm.b`` [4H].
+- the multi-game embedding (``MultiGameIQN``) is flax ``game_embed/embedding``
+  [G, F] and the port's ``game_embed`` [G, F], the same layout.
 The trunk's flatten order (H, W, C) is kept by ``ConvTrunk`` itself, so no
 weight after it needs permuting.
 
@@ -85,6 +87,8 @@ def _leaves(tree: Mapping[str, Any]):
         if name in tree:
             for p in ("w_mu", "b_mu", "w_sigma", "b_sigma"):
                 yield f"{name}.{p}", tree[name][p], (1, 0) if p[0] == "w" else None
+    if "game_embed" in tree:
+        yield "game_embed", tree["game_embed"]["embedding"], None
 
 
 def _flax_tree(names, leaf) -> Dict[str, Any]:
@@ -103,6 +107,8 @@ def _flax_tree(names, leaf) -> Dict[str, Any]:
             embed[key] = leaf(name, (1, 0) if key == "kernel" else None)
         elif parts[0] == "lstm":
             continue  # the cell's per-gate tree: _lstm_to_flax
+        elif parts[0] == "game_embed":
+            out["game_embed"] = {"embedding": leaf(name, None)}
         else:
             out.setdefault(parts[0], {})[parts[1]] = leaf(
                 name, (1, 0) if parts[1][0] == "w" else None)

@@ -18,6 +18,14 @@
 // accumulation); the epilogue stages the accumulators through shared memory
 // and applies the bias, the ReLU and the phi product, writing 8 outputs per
 // 16-byte store, so each output element is written once.
+//
+// K2g, the game embedding of multi-game runs (rainbow_iqn_apex_tpu/multitask/
+// model.py:80-90, phi + E[game] before the merge): with game [B] int32 and
+// E [G, F] fp32, the epilogue's phi becomes
+//   phi_g[b, f] = bf16( phi[b, f] + bf16(E[game[b], f]) )
+// (the rounding of multitask/model.py:89), read beside phi, so the embedding
+// adds G*F*4 + B*4 bytes to the read side and no pass of its own.  Null
+// game and E pointers are the single-game K2.
 #include <mma.h>
 
 #include "common.cuh"
@@ -42,6 +50,8 @@ __global__ void __launch_bounds__(THREADS) tau_embed_kernel(
     const float* __restrict__ bias,          // [F]
     const __nv_bfloat16* __restrict__ phi,   // [M / taus_per_row, F]
     __nv_bfloat16* __restrict__ out,         // [M, F]
+    const int* __restrict__ game,            // [M / taus_per_row] or null (K2g)
+    const float* __restrict__ emb,           // [G, F] or null (K2g)
     int M, int F, int C, int taus_per_row) {
     extern __shared__ __align__(128) unsigned char smem[];
     const int lda = C + 8;  // bf16 row stride of both operand tiles
@@ -105,15 +115,19 @@ __global__ void __launch_bounds__(THREADS) tau_embed_kernel(
         const int m = m0 + r;
         const int f = f0 + c;
         if (m >= M || f >= F) continue;
-        const uint4 praw = *reinterpret_cast<const uint4*>(phi + (size_t)(m / taus_per_row) * F + f);
+        const int row = m / taus_per_row;
+        const uint4 praw = *reinterpret_cast<const uint4*>(phi + (size_t)row * F + f);
         const __nv_bfloat16* p = reinterpret_cast<const __nv_bfloat16*>(&praw);
+        const float* e = emb == nullptr ? nullptr : emb + (size_t)game[row] * F + f;
         uint4 oraw;
         __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(&oraw);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
             const float dense = port::bf16_round(c_s[r * LDC + c + j]);
             const float psi = fmaxf(port::bf16_round(dense + port::bf16_round(bias[f + j])), 0.f);
-            o[j] = __float2bfloat16(psi * port::to_float(p[j]));
+            float pj = port::to_float(p[j]);
+            if (e != nullptr) pj = port::bf16_round(pj + port::bf16_round(e[j]));
+            o[j] = __float2bfloat16(psi * pj);
         }
         *reinterpret_cast<uint4*>(out + (size_t)m * F + f) = oraw;
     }
@@ -122,8 +136,8 @@ __global__ void __launch_bounds__(THREADS) tau_embed_kernel(
 }  // namespace
 
 PORT_API int port_tau_embed(const void* taus, const void* w, const void* bias,
-                            const void* phi, void* out, int M, int F, int C,
-                            int taus_per_row, void* stream) {
+                            const void* phi, void* out, const void* game, const void* emb,
+                            int M, int F, int C, int taus_per_row, void* stream) {
     const dim3 grid((M + BM - 1) / BM, (F + BN - 1) / BN);
     const size_t operands = (size_t)(BM + BN) * (C + 8) * sizeof(__nv_bfloat16);
     const size_t epilogue = (size_t)BM * LDC * sizeof(float);
@@ -131,7 +145,8 @@ PORT_API int port_tau_embed(const void* taus, const void* w, const void* bias,
     tau_embed_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(taus), static_cast<const __nv_bfloat16*>(w),
         static_cast<const float*>(bias), static_cast<const __nv_bfloat16*>(phi),
-        static_cast<__nv_bfloat16*>(out), M, F, C, taus_per_row);
+        static_cast<__nv_bfloat16*>(out), static_cast<const int*>(game),
+        static_cast<const float*>(emb), M, F, C, taus_per_row);
     return (int)cudaGetLastError();
 }
 

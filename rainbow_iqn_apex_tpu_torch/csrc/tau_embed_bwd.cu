@@ -33,6 +33,16 @@
 // sum over all M rows inside one block, so there is no cross-block reduction
 // and no atomic: the same result on every run.  The grid is F / 32 = 98
 // blocks for F = 3136, under one wave of 132 SMs.
+//
+// K2g-bwd (multi-game runs, game [B] int32 and E [G, F] fp32): the merge's
+// phi is phi_g = bf16(phi + bf16(E[game[b]])), as K2g forms it, and the
+// embedding's gradient is the transpose of the gather after the fp32 -> bf16
+// cast,
+//   dE[g, f] = sum over the rows b with game[b] == g of fp32(dphi[b, f])
+// (dphi is also dphi_g: the add passes it through).  The same launch forms
+// it after the sample loop: each block reads back its 32 features of the
+// bf16 dphi it wrote and sums them per game, rows in order, in fp32.  No
+// atomics: the same result on every run.  dE adds G*F*4 bytes written.
 #include <mma.h>
 
 #include "common.cuh"
@@ -62,7 +72,10 @@ __global__ void __launch_bounds__(THREADS) tau_embed_bwd_kernel(
     __nv_bfloat16* __restrict__ dphi,       // [B, F]
     __nv_bfloat16* __restrict__ dw,         // [F, C]
     float* __restrict__ db,                 // [F]
-    int B, int N, int F, int C) {
+    const int* __restrict__ game,           // [B] or null (K2g-bwd)
+    const float* __restrict__ emb,          // [G, F] or null (K2g-bwd)
+    float* __restrict__ demb,               // [G, F] or null (K2g-bwd)
+    int B, int N, int F, int C, int G) {
     extern __shared__ __align__(128) unsigned char smem[];
     const int ldc = C + 8;   // bf16 stride of cos and w tiles
     const int ldp = FT + 8;  // bf16 stride of the dpre tile
@@ -126,7 +139,9 @@ __global__ void __launch_bounds__(THREADS) tau_embed_bwd_kernel(
         __syncthreads();
         // 3. elementwise: dpre, and this thread's share of dphi and db
         const __nv_bfloat16 zero = __float2bfloat16(0.f);
-        const float phi_v = f_in ? port::to_float(phi[(size_t)b * F + f]) : 0.f;
+        float phi_v = f_in ? port::to_float(phi[(size_t)b * F + f]) : 0.f;
+        if (emb != nullptr && f_in)
+            phi_v = port::bf16_round(phi_v + port::bf16_round(emb[(size_t)game[b] * F + f]));
         float dphi_acc = 0.f;
         for (int r = row_grp; r < n16; r += THREADS / FT) {
             __nv_bfloat16 dp = zero;
@@ -188,13 +203,26 @@ __global__ void __launch_bounds__(THREADS) tau_embed_bwd_kernel(
         const int c = i % C;
         if (f0 + r < F) dw[(size_t)(f0 + r) * C + c] = __float2bfloat16(dw_s[r * ldw + c]);
     }
+    // dE: this block's dphi writes are visible to it after the barriers above
+    if (demb != nullptr) {
+        for (int i = threadIdx.x; i < G * FT; i += THREADS) {
+            const int g = i / FT;
+            const int ff = f0 + i % FT;
+            if (ff >= F) continue;
+            float s = 0.f;
+            for (int b = 0; b < B; ++b)
+                if (game[b] == g) s += port::to_float(dphi[(size_t)b * F + ff]);
+            demb[(size_t)g * F + ff] = s;
+        }
+    }
 }
 
 }  // namespace
 
 PORT_API int port_tau_embed_bwd(const void* taus, const void* w, const void* bias,
                                 const void* phi, const void* dh, void* dphi, void* dw, void* db,
-                                int B, int N, int F, int C, void* stream) {
+                                const void* game, const void* emb, void* demb, int B, int N,
+                                int F, int C, int G, void* stream) {
     const int ldc = C + 8, ldp = FT + 8, lde = FT + 4;
     size_t smem = (size_t)(MAX_ROWS + FT) * ldc * sizeof(__nv_bfloat16) +
                   (size_t)MAX_ROWS * ldp * sizeof(__nv_bfloat16) +
@@ -216,6 +244,7 @@ PORT_API int port_tau_embed_bwd(const void* taus, const void* w, const void* bia
         static_cast<const float*>(taus), static_cast<const __nv_bfloat16*>(w),
         static_cast<const float*>(bias), static_cast<const __nv_bfloat16*>(phi),
         static_cast<const __nv_bfloat16*>(dh), static_cast<__nv_bfloat16*>(dphi),
-        static_cast<__nv_bfloat16*>(dw), static_cast<float*>(db), B, N, F, C);
+        static_cast<__nv_bfloat16*>(dw), static_cast<float*>(db), static_cast<const int*>(game),
+        static_cast<const float*>(emb), static_cast<float*>(demb), B, N, F, C, G);
     return (int)cudaGetLastError();
 }

@@ -13,6 +13,10 @@ and which tests and ``chip_smoke.py`` hold the kernel against.
     K4  dueling_head.dueling_head              dueling combine, tau-mean, greedy argmax
         dueling_head.dueling_gather            the combine gathered at given actions
         dueling_head.dueling_gather_bwd        its backward
+    K2g tau_embed.tau_embed(game=, emb=)       K2 with the multi-game embedding phi + E[game]
+        tau_embed.tau_embed_bwd(game=, emb=)   its backward, with dE
+    K4m dueling_head.dueling_head(game=, mask=)  K4 with the per-game action mask
+    K4l dueling_head.dueling_logp              log-softmax of the (masked) q at taken actions
     K5  replay_draw.replay_draw                stratified proportional PER draw
     K6  replay_writeback.replay_writeback      fenced priority write-back
     K7  replay_append.replay_append            one append tick into the replay ring

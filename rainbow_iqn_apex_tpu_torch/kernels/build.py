@@ -49,6 +49,10 @@ launches: Dict[str, int] = {
     "K3_noisy_linear_bwd": 0,
     "K4_dueling_head": 0,
     "K4_dueling_head_bwd": 0,
+    "K2g_tau_embed_game": 0,
+    "K2g_tau_embed_game_bwd": 0,
+    "K4m_dueling_head_mask": 0,
+    "K4l_dueling_head_logp": 0,
     "K5_replay_draw": 0,
     "K6_replay_writeback": 0,
     "K7_replay_append": 0,

@@ -21,6 +21,21 @@ actions and q [B, A], and K4-bwd (``dueling_gather_bwd``, kernel
 ``csrc/dueling_head_bwd.cu``) is its backward: dvalue = dz, dadv = dz *
 (1{a = a_b} - 1/A).  Both launch-bound.  ``DuelingGatherFn`` is the
 ``torch.autograd.Function`` over them.
+
+Multi-game runs (``multitask/``) add two modes of the same kernel, each
+counted under its own name:
+
+- K4m (``dueling_head(..., game=, mask=)``): each row's q set to
+  ``MASK_FILL`` outside its game's action set (mask [G, A]) before the
+  argmax, and returned masked: ``masked_q_values`` / ``masked_greedy_action``
+  of ``rainbow_iqn_apex_tpu/multitask/model.py`` (:134-149).  The act step
+  and the double-Q a* pass run it.
+- K4l (``dueling_logp``): the log-softmax of the (masked) tau-mean q at a
+  taken action, replay reuse's behaviour and current log-probs
+  (``rainbow_iqn_apex_tpu/ops/learn.py`` ``make_policy_logp``, :172-195;
+  masked, ``multitask/ops.py:180-193``).  Detached: no backward.
+
+Both launch-bound like K4.
 """
 
 from __future__ import annotations
@@ -39,24 +54,56 @@ REPLACES = "rainbow_iqn_apex_tpu/models/iqn.py:94"
 NAME_BWD = NAME + "_bwd"
 SOURCE_BWD = "rainbow_iqn_apex_tpu_torch/csrc/dueling_head_bwd.cu"
 REPLACES_BWD = "rainbow_iqn_apex_tpu/ops/learn.py:152"
+NAME_MASK = "K4m_dueling_head_mask"
+REPLACES_MASK = "rainbow_iqn_apex_tpu/multitask/model.py:134"
+NAME_LOGP = "K4l_dueling_head_logp"
+REPLACES_LOGP = "rainbow_iqn_apex_tpu/ops/learn.py:191"
+MASK_FILL = -1e9  # multitask/model.py:43: large-negative, not -inf
 
 
-def dueling_head_plain(value: Optional[torch.Tensor], adv: torch.Tensor,
-                       num_taus: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def mask_q(q: torch.Tensor, game: Optional[torch.Tensor],
+           mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """q [B, A] with MASK_FILL where ``mask[game[b], a]`` is false (as is
+    without a mask)."""
+    if mask is None:
+        return q
+    return torch.where(mask.bool()[game.long()], q, torch.full_like(q, MASK_FILL))
+
+
+def dueling_head_plain(value: Optional[torch.Tensor], adv: torch.Tensor, num_taus: int,
+                       game: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None,
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """value [B*N, 1] or None, adv [B*N, A] fp32 -> (quantiles [B, N, A],
-    q [B, A], action [B] int32)."""
+    q [B, A], action [B] int32); with ``game`` [B] and ``mask`` [G, A], q is
+    masked (K4m) and the action stays inside each row's game."""
     q_all = adv if value is None else value + adv - adv.mean(dim=-1, keepdim=True)
     quantiles = q_all.reshape(-1, num_taus, adv.shape[-1]).float()
-    q = quantiles.mean(dim=1)
+    q = mask_q(quantiles.mean(dim=1), game, mask)
     return quantiles, q, torch.argmax(q, dim=-1).to(torch.int32)
 
 
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = build.library().port_dueling_head
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _check_mask(game: Optional[torch.Tensor], mask: Optional[torch.Tensor], batch: int,
+                actions: int, device: torch.device) -> Optional[torch.Tensor]:
+    """The mask as uint8 [G, A] (or None); raises on what the kernel does not take."""
+    if mask is None:
+        return None
+    if game is None or game.dtype != torch.int32 or tuple(game.shape) != (batch,):
+        raise ValueError(f"K4m takes int32 game ids [{batch}] with the mask")
+    if mask.dim() != 2 or mask.shape[1] != actions or mask.dtype not in (torch.bool, torch.uint8):
+        raise ValueError(f"K4m takes a bool / uint8 mask [G, {actions}], got {mask.dtype} "
+                         f"{tuple(mask.shape)}")
+    if game.device != device or mask.device != device or not (
+            game.is_contiguous() and mask.is_contiguous()):
+        raise ValueError("K4 inputs must be contiguous on one device")
+    return mask.view(torch.uint8)
 
 
 def _check(value: Optional[torch.Tensor], adv: torch.Tensor, num_taus: int) -> None:
@@ -74,24 +121,66 @@ def _check(value: Optional[torch.Tensor], adv: torch.Tensor, num_taus: int) -> N
         raise ValueError("K4 keeps one row's [N, A] quantiles in 48 KB of shared memory")
 
 
-def dueling_head(value: Optional[torch.Tensor], adv: torch.Tensor,
-                 num_taus: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K4 on ``adv.device``: the kernel on CUDA, the plain twin on the CPU."""
+def dueling_head(value: Optional[torch.Tensor], adv: torch.Tensor, num_taus: int,
+                 game: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None,
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4 (K4m with ``game`` and ``mask``) on ``adv.device``: the kernel on
+    CUDA, the plain twin on the CPU."""
     if adv.device.type == "cpu":
-        return dueling_head_plain(value, adv, num_taus)
+        return dueling_head_plain(value, adv, num_taus, game, mask)
     _check(value, adv, num_taus)
     rows, actions = adv.shape
     batch = rows // num_taus
+    mask8 = _check_mask(game, mask, batch, actions, adv.device)
     quantiles = torch.empty((batch, num_taus, actions), dtype=torch.float32, device=adv.device)
     q = torch.empty((batch, actions), dtype=torch.float32, device=adv.device)
     action = torch.empty((batch,), dtype=torch.int32, device=adv.device)
     with torch.cuda.device(adv.device):
         code = _entry()(
             build.ptr(value), build.ptr(adv), build.ptr(quantiles), build.ptr(q),
-            build.ptr(action), build.ptr(None), build.ptr(None), batch, num_taus, actions,
-            build.stream_of(adv.device))
-    build.check_launch(NAME, code)
+            build.ptr(action), build.ptr(None), build.ptr(None),
+            build.ptr(None if mask8 is None else game), build.ptr(mask8), build.ptr(None),
+            batch, num_taus, actions, build.stream_of(adv.device))
+    build.check_launch(NAME if mask8 is None else NAME_MASK, code)
     return quantiles, q, action
+
+
+def dueling_logp_plain(value: Optional[torch.Tensor], adv: torch.Tensor, num_taus: int,
+                       take: torch.Tensor, game: Optional[torch.Tensor] = None,
+                       mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logp [B], q [B, A]): the log-softmax of the (masked) tau-mean q at
+    ``take`` [B] int32, and that q."""
+    _, q, _ = dueling_head_plain(value, adv, num_taus, game, mask)
+    logp = torch.log_softmax(q, dim=-1).gather(1, take.long()[:, None])[:, 0]
+    return logp, q
+
+
+def dueling_logp(value: Optional[torch.Tensor], adv: torch.Tensor, num_taus: int,
+                 take: torch.Tensor, game: Optional[torch.Tensor] = None,
+                 mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4l on ``adv.device``: the kernel on CUDA, the plain twin on the CPU.
+    An action out of range gives NaN on CUDA."""
+    if adv.device.type == "cpu":
+        return dueling_logp_plain(value, adv, num_taus, take, game, mask)
+    _check(value, adv, num_taus)
+    rows, actions = adv.shape
+    batch = rows // num_taus
+    if take.dtype != torch.int32 or tuple(take.shape) != (batch,):
+        raise ValueError(f"K4l takes int32 actions [{batch}], got {take.dtype} "
+                         f"{tuple(take.shape)}")
+    if take.device != adv.device or not take.is_contiguous():
+        raise ValueError("K4 inputs must be contiguous on one device")
+    mask8 = _check_mask(game, mask, batch, actions, adv.device)
+    q = torch.empty((batch, actions), dtype=torch.float32, device=adv.device)
+    logp = torch.empty((batch,), dtype=torch.float32, device=adv.device)
+    with torch.cuda.device(adv.device):
+        code = _entry()(
+            build.ptr(value), build.ptr(adv), build.ptr(None), build.ptr(q), build.ptr(None),
+            build.ptr(take), build.ptr(None), build.ptr(None if mask8 is None else game),
+            build.ptr(mask8), build.ptr(logp), batch, num_taus, actions,
+            build.stream_of(adv.device))
+    build.check_launch(NAME_LOGP, code)
+    return logp, q
 
 
 def dueling_gather_plain(value: Optional[torch.Tensor], adv: torch.Tensor, num_taus: int,
@@ -122,8 +211,8 @@ def dueling_gather(value: Optional[torch.Tensor], adv: torch.Tensor, num_taus: i
     with torch.cuda.device(adv.device):
         code = _entry()(
             build.ptr(value), build.ptr(adv), build.ptr(None), build.ptr(q), build.ptr(None),
-            build.ptr(take), build.ptr(z), batch, num_taus, actions,
-            build.stream_of(adv.device))
+            build.ptr(take), build.ptr(z), build.ptr(None), build.ptr(None), build.ptr(None),
+            batch, num_taus, actions, build.stream_of(adv.device))
     build.check_launch(NAME, code)
     return z, q
 

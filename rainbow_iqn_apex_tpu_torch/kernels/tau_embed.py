@@ -22,6 +22,13 @@ plain twin ``tau_embed_bwd_plain``), recomputes psi rather than saving the
 db_e [F] (fp32, rounded to the compute dtype as the JAX bias cotangent is).
 Memory-bound: dh is ~13 MB at M = 2048, ~4 us at 3.35 TB/s.
 ``TauEmbedFn`` is the ``torch.autograd.Function`` over K2 and K2-bwd.
+
+K2g, multi-game runs' game embedding (``rainbow_iqn_apex_tpu/multitask/
+model.py:80-90``): given ``game`` [B] int32 and ``emb`` E [G, F] fp32, the
+merge uses phi_g = phi + E[game] (rounded as the JAX model rounds), inside
+the same kernel, counted under its own name.  K2g-bwd returns dE [G, F]
+fp32 as well: the per-game fp32 sum of dphi over the rows of that game, in
+row order, in the same launch.  Null ``game`` and ``emb`` are K2 and K2-bwd.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import Optional
 
 import torch
 
@@ -40,6 +48,9 @@ REPLACES = "rainbow_iqn_apex_tpu/models/layers.py:105"
 NAME_BWD = NAME + "_bwd"
 SOURCE_BWD = "rainbow_iqn_apex_tpu_torch/csrc/tau_embed_bwd.cu"
 REPLACES_BWD = "rainbow_iqn_apex_tpu/models/layers.py:105"
+NAME_GAME = "K2g_tau_embed_game"
+NAME_GAME_BWD = NAME_GAME + "_bwd"
+REPLACES_GAME = "rainbow_iqn_apex_tpu/multitask/model.py:80"
 
 
 def _cos_features(taus: torch.Tensor, num_cos: int, cdt: torch.dtype) -> torch.Tensor:
@@ -53,11 +64,23 @@ def _pre_activation(cos: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor)
     return dense + bias.to(cdt)
 
 
+def game_phi(phi: torch.Tensor, game: Optional[torch.Tensor],
+             emb: Optional[torch.Tensor]) -> torch.Tensor:
+    """phi_g = phi + E[game] in phi's dtype, E cast to it first (the
+    rounding of ``multitask/model.py:89``); phi itself without E."""
+    if emb is None:
+        return phi
+    return phi + emb[game.long()].to(phi.dtype)
+
+
 def tau_embed_plain(taus: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                    phi: torch.Tensor) -> torch.Tensor:
+                    phi: torch.Tensor, game: Optional[torch.Tensor] = None,
+                    emb: Optional[torch.Tensor] = None) -> torch.Tensor:
     """taus [B, N] fp32, weight [F, C] and phi [B, F] in the compute dtype,
     bias [F] -> h [B*N, F] in the compute dtype.  Rounds where the JAX model
-    rounds: cos features, the Dense output, the bias add, the phi product."""
+    rounds: cos features, the Dense output, the bias add, the phi product.
+    With ``game`` [B] int32 and ``emb`` [G, F] fp32, phi is phi_g (K2g)."""
+    phi = game_phi(phi, game, emb)
     batch, num_taus = taus.shape
     psi = torch.relu(_pre_activation(_cos_features(taus, weight.shape[1], phi.dtype),
                                      weight, bias))
@@ -68,16 +91,33 @@ def tau_embed_plain(taus: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = build.library().port_tau_embed
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+def _check_game(game: Optional[torch.Tensor], emb: Optional[torch.Tensor], batch: int,
+                features: int, device: torch.device, what: str) -> None:
+    if emb is None:
+        return
+    if game is None or game.dtype != torch.int32 or tuple(game.shape) != (batch,):
+        raise ValueError(f"{what} takes int32 game ids [{batch}] with the embedding")
+    if emb.dtype != torch.float32 or emb.dim() != 2 or emb.shape[1] != features:
+        raise ValueError(f"{what} takes an fp32 embedding [G, {features}], got {emb.dtype} "
+                         f"{tuple(emb.shape)}")
+    for t in (game, emb):
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"{what} inputs must be contiguous on one device")
+
+
 def tau_embed(taus: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-              phi: torch.Tensor) -> torch.Tensor:
-    """K2 on ``taus.device``: the kernel on CUDA, the plain twin on the CPU."""
+              phi: torch.Tensor, game: Optional[torch.Tensor] = None,
+              emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K2 (K2g with ``game`` and ``emb``) on ``taus.device``: the kernel on
+    CUDA, the plain twin on the CPU.  Out-of-range game ids are the caller's
+    to rule out: the kernel reads E at them."""
     if taus.device.type == "cpu":
-        return tau_embed_plain(taus, weight, bias, phi)
+        return tau_embed_plain(taus, weight, bias, phi, game, emb)
     batch, num_taus = taus.shape
     features, num_cos = weight.shape
     if taus.dtype != torch.float32 or bias.dtype != torch.float32:
@@ -98,21 +138,34 @@ def tau_embed(taus: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             raise ValueError("K2 inputs must be contiguous on one device")
     if weight.data_ptr() % 16 or phi.data_ptr() % 16:
         raise ValueError("K2 weight and phi must be 16-byte aligned")
+    _check_game(game, emb, batch, features, taus.device, "K2g")
     out = torch.empty((batch * num_taus, features), dtype=torch.bfloat16, device=taus.device)
     with torch.cuda.device(taus.device):
         code = _entry()(
             build.ptr(taus), build.ptr(weight), build.ptr(bias), build.ptr(phi),
-            build.ptr(out), batch * num_taus, features, num_cos, num_taus,
-            build.stream_of(taus.device))
-    build.check_launch(NAME, code)
+            build.ptr(out), build.ptr(None if emb is None else game), build.ptr(emb),
+            batch * num_taus, features, num_cos, num_taus, build.stream_of(taus.device))
+    build.check_launch(NAME if emb is None else NAME_GAME, code)
     return out
 
 
+def game_embed_grad(dphi: torch.Tensor, game: torch.Tensor, num_games: int) -> torch.Tensor:
+    """dE [G, F] fp32 = per-game sums of fp32(dphi) [B, F]: the transpose of
+    the embedding gather (a one-hot product, plain torch)."""
+    onehot = (game.long()[None, :] == torch.arange(num_games, device=game.device)[:, None])
+    return onehot.float() @ dphi.float()
+
+
 def tau_embed_bwd_plain(taus: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                        phi: torch.Tensor, dh: torch.Tensor):
+                        phi: torch.Tensor, dh: torch.Tensor, game: Optional[torch.Tensor] = None,
+                        emb: Optional[torch.Tensor] = None):
     """Backward of K2 for dh [B*N, F] in the compute dtype -> (dphi [B, F],
-    dW_e [F, C] in the compute dtype, db_e [F] fp32).  The products round to
-    the compute dtype as the jaxpr's do; sums run in fp32, rounded once."""
+    dW_e [F, C] in the compute dtype, db_e [F] fp32), and with ``game`` and
+    ``emb`` (K2g-bwd) dE [G, F] fp32 as a fourth.  The products round to the
+    compute dtype as the jaxpr's do; sums run in fp32, rounded once."""
+    if emb is not None:
+        dphi, dw, db = tau_embed_bwd_plain(taus, weight, bias, game_phi(phi, game, emb), dh)
+        return dphi, dw, db, game_embed_grad(dphi, game, emb.shape[0])
     cdt = phi.dtype
     batch, num_taus = taus.shape
     cos = _cos_features(taus, weight.shape[1], cdt)
@@ -130,16 +183,18 @@ def tau_embed_bwd_plain(taus: torch.Tensor, weight: torch.Tensor, bias: torch.Te
 @functools.lru_cache(maxsize=None)
 def _bwd_entry():
     fn = build.library().port_tau_embed_bwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def tau_embed_bwd(taus: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                  phi: torch.Tensor, dh: torch.Tensor):
-    """K2-bwd on ``taus.device``: the kernel on CUDA, the plain twin on the CPU."""
+                  phi: torch.Tensor, dh: torch.Tensor, game: Optional[torch.Tensor] = None,
+                  emb: Optional[torch.Tensor] = None):
+    """K2-bwd (K2g-bwd with ``game`` and ``emb``, which adds dE) on
+    ``taus.device``: the kernel on CUDA, the plain twin on the CPU."""
     if taus.device.type == "cpu":
-        return tau_embed_bwd_plain(taus, weight, bias, phi, dh)
+        return tau_embed_bwd_plain(taus, weight, bias, phi, dh, game, emb)
     batch, num_taus = taus.shape
     features, num_cos = weight.shape
     if taus.dtype != torch.float32 or bias.dtype != torch.float32:
@@ -160,29 +215,34 @@ def tau_embed_bwd(taus: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if weight.data_ptr() % 16:
         raise ValueError("K2-bwd weight must be 16-byte aligned")
     dev = taus.device
+    _check_game(game, emb, batch, features, dev, "K2g-bwd")
     dphi = torch.empty((batch, features), dtype=torch.bfloat16, device=dev)
     dw = torch.empty((features, num_cos), dtype=torch.bfloat16, device=dev)
     db = torch.empty((features,), dtype=torch.float32, device=dev)
+    demb = None if emb is None else torch.empty(emb.shape, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         code = _bwd_entry()(
             build.ptr(taus), build.ptr(weight), build.ptr(bias), build.ptr(phi), build.ptr(dh),
-            build.ptr(dphi), build.ptr(dw), build.ptr(db), batch, num_taus, features, num_cos,
-            build.stream_of(dev))
-    build.check_launch(NAME_BWD, code)
-    return dphi, dw, db
+            build.ptr(dphi), build.ptr(dw), build.ptr(db), build.ptr(None if emb is None else game),
+            build.ptr(emb), build.ptr(demb), batch, num_taus, features, num_cos,
+            0 if emb is None else emb.shape[0], build.stream_of(dev))
+    build.check_launch(NAME_BWD if emb is None else NAME_GAME_BWD, code)
+    return (dphi, dw, db) if emb is None else (dphi, dw, db, demb)
 
 
 class TauEmbedFn(torch.autograd.Function):
-    """K2 forward, K2-bwd backward: (taus, weight, bias, phi) -> h,
-    differentiable in weight, bias and phi (taus get no gradient)."""
+    """K2 forward, K2-bwd backward: (taus, weight, bias, phi, game, emb) ->
+    h, differentiable in weight, bias, phi and emb (taus and game get no
+    gradient); ``game`` and ``emb`` None is K2, else K2g and K2g-bwd."""
 
     @staticmethod
-    def forward(ctx, taus, weight, bias, phi):
-        ctx.save_for_backward(taus, weight, bias, phi)
-        return tau_embed(taus, weight, bias, phi)
+    def forward(ctx, taus, weight, bias, phi, game=None, emb=None):
+        ctx.save_for_backward(taus, weight, bias, phi, game, emb)
+        return tau_embed(taus, weight, bias, phi, game, emb)
 
     @staticmethod
     def backward(ctx, dh):
-        taus, weight, bias, phi = ctx.saved_tensors
-        dphi, dw, db = tau_embed_bwd(taus, weight, bias, phi, dh.contiguous())
-        return None, dw, db, dphi
+        taus, weight, bias, phi, game, emb = ctx.saved_tensors
+        grads = tau_embed_bwd(taus, weight, bias, phi, dh.contiguous(), game, emb)
+        demb = grads[3] if emb is not None else None
+        return None, grads[1], grads[2], grads[0], None, demb

@@ -22,7 +22,11 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from rainbow_iqn_apex_tpu_torch.kernels.dueling_head import DuelingGatherFn, dueling_head
+from rainbow_iqn_apex_tpu_torch.kernels.dueling_head import (
+    DuelingGatherFn,
+    dueling_head,
+    dueling_logp,
+)
 from rainbow_iqn_apex_tpu_torch.models.layers import (
     ConvTrunk,
     CosineTauEmbedding,
@@ -94,10 +98,22 @@ class RainbowIQN(nn.Module):
     def sample_noise(self, generator: Optional[torch.Generator]) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
         return {name: getattr(self, name).sample_noise(generator) for name in self.noisy_names}
 
+    def _merge(self, taus: torch.Tensor, phi: torch.Tensor,
+               game: Optional[torch.Tensor]) -> torch.Tensor:
+        """K2: the tau embedding merged with phi, [B*N, F]."""
+        if game is not None:
+            raise ValueError("game ids need the multi-game network (multitask.MultiGameIQN)")
+        return self.tau_embed(taus, phi)
+
+    def _combine(self, value: Optional[torch.Tensor], adv: torch.Tensor, num_taus: int,
+                 game: Optional[torch.Tensor]):
+        """K4: (quantiles, q, action)."""
+        return dueling_head(value, adv, num_taus)
+
     def _heads(self, obs: torch.Tensor, num_taus: int, taus: Optional[torch.Tensor],
                generator: Optional[torch.Generator],
                noise: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]],
-               noisy: Optional[bool]):
+               noisy: Optional[bool], game: Optional[torch.Tensor] = None):
         """Trunk, K2 and the K3 heads: (value [B*N, 1] or None, adv [B*N, A], taus).
         Draws taus, then each layer's noise, from ``generator``."""
         batch = obs.shape[0]
@@ -106,7 +122,7 @@ class RainbowIQN(nn.Module):
         phi = self.trunk(obs)  # [B, F]
         if taus is None:
             taus = torch.rand((batch, num_taus), generator=generator, device=obs.device)
-        h = self.tau_embed(taus, phi)  # K2: [B*N, F]
+        h = self._merge(taus, phi, game)  # K2 (K2g): [B*N, F]
         use_noise = self.use_noise if noisy is None else noisy
         if use_noise and noise is None:
             noise = self.sample_noise(generator)
@@ -124,22 +140,39 @@ class RainbowIQN(nn.Module):
                 taus: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 noise: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
-                noisy: Optional[bool] = None) -> IQNOutput:
-        value, adv, taus = self._heads(obs, num_taus, taus, generator, noise, noisy)
-        quantiles, q, action = dueling_head(value, adv, num_taus)  # K4
+                noisy: Optional[bool] = None, game: Optional[torch.Tensor] = None) -> IQNOutput:
+        value, adv, taus = self._heads(obs, num_taus, taus, generator, noise, noisy, game)
+        quantiles, q, action = self._combine(value, adv, num_taus, game)  # K4 (K4m)
         return IQNOutput(quantiles, taus, q, action)
 
     def gather(self, obs: torch.Tensor, num_taus: int, actions: torch.Tensor,
                taus: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None,
                noise: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
+               game: Optional[torch.Tensor] = None,
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The quantiles at ``actions`` [B] int32: (z [B, N], q [B, A], taus
         [B, N]); z is differentiable in the parameters (K4 gather + K4-bwd),
         q is not.  The learner's ``take_along_axis`` (ops/learn.py)."""
-        value, adv, taus = self._heads(obs, num_taus, taus, generator, noise, None)
+        value, adv, taus = self._heads(obs, num_taus, taus, generator, noise, None, game)
         z, q = DuelingGatherFn.apply(value, adv, actions, num_taus)
         return z, q, taus
+
+    def logp(self, obs: torch.Tensor, num_taus: int, actions: torch.Tensor,
+             taus: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None,
+             noise: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
+             game: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[B] log-prob of ``actions`` under softmax of the tau-mean q (K4l;
+        masked to each row's game in the multi-game network), detached:
+        ``make_policy_logp`` of ``rainbow_iqn_apex_tpu/ops/learn.py``."""
+        with torch.no_grad():
+            value, adv, _ = self._heads(obs, num_taus, taus, generator, noise, None, game)
+            return dueling_logp(value, adv, num_taus, actions, *self._mask_args(game))[0]
+
+    def _mask_args(self, game: Optional[torch.Tensor]) -> tuple:
+        """(game, mask) for the K4 modes that mask, () without a mask."""
+        return ()
 
 
 def q_values(quantiles: torch.Tensor) -> torch.Tensor:

@@ -97,10 +97,16 @@ class CosineTauEmbedding(nn.Module):
         self.compute_dtype = compute_dtype
         self.embed = nn.Linear(num_cosines, features)
 
-    def forward(self, taus: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
+    def forward(self, taus: torch.Tensor, phi: torch.Tensor,
+                game: Optional[torch.Tensor] = None,
+                emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``game`` [B] int32 and ``emb`` [G, F] fp32 add the multi-game
+        embedding to phi before the merge (K2g)."""
         cdt = self.compute_dtype
         args = (taus, self.embed.weight.to(cdt), self.embed.bias, phi.to(cdt))
-        if _tracked(phi, self.embed.weight):
+        if emb is not None:
+            args += (game.to(torch.int32).contiguous(), emb)
+        if _tracked(phi, self.embed.weight, *(() if emb is None else (emb,))):
             return TauEmbedFn.apply(*args)
         return tau_embed(*args)
 

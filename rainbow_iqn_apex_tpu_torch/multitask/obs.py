@@ -1,0 +1,86 @@
+"""The periodic `games` obs row: per-game training state in one place.
+
+A copy of ``rainbow_iqn_apex_tpu/multitask/obs.py``.
+
+Emitted by the apex driver at the metrics cadence (schema kind "games",
+obs/schema.py), consumed by scripts/obs_report.py's `games:` section and
+scripts/relay_watch.py's per-game phase tallies.  The baseline lookup is
+deferred to call time.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+
+from rainbow_iqn_apex_tpu_torch.multitask.spec import MultiGameSpec
+
+
+def aggregate_human_normalized(
+    per_game_hn: Dict[str, Optional[float]]
+) -> Dict[str, Any]:
+    """Suite aggregates over the games with KNOWN baselines (a game missing
+    from HUMAN_BASELINES is reported raw but cannot enter the normalized
+    aggregate).  Returns hn_median / hn_mean / hn_games."""
+    known = [v for v in per_game_hn.values() if v is not None]
+    return {
+        "hn_games": len(known),
+        "hn_median": float(np.median(known)) if known else None,
+        "hn_mean": float(np.mean(known)) if known else None,
+    }
+
+
+class GamesObs:
+    """Accumulates per-game eval results and renders the `games` row."""
+
+    def __init__(self, spec: MultiGameSpec):
+        self.spec = spec
+        self._last_eval: Dict[str, Dict[str, Any]] = {}
+
+    def note_eval(self, results: Dict[str, Any]) -> None:
+        """Fold one `evaluate_multigame` result (its "games" dict)."""
+        for name, row in (results.get("games") or {}).items():
+            self._last_eval[name] = dict(row)
+
+    def row(
+        self,
+        learn_shares: Optional[np.ndarray] = None,
+        learn_rows: Optional[np.ndarray] = None,
+        sampled_rows: Optional[np.ndarray] = None,
+        game_sizes: Optional[np.ndarray] = None,
+        game_occupancy: Optional[np.ndarray] = None,
+        dead_games: Optional[list] = None,
+    ) -> Dict[str, Any]:
+        """The `games` row payload: per-game learn share, replay occupancy,
+        latest eval score, plus suite human-normalized aggregates."""
+        from rainbow_iqn_apex_tpu_torch.eval import human_normalized
+
+        games: Dict[str, Dict[str, Any]] = {}
+        per_game_hn: Dict[str, Optional[float]] = {}
+        dead = set(dead_games or ())
+        for g, name in enumerate(self.spec.games):
+            entry: Dict[str, Any] = {"dead": g in dead}
+            if learn_shares is not None:
+                entry["learn_share"] = round(float(learn_shares[g]), 4)
+            if learn_rows is not None:
+                entry["learn_rows"] = int(learn_rows[g])
+            if sampled_rows is not None:
+                entry["sampled_rows"] = int(sampled_rows[g])
+            if game_sizes is not None:
+                entry["replay_size"] = int(game_sizes[g])
+            if game_occupancy is not None:
+                entry["replay_occupancy"] = round(float(game_occupancy[g]), 4)
+            ev = self._last_eval.get(name)
+            if ev is not None:
+                entry["score_mean"] = ev.get("score_mean")
+                hn = ev.get("human_normalized")
+                if hn is None and ev.get("score_mean") is not None:
+                    hn = human_normalized(name, float(ev["score_mean"]))
+                if hn is not None:
+                    entry["human_normalized"] = round(float(hn), 4)
+                per_game_hn[name] = hn
+            else:
+                per_game_hn[name] = None
+            games[name] = entry
+        return {"games": games, **aggregate_human_normalized(per_game_hn)}

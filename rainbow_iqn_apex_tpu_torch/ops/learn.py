@@ -1,8 +1,8 @@
 """The learner step of the port: double-Q IQN loss, Adam, hard target copy.
 
-Counterpart of ``rainbow_iqn_apex_tpu/ops/learn.py`` at replay ratio 1:
-three noisy forwards (the online net on s' at K taus for the double-Q a*,
-the target net on s' at N' taus, the online net on s at N taus), the
+Counterpart of ``rainbow_iqn_apex_tpu/ops/learn.py``: three noisy forwards
+(the online net on s' at K taus for the double-Q a*, the target net on s'
+at N' taus, the online net on s at N taus), the
 quantile-Huber loss (K1) with the IS-weighted mean, the gradient through
 the online pass only, optax-style global-norm clipping, Adam, and the hard
 target copy every ``target_update_period`` steps.
@@ -10,6 +10,15 @@ target copy every ``target_update_period`` steps.
 On CUDA every step after the convolutions is one of the port's kernels:
 K2/K3/K4 forward, K1, and the backward K4-bwd, K3-bwd, K2-bwd; the
 convolutions' backward is cuDNN's, Adam is ``torch.optim.Adam(fused=True)``.
+A multi-game batch (``Batch.game``, on a ``multitask.MultiGameIQN`` state)
+runs K2g and K2g-bwd in place of K2 and K2-bwd, and K4m for the a* pass.
+
+``replay_ratio`` K > 1 (``make_reuse_learn_step``, IMPACT-style clipped
+reuse): one sampled batch drives K passes of the step; passes 2..K scale the
+IS weights by clip(pi_now / pi_behaviour, 1/c, c), the policy being
+softmax of the tau-mean q at the taken action (``make_policy_logp``, K4l).
+JAX fuses the K passes into one executable with ``fori_loop``; here they are
+a host loop over the same pass.
 
 TF32 is a process-wide setting of torch and is left to the entry point
 (``Agent`` turns it off on CUDA), so that this module changes no global
@@ -53,7 +62,7 @@ class Batch:
     next_obs: torch.Tensor  # [B, H, W, C] uint8
     discount: torch.Tensor  # [B] f32 — gamma^n * (1 - done)
     weight: torch.Tensor  # [B] f32 — PER importance-sampling weights
-    game: Optional[torch.Tensor] = None  # multi-game ids: not ported
+    game: Optional[torch.Tensor] = None  # [B] int32 game ids: multi-game runs only
     idx: Optional[torch.Tensor] = None  # [B] int32 slot ids (device sampling's write-back)
 
 
@@ -70,9 +79,6 @@ def check_supported(cfg: Config) -> None:
     if cfg.architecture != "iqn":
         raise NotImplementedError(
             f"architecture={cfg.architecture!r}: only 'iqn' is ported to the PyTorch package")
-    if int(cfg.replay_ratio) > 1:
-        raise NotImplementedError(
-            "replay_ratio > 1 (the fused K-pass reuse step) is not ported yet")
 
 
 def make_optimizer(cfg: Config, params) -> torch.optim.Adam:
@@ -160,26 +166,33 @@ def load_host_state(state: TrainState, host: Mapping[str, Any]) -> TrainState:
 def loss_and_priorities(cfg: Config, state: TrainState, batch: Batch,
                         generator: Optional[torch.Generator] = None,
                         draws: Optional[Draws] = None,
+                        weight_scale: Optional[torch.Tensor] = None,
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Quantile-Huber loss (IS-weighted mean) + diagnostics; the graph runs
-    through the online pass on s only."""
+    through the online pass on s only.  ``weight_scale`` [B] multiplies the
+    IS weights (the clipped reuse ratio of passes 2..K)."""
     draws = draws or {}
     sel_taus, sel_noise = draws.get("select", (None, None))
     tgt_taus, tgt_noise = draws.get("target", (None, None))
     on_taus, on_noise = draws.get("online", (None, None))
+    game = batch.game
     with torch.no_grad():
-        # double-Q action selection: the online net picks a* on s' (K taus)
+        # double-Q action selection: the online net picks a* on s' (K taus),
+        # masked to each row's own game in a multi-game run
         a_star = state.net(batch.next_obs, cfg.num_quantile_samples, taus=sel_taus,
-                           generator=generator, noise=sel_noise).action
+                           generator=generator, noise=sel_noise, game=game).action
         # target distribution: the target net on s' at a*, N' taus
         z_next, _, _ = state.target.gather(batch.next_obs, cfg.num_tau_prime_samples, a_star,
-                                           taus=tgt_taus, generator=generator, noise=tgt_noise)
+                                           taus=tgt_taus, generator=generator, noise=tgt_noise,
+                                           game=game)
         td_target = batch.reward[:, None] + batch.discount[:, None] * z_next
     # online distribution at the taken action, N taus
     z_online, on_q, taus = state.net.gather(batch.obs, cfg.num_tau_samples, batch.action,
-                                            taus=on_taus, generator=generator, noise=on_noise)
+                                            taus=on_taus, generator=generator, noise=on_noise,
+                                            game=game)
     per_sample, td_abs = quantile_huber_loss(z_online, taus, td_target, cfg.kappa)
-    loss = torch.mean(batch.weight * per_sample)
+    weight = batch.weight if weight_scale is None else batch.weight * weight_scale
+    loss = torch.mean(weight * per_sample)
     aux = {
         "td_abs": td_abs,
         "loss_per_sample": per_sample.detach(),
@@ -189,19 +202,84 @@ def loss_and_priorities(cfg: Config, state: TrainState, batch: Batch,
     return loss, aux
 
 
+def make_policy_logp(cfg: Config):
+    """``logp(net, batch, taus, noise) -> [B]``: the detached log-prob of
+    each row's taken action under softmax of the tau-mean q at K =
+    ``cfg.num_quantile_samples`` taus (K4l; masked to each row's game on a
+    multi-game network), the value-based stand-in for IMPACT's pi(a|s).
+    Callers hand every call of one reuse step the same taus and noise, so two
+    calls with equal parameters give bitwise equal log-probs."""
+
+    def logp(net, batch: Batch, taus: torch.Tensor, noise) -> torch.Tensor:
+        return net.logp(batch.obs, cfg.num_quantile_samples, batch.action, taus=taus,
+                        noise=noise, game=batch.game)
+
+    return logp
+
+
+def make_reuse_learn_step(cfg: Config, pass_fn, logp_fn):
+    """Replay ratio K > 1: one call runs K passes of ``pass_fn`` on the same
+    batch (``rainbow_iqn_apex_tpu/ops/learn.py`` ``make_reuse_learn_step``).
+
+    The behaviour log-probs come from the state before pass 1, under one
+    draw of taus and noise (``draws["ratio"]``, else from the generator
+    first) that every logp call of the step shares.  Pass 1 is the plain
+    step; passes 2..K scale the IS weights by clip(exp(logp_now -
+    logp_behaviour), 1/c, c), c = ``cfg.reuse_clip``.  ``info`` is the last
+    pass's (its priorities are the write-back's) with ``finite`` the AND of
+    every pass's, ``clip_frac`` the mean share of clipped rows over passes
+    2..K, and the host ints ``replay_ratio`` = K and ``reuse_index`` = K - 1.
+    ``state.step`` advances K.  ``draws["passes"]`` (K learn-step draws)
+    replaces the passes' draws."""
+    reuse_k = int(cfg.replay_ratio)
+    clip_c = float(cfg.reuse_clip)
+
+    def learn_step(state: TrainState, batch: Batch,
+                   generator: Optional[torch.Generator] = None,
+                   draws: Optional[Dict[str, Any]] = None,
+                   ) -> Tuple[TrainState, Dict[str, Any]]:
+        draws = draws or {}
+        ratio_taus, ratio_noise = draws.get("ratio", (None, None))
+        if ratio_taus is None:
+            ratio_taus = torch.rand((batch.obs.shape[0], cfg.num_quantile_samples),
+                                    generator=generator, device=batch.obs.device)
+        if ratio_noise is None and state.net.use_noise:
+            ratio_noise = state.net.sample_noise(generator)
+        passes = draws.get("passes") or [None] * reuse_k
+        behav = logp_fn(state.net, batch, ratio_taus, ratio_noise)
+        state, info = pass_fn(state, batch, generator, passes[0])
+        finite, clip_sum = info["finite"], None
+        for p in range(1, reuse_k):
+            ratio = torch.exp(logp_fn(state.net, batch, ratio_taus, ratio_noise) - behav)
+            clipped = torch.clamp(ratio, 1.0 / clip_c, clip_c)
+            frac = (ratio != clipped).float().mean()
+            clip_sum = frac if clip_sum is None else clip_sum + frac
+            state, info = pass_fn(state, batch, generator, passes[p], clipped)
+            finite = finite & info["finite"]
+        info = dict(info)
+        info["finite"] = finite
+        info["clip_frac"] = clip_sum / max(reuse_k - 1, 1)
+        info["replay_ratio"] = reuse_k
+        info["reuse_index"] = reuse_k - 1
+        return state, info
+
+    return learn_step
+
+
 def build_learn_step(cfg: Config, num_actions: int):
     """The learn step ``(state, batch, generator=None, draws=None) -> (state,
-    info)``; ``state`` is updated in place and returned."""
+    info)``; ``state`` is updated in place and returned.  ``replay_ratio``
+    K > 1 wraps it in ``make_reuse_learn_step``."""
     check_supported(cfg)
     del num_actions  # the state's networks carry it
 
     def learn_step(state: TrainState, batch: Batch,
                    generator: Optional[torch.Generator] = None,
-                   draws: Optional[Draws] = None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        if batch.game is not None:
-            raise NotImplementedError("multi-game batches are not ported yet")
+                   draws: Optional[Draws] = None,
+                   weight_scale: Optional[torch.Tensor] = None,
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         params = list(state.net.parameters())
-        loss, aux = loss_and_priorities(cfg, state, batch, generator, draws)
+        loss, aux = loss_and_priorities(cfg, state, batch, generator, draws, weight_scale)
         # the conv weights' gradients come back channels-last; the fused
         # Adam reads each gradient in its parameter's (contiguous) layout
         grads = [g.contiguous() for g in torch.autograd.grad(loss, params)]
@@ -228,4 +306,6 @@ def build_learn_step(cfg: Config, num_actions: int):
         }
         return state, info
 
-    return learn_step
+    if int(cfg.replay_ratio) <= 1:
+        return learn_step
+    return make_reuse_learn_step(cfg, learn_step, make_policy_logp(cfg))

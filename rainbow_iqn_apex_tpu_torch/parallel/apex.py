@@ -25,12 +25,21 @@ and one device, ``architecture="iqn"``:
   actor-side initial priorities        n-step TD estimate from the actor's own
                                        Q outputs, no extra forward pass
 
+Multi-game (``games``, ``multitask/``): lane blocks pinned to games, the
+task-conditioned ``MultiGameIQN`` learner and actor (K2g, K4m; K4l under
+reuse), a ``MultiGameReplay`` of game-pinned shard blocks behind the
+interleave schedule, per-game ``eval`` rows with an ``eval_mt`` aggregate
+and a periodic ``games`` row.  Replay reuse (``replay_ratio`` K > 1): one
+sampled batch drives K learn passes (``ops.learn.make_reuse_learn_step``),
+the step counter jumps K per batch and cadences fire on crossings.
+
 Not ported, each raising NotImplementedError (ROADMAP.md): league
-membership (``league_dir``), multi-game (``games``), the cross-host replay
-plane (``replay_net_remote``), learner failover (``failover_standby``),
-``replay_ratio > 1`` (A4b), and more than one device or process (A13).
-The JAX loop logs a "notice" and falls back for some of these; the port
-refuses them.
+membership (``league_dir``), the cross-host replay plane
+(``replay_net_remote``), learner failover (``failover_standby``), more than
+one device or process (A13), and with ``games`` the quantized actors
+(``serve_quantize``) and the device frontier (``device_sampling``).  The JAX
+loop logs a "notice" and falls back for some of these; the port refuses
+them.
 
 Differences of form from the JAX loop:
 
@@ -99,7 +108,10 @@ from rainbow_iqn_apex_tpu_torch.utils.writeback import (
     RingCommitter,
     WritebackRing,
     cadence_hit,
+    check_reuse_cadences,
     pipeline_gauges,
+    reuse_health,
+    reuse_learn_row,
 )
 
 
@@ -147,11 +159,17 @@ class ActorPriorityEstimator:
 
 def check_apex(cfg: Config) -> None:
     """Raise for the parts of the JAX Ape-X loop the port does not run yet."""
-    check_supported(cfg)  # architecture "iqn", replay_ratio 1
+    check_supported(cfg)  # architecture "iqn"
     if cfg.league_dir or cfg.league_member_id >= 0:
         raise NotImplementedError("league membership (league_dir, A19) is not ported yet")
-    if cfg.games:
-        raise NotImplementedError("multi-game apex (games, A21) is not ported yet")
+    if cfg.games and cfg.serve_quantize != "off":
+        raise NotImplementedError(
+            "games with serve_quantize: the quantized multi-game actor needs the game "
+            "embedding in K10d and models/quantized.py (ROADMAP.md queue A)")
+    if cfg.games and cfg.device_sampling:
+        raise NotImplementedError(
+            "games with device_sampling: the device frontier's batches do not carry game "
+            "ids in the port yet (ROADMAP.md queue A)")
     if cfg.replay_net_remote:
         raise NotImplementedError("the cross-host replay plane (replay_net_remote) is not "
                                   "ported yet")
@@ -171,23 +189,41 @@ class ApexDriver(QuantPublishMixin):
     learn step in call order (the quantization gate has its own)."""
 
     def __init__(self, cfg: Config, num_actions: int,
-                 state_shape: Optional[Tuple[int, ...]] = None, device: DeviceLike = None):
+                 state_shape: Optional[Tuple[int, ...]] = None, device: DeviceLike = None,
+                 spec=None):
         self.cfg = cfg
         self.num_actions = num_actions
+        self.spec = spec  # multitask.MultiGameSpec: the task-conditioned mode
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # TF32 would round fp32 operands to 10 mantissa bits (as Agent does)
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        self.reuse_k = 1  # replay_ratio > 1 raises in check_supported
-        self.state = init_train_state(cfg, num_actions, cfg.seed, state_shape=state_shape,
-                                      device=self.device)
+        # replay reuse: one learn_batch call is K passes, so step advances K
+        self.reuse_k = max(int(cfg.replay_ratio), 1)
         self.generator = torch.Generator(device=self.device).manual_seed(int(cfg.seed))
-        self._learn = build_learn_step(cfg, num_actions)
-        self._act = build_act_step(cfg, num_actions, use_noise=True)
-        # the actor's own tensors: Adam updates the learner's in place
-        self.actor_net = load_network(cfg, num_actions, self.state.net.state_dict(),
-                                      self.device, use_noise=True, state_shape=state_shape)
+        self._lane_games: Optional[torch.Tensor] = None  # [L] int32, multi-game only
+        if spec is not None:
+            from rainbow_iqn_apex_tpu_torch.multitask.ops import (
+                build_mt_act_step,
+                build_mt_learn_step,
+                init_mt_train_state,
+                load_mt_network,
+            )
+
+            self.state = init_mt_train_state(cfg, spec, cfg.seed, device=self.device)
+            self._learn = build_mt_learn_step(cfg, spec)
+            self._act = build_mt_act_step(cfg, spec, use_noise=True)
+            self.actor_net = load_mt_network(cfg, spec, self.state.net.state_dict(),
+                                             self.device, use_noise=True)
+        else:
+            self.state = init_train_state(cfg, num_actions, cfg.seed, state_shape=state_shape,
+                                          device=self.device)
+            self._learn = build_learn_step(cfg, num_actions)
+            self._act = build_act_step(cfg, num_actions, use_noise=True)
+            # the actor's own tensors: Adam updates the learner's in place
+            self.actor_net = load_network(cfg, num_actions, self.state.net.state_dict(),
+                                          self.device, use_noise=True, state_shape=state_shape)
         self.actor_stack: Optional[torch.Tensor] = None  # made at the first act_frames
         self._init_quant_publish(cfg)
         self.weights_version = 0
@@ -219,12 +255,24 @@ class ApexDriver(QuantPublishMixin):
         load_host_state(self.state, state)
         self.generator.set_state(key)
 
+    # ------------------------------------------------------------- multi-game
+    def set_lane_games(self, games: np.ndarray) -> None:
+        """Multi-game mode: the [L] per-lane game ids every act call
+        conditions on (the lane order of ``multitask.build_game_lanes``)."""
+        self._lane_games = put_frames(np.asarray(games, np.int32), self.device)
+
+    @property
+    def _game_args(self) -> tuple:
+        """The act step's extra operand: the lane game ids in multi-game
+        mode, nothing otherwise."""
+        return () if self._lane_games is None else (self._lane_games,)
+
     # ----------------------------------------------------------------- compute
     def act_async(self, stacked_obs: np.ndarray, draws=None):
         """Act on a host [L, H, W, h] stack; returns device (actions, q)
         without waiting.  ``draws`` = (taus, noise) replaces the generator's."""
-        return self._act(self.actor, put_frames(stacked_obs, self.device), self.generator,
-                         *(draws or ()))
+        return self._act(self.actor, put_frames(stacked_obs, self.device), *self._game_args,
+                         self.generator, *(draws or ()))
 
     def act(self, stacked_obs: np.ndarray, draws=None) -> Tuple[np.ndarray, np.ndarray]:
         a, q = self.act_async(stacked_obs, draws)
@@ -242,7 +290,8 @@ class ApexDriver(QuantPublishMixin):
                                            dtype=torch.uint8, device=self.device)
         keep = put_frames((~np.asarray(prev_cuts, bool)).astype(np.uint8), self.device)
         shift_stack(self.actor_stack, put_frames(np.asarray(frames, np.uint8), self.device), keep)
-        a, q = self._act(self.actor, self.actor_stack, self.generator, *(draws or ()))
+        a, q = self._act(self.actor, self.actor_stack, *self._game_args, self.generator,
+                         *(draws or ()))
         with hostsync.sanctioned():  # the obligatory actor->env hand-off
             return hostsync.to_host(a), hostsync.to_host(q)
 
@@ -269,6 +318,24 @@ def _eval_learner(cfg: Config, env, driver: ApexDriver) -> Dict[str, Any]:
         return evaluate_state(cfg, env, driver.state, seed=cfg.seed + 977)
 
 
+def _eval_multigame(cfg: Config, spec, driver: ApexDriver, metrics, step: int,
+                    games_obs) -> Dict[str, Any]:
+    """Multi-game eval: one ``eval`` row per game (keyed by ``game``) and one
+    ``eval_mt`` row with the suite's human-normalized median and mean;
+    returns the flat aggregate for the run summary.  A drain-boundary sync."""
+    from rainbow_iqn_apex_tpu_torch.multitask.eval import evaluate_multigame
+
+    with hostsync.sanctioned():
+        res = evaluate_multigame(cfg, spec, driver.state, seed=cfg.seed + 977)
+    games_obs.note_eval(res)
+    for name, row in res["games"].items():
+        metrics.log("eval", step=step, game=name, **row)
+    metrics.log("eval_mt", step=step, score_mean=res["score_mean"],
+                hn_median=res["hn_median"], hn_mean=res["hn_mean"],
+                hn_games=res["hn_games"], games=len(res["games"]))
+    return {key: res[key] for key in ("score_mean", "hn_median", "hn_mean", "hn_games")}
+
+
 def train_apex(cfg: Config, max_frames: Optional[int] = None,
                device: DeviceLike = None) -> Dict[str, Any]:
     """The Ape-X loop on ``device`` (``cuda:0`` unless named); returns a
@@ -280,16 +347,28 @@ def train_apex(cfg: Config, max_frames: Optional[int] = None,
     plan = plan_hosts(cfg, lanes_total)
     lanes, lane_lo = plan.lanes, plan.lane_lo
     local_batch = plan.local_batch
-    # per-lane seeds are carved from the global lane space
-    env = make_vector_env(cfg.env_id, lanes, seed=cfg.seed + lane_lo, device=device)
+    # multi-game mode: per-game lane blocks, the task-conditioned learner,
+    # game-pinned replay shard blocks, per-game eval and obs rows
+    from rainbow_iqn_apex_tpu_torch.multitask.spec import MultiGameSpec
+
+    spec = MultiGameSpec.from_config(cfg, device=device)
+    games_obs = None
+    if spec is not None:
+        from rainbow_iqn_apex_tpu_torch.multitask.lanes import build_game_lanes, lane_games
+        from rainbow_iqn_apex_tpu_torch.multitask.obs import GamesObs
+
+        if lanes % spec.num_games:
+            raise ValueError(f"total lanes {lanes} must divide across {spec.num_games} games")
+        env = build_game_lanes(spec, lanes // spec.num_games, seed=cfg.seed + lane_lo,
+                               device=device)
+        games_obs = GamesObs(spec)
+    else:
+        # per-lane seeds are carved from the global lane space
+        env = make_vector_env(cfg.env_id, lanes, seed=cfg.seed + lane_lo, device=device)
     driver = ApexDriver(cfg, env.num_actions,
-                        state_shape=(*env.frame_shape, cfg.history_length), device=device)
-    shards = cfg.replay_shards
-    memory = ShardedReplay.build(
-        max(shards, 1),
-        cfg.memory_capacity,
-        lanes,
-        frame_shape=env.frame_shape,
+                        state_shape=(*env.frame_shape, cfg.history_length), device=device,
+                        spec=spec)
+    replay_kwargs = dict(
         history=cfg.history_length,
         n_step=cfg.multi_step,
         gamma=cfg.gamma,
@@ -298,6 +377,19 @@ def train_apex(cfg: Config, max_frames: Optional[int] = None,
         seed=cfg.seed + lane_lo,
         use_native=cfg.use_native_sumtree,
     )
+    if spec is not None:
+        from rainbow_iqn_apex_tpu_torch.multitask.replay import MultiGameReplay
+
+        driver.set_lane_games(lane_games(spec, lanes // spec.num_games))
+        # cfg.replay_shards is PER GAME: each game owns its shard block
+        shards = max(cfg.replay_shards, 1) * spec.num_games
+        memory = MultiGameReplay.build_games(
+            spec, max(cfg.replay_shards, 1), cfg.memory_capacity, lanes,
+            schedule=cfg.multitask_schedule, **replay_kwargs)
+    else:
+        shards = cfg.replay_shards
+        memory = ShardedReplay.build(max(shards, 1), cfg.memory_capacity, lanes,
+                                     frame_shape=env.frame_shape, **replay_kwargs)
     learn_start = cfg.learn_start
     from rainbow_iqn_apex_tpu_torch.train import priority_beta
 
@@ -325,6 +417,9 @@ def train_apex(cfg: Config, max_frames: Optional[int] = None,
             # every (re)start claims a fresh incarnation epoch
             epoch=next_lease_epoch(heartbeat_dir(cfg), cfg.process_id),
         )
+        if spec is not None:
+            # the lease carries the game set this host serves
+            heartbeat.update_payload(game=",".join(spec.games))
         heartbeat.set_weight_version(driver.weights_version)
         heartbeat.start()
         monitor = HeartbeatMonitor(heartbeat_dir(cfg), cfg.heartbeat_timeout_s,
@@ -387,7 +482,12 @@ def train_apex(cfg: Config, max_frames: Optional[int] = None,
                               on_drain=_reconcile if frontier is not None else None)
     last_scalars = committer.scalars  # newest RETIRED step's host scalars
     _commit, _drain = committer.commit, committer.drain
+    # replay reuse: one sampled batch drives K learn passes, so the step
+    # counter jumps K per batch, the sample trigger divides steps back into
+    # batches and cadences fire on crossings (cadence_hit)
     reuse_k = driver.reuse_k
+    check_reuse_cadences(cfg, "metrics_interval", "eval_interval", "checkpoint_interval",
+                         "guard_snapshot_interval", "weight_publish_interval")
 
     # device-resident stacking replaces the host FrameStacker (pipelined
     # mode keeps the host stacker: its one-tick lag would need a second
@@ -538,6 +638,7 @@ def train_apex(cfg: Config, max_frames: Optional[int] = None,
                             q_mean=last_scalars.get("q_mean", float("nan")),
                             mean_return=float(np.mean(returns)) if returns else float("nan"),
                             staleness=step - last_pub,
+                            **reuse_learn_row(reuse_k, last_scalars),
                         )
                         obs_run.periodic(
                             step,
@@ -549,9 +650,25 @@ def train_apex(cfg: Config, max_frames: Optional[int] = None,
                             weight_staleness=step - last_pub,
                             weights_version=driver.weights_version,
                             weight_version_lag=fence.lag,
-                            **pipeline_gauges(ring, obs_run.registry, frontier),
+                            **pipeline_gauges(ring, obs_run.registry, frontier,
+                                              reuse=reuse_health(reuse_k, last_scalars)),
                         )
-                        ptrace.emit_lag_row(step)
+                        if spec is not None:
+                            # per-game learn share, replay occupancy, latest eval
+                            metrics.log(
+                                "games", step=step, frames=frames,
+                                schedule=cfg.multitask_schedule,
+                                **games_obs.row(
+                                    learn_shares=memory.learn_shares(),
+                                    learn_rows=memory.learn_rows_by_game,
+                                    sampled_rows=memory.sampled_rows_by_game,
+                                    game_sizes=memory.game_sizes(),
+                                    game_occupancy=memory.game_occupancy(),
+                                    dead_games=memory.dead_games(),
+                                ),
+                            )
+                        ptrace.emit_lag_row(
+                            step, **({} if reuse_k == 1 else {"replay_ratio": reuse_k}))
                         if monitor is not None:
                             # host_dead / host_alive edges, once per lease epoch
                             dead, alive = monitor.poll()
@@ -564,7 +681,10 @@ def train_apex(cfg: Config, max_frames: Optional[int] = None,
                     if cadence_hit(step, cfg.eval_interval, reuse_k):
                         if not _drain():  # evaluate only verified params
                             continue
-                        metrics.log("eval", step=step, **_eval_learner(cfg, env, driver))
+                        if spec is not None:
+                            _eval_multigame(cfg, spec, driver, metrics, step, games_obs)
+                        else:
+                            metrics.log("eval", step=step, **_eval_learner(cfg, env, driver))
                     if cadence_hit(step, cfg.checkpoint_interval, reuse_k):
                         if not _drain():  # checkpoint only verified params
                             continue
@@ -583,8 +703,11 @@ def train_apex(cfg: Config, max_frames: Optional[int] = None,
         obs_run.close(driver.step, frames)
         if heartbeat is not None:
             heartbeat.stop()
-    final_eval = _eval_learner(cfg, env, driver)
-    metrics.log("eval", step=driver.step, **final_eval)
+    if spec is not None:
+        final_eval = _eval_multigame(cfg, spec, driver, metrics, driver.step, games_obs)
+    else:
+        final_eval = _eval_learner(cfg, env, driver)
+        metrics.log("eval", step=driver.step, **final_eval)
     sup.save_checkpoint(
         ckpt, driver.step, driver.state,
         {"frames": frames, "weights_version": driver.weights_version,

@@ -16,11 +16,14 @@ host or, with ``--device-sampling``, through the device sample frontier.
 ``--role anakin`` it runs ``train_anakin_r2d2.train_anakin_r2d2``: that
 learner with its sequence replay on the device, the envs on the host.
 
+``replay_ratio`` K > 1 (``--role single`` and ``--role apex``) drives K
+learn passes per sampled batch (``ops.learn.make_reuse_learn_step``);
+``games`` (``--role apex`` only) runs the multi-game Ape-X loop.
+
 Not ported (each raises NotImplementedError; ROADMAP.md lists them):
-league membership (``league_dir``), ``replay_ratio > 1``, ``obs_net``,
-``trace_dir`` device traces, multi-game ids, ``architecture='r2d2'`` with
-``--role apex``, and every role other than ``single``, ``anakin`` and
-``apex``.
+league membership (``league_dir``), ``obs_net``, ``trace_dir`` device
+traces, ``architecture='r2d2'`` with ``--role apex``, and every role other
+than ``single``, ``anakin`` and ``apex``.
 
 Run it as ``python -m rainbow_iqn_apex_tpu_torch.train --env-id toy:catch``
 (any Config field is a ``--flag``; ``--device cpu`` runs on the CPU, the
@@ -87,7 +90,8 @@ def check_single_role(cfg: Config) -> None:
     if cfg.league_dir or cfg.league_member_id >= 0:
         raise NotImplementedError("league membership (league_dir) is not ported yet")
     if cfg.games:
-        raise NotImplementedError("multi-game runs (games) are not ported yet")
+        raise NotImplementedError(
+            "multi-game runs (games) are ported for --role apex only")
 
 
 def train(cfg: Config, max_frames: Optional[int] = None,

@@ -57,7 +57,9 @@ class _Staged:
     """One in-flight step: its device->host copies and the event behind them."""
 
     def __init__(self, info: Dict[str, Any], materialize: bool = True):
-        tensors = {k: v.detach() for k, v in info.items()}
+        # host numbers (a reuse step's replay_ratio, reuse_index) need no copy
+        self.host = {k: v for k, v in info.items() if not torch.is_tensor(v)}
+        tensors = {k: v.detach() for k, v in info.items() if torch.is_tensor(v)}
         pri = tensors.pop("priorities")
         self.keys = sorted(k for k, v in tensors.items() if v.dim() == 0)
         scalars = (torch.stack([tensors[k].to(torch.float32) for k in self.keys])
@@ -85,7 +87,7 @@ class _Staged:
         with hostsync.sanctioned():
             if self.event is not None:
                 self.event.synchronize()
-            values = dict(zip(self.keys, self.scalars.tolist()))
+            values = {**dict(zip(self.keys, self.scalars.tolist())), **self.host}
             pri = (self.priorities.numpy().copy() if self.materialize_priorities
                    else self.priorities)
         finite = bool(values.pop("finite", 1.0))

@@ -322,8 +322,11 @@ def test_nan_step_rolls_back_with_the_frontier(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(league_dir="league"), dict(league_member_id=0), dict(games="toy:catch,toy:chain"),
-    dict(replay_net_remote=True), dict(failover_standby=True), dict(replay_ratio=2), dict(process_count=2), dict(learner_devices=1),
+    dict(league_dir="league"), dict(league_member_id=0),
+    dict(serve_quantize="int8", games="toy:catch,toy:chain"),
+    dict(replay_net_remote=True), dict(failover_standby=True),
+    dict(device_sampling=True, games="toy:catch,toy:chain"), dict(process_count=2),
+    dict(learner_devices=1),
     dict(architecture="r2d2"),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_options_raise(tmp_path, kw):

@@ -29,7 +29,12 @@ card: K7s bit-equal (ring rows [0, C), priorities, counters and each
 builder's valid prefix; byte and fp32 copies); K5s equal on dyadic
 priorities and a cold ring, and against an fp64 cdf within 1e-5 of the
 total at a boundary; K8s's gathers bit-equal, prob and weights 1e-6 relative
-(one division and powf against torch's); K6s 1e-6 relative (powf).
+(one division and powf against torch's); K6s 1e-6 relative (powf).  The
+multi-game modes: K2g's bf16 output 1e-2 abs/rel as K2's; K2g-bwd 4 bf16
+ulps (2^-6) of each element and of its output's largest (the CPU tests'
+bound for bf16 gradients: dphi sums products with psi, whose bf16 rounding
+can differ by an ulp under another fp32 order of the Dense product, and the
+sum can cancel); K4m and K4l 1e-5 (fp32).
 """
 
 import numpy as np
@@ -54,6 +59,8 @@ from rainbow_iqn_apex_tpu_torch.kernels.dueling_head import (
     dueling_gather_plain,
     dueling_head,
     dueling_head_plain,
+    dueling_logp,
+    dueling_logp_plain,
 )
 from rainbow_iqn_apex_tpu_torch.kernels.noisy_linear import (
     noisy_linear,
@@ -850,3 +857,64 @@ def test_k12_host_adapter_step_matches_twin(cuda, name):
             want.reward, want.terminal, want.truncated, want.info)
         if got.terminal or got.truncated:
             np.testing.assert_array_equal(card.reset(), cpu.reset())
+
+
+# -------------------- the multi-game modes: K2g, K2g-bwd, K4m, K4l (slice 9)
+def _mt_inputs(device, batch=6, n=4, feat=64, cos=16, games=3, actions=5):
+    r = _rng(41)
+    taus, w, b, phi = _k2_inputs(batch, n, feat, cos)
+    game = torch.from_numpy((np.arange(batch) % games).astype(np.int32)).to(device)
+    emb = _t(r.normal(0, 0.5, (games, feat))).to(device)
+    dh = _t(r.standard_normal((batch * n, feat)), torch.bfloat16).to(device)
+    k2 = (_t(taus).to(device), _t(w.T, torch.bfloat16).to(device), _t(b).to(device),
+          _t(phi, torch.bfloat16).to(device))
+    value = _t(r.standard_normal((batch * n, 1))).to(device)
+    adv = _t(r.standard_normal((batch * n, actions))).to(device)
+    mask = torch.ones((games, actions), dtype=torch.bool, device=device)
+    mask[1, 3:] = False
+    mask[2, 4:] = False
+    adv[n:2 * n, 4] += 8.0  # row 1 (game 1, 3 actions) prefers the pad slot 4 unmasked
+    take = torch.tensor([0, 2, 3, 1, 1, 0][:batch], dtype=torch.int32, device=device)
+    return k2, game, emb, dh, value, adv, mask, take
+
+
+def test_multigame_wrappers_run_plain_twins_on_cpu_without_counting():
+    before = dict(launches)
+    k2, game, emb, dh, value, adv, mask, take = _mt_inputs(torch.device("cpu"))
+    assert torch.equal(tau_embed(*k2, game, emb), tau_embed_plain(*k2, game, emb))
+    for got, want in zip(tau_embed_bwd(*k2, dh, game, emb), tau_embed_bwd_plain(*k2, dh, game, emb)):
+        assert torch.equal(got, want)
+    quantiles, q, action = dueling_head(value, adv, 4, game, mask)
+    assert action[1].item() < 3 and q[1, 4].item() == -1e9
+    assert dueling_head_plain(value, adv, 4)[2][1].item() == 4  # unmasked: the pad slot
+    logp, _ = dueling_logp(value, adv, 4, take, game, mask)
+    assert torch.equal(logp, dueling_logp_plain(value, adv, 4, take, game, mask)[0])
+    assert dict(launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n,feat", [(32, 64, 2304), (5, 3, 200)])
+def test_k2g_kernels_match_plain(cuda, batch, n, feat):
+    k2, game, emb, dh, *_ = _mt_inputs(cuda, batch, n, feat, 64, 4)
+    got = _counted("K2g_tau_embed_game", lambda: tau_embed(*k2, game, emb))
+    torch.testing.assert_close(got.float(), tau_embed_plain(*k2, game, emb).float(), **BF16)
+    got = _counted("K2g_tau_embed_game_bwd", lambda: tau_embed_bwd(*k2, dh, game, emb))
+    want = tau_embed_bwd_plain(*k2, dh, game, emb)
+    for g, w in zip(got, want):  # 4 bf16 ulps of the element and of the largest element
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), atol=2 ** -6 * scale, rtol=2 ** -6)
+
+
+@pytest.mark.cuda
+def test_k4m_and_k4l_kernels_match_plain(cuda):
+    _, game, _, _, value, adv, mask, take = _mt_inputs(cuda)
+    got = _counted("K4m_dueling_head_mask", lambda: dueling_head(value, adv, 4, game, mask))
+    want = dueling_head_plain(value, adv, 4, game, mask)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **FP32)
+    assert got[2][1].item() < 3
+    for margs in ((game, mask), ()):
+        got = _counted("K4l_dueling_head_logp", lambda: dueling_logp(value, adv, 4, take, *margs))
+        for g, w in zip(got, dueling_logp_plain(value, adv, 4, take, *margs)):
+            torch.testing.assert_close(g, w, **FP32)
+        assert torch.equal(dueling_logp(value, adv, 4, take, *margs)[0], got[0])

@@ -506,7 +506,8 @@ def test_train_state_round_trip_is_exact():
 
 
 def test_unported_options_raise():
-    for kw in (dict(replay_ratio=2), dict(architecture="r2d2")):
-        _, pcfg = _cfgs(**kw)
-        with pytest.raises(NotImplementedError):
-            plearn.build_learn_step(pcfg, A)
+    _, pcfg = _cfgs(architecture="r2d2")
+    with pytest.raises(NotImplementedError):
+        plearn.build_learn_step(pcfg, A)
+    with pytest.raises(NotImplementedError):
+        plearn.init_train_state(pcfg, A, seed=0, state_shape=SHAPE, device="cpu")

@@ -161,10 +161,11 @@ def test_prefetcher_batches_see_exactly_the_writes_before_their_request():
     assert seen == [(0, 0), (0, 0)] + [(j, j) for j in range(22)]
 
 
-@pytest.mark.parametrize("kw", [dict(role="standby"), dict(league_dir="x"), dict(replay_ratio=2),
+@pytest.mark.parametrize("kw", [dict(role="standby"), dict(league_dir="x"),
+                                dict(games="toy:catch,toy:chain"),
                                 dict(architecture="r2d2", role="apex"), dict(trace_dir="t"),
                                 dict(obs_net=True)],
-                         ids=["role", "league", "reuse", "r2d2", "trace_dir", "obs_net"])
+                         ids=["role", "league", "games", "r2d2", "trace_dir", "obs_net"])
 def test_unported_parts_raise(tmp_path, kw):
     with pytest.raises(NotImplementedError):
         train(_cfg(tmp_path, **kw), max_frames=8, device="cpu")
