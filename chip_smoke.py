@@ -11,7 +11,10 @@ and runs every phase, in this order:
 - ``kernels``: the serving kernels (K2, K3, K4) against their plain PyTorch
   twins at the full-width serving shapes (bucket 64, K = 32 taus, F = 3136,
   hidden 512, 18 actions, bf16), timed beside the twin, the bound and the
-  nearest single PyTorch call;
+  nearest single PyTorch call (noisy K3: two ``F.linear`` calls and the
+  scale), then K3 at each other main-path shape (``K3_EXTRA_SHAPES``: M 512
+  and 1024, the jaxgame F 2304, the R2D2 head), one line per layer and mode,
+  and the host time of one K3 call;
 - ``serve``: the port's ``PolicyServer`` from ``configs/serve_defaults.json``
   with seeded random weights, 512 requests from 8 client threads, launch
   counters that prove the path went through every serving kernel, a
@@ -19,7 +22,9 @@ and runs every phase, in this order:
   weight hot-swap and a draining stop;
 - ``kernels_learn``: the learner's kernels (K1, K2-bwd, K3-bwd, K4 gather,
   K4-bwd) against their twins at the learner's full-width shapes (B 32,
-  N 64), timed the same way;
+  N 64), timed the same way; K3-bwd also at ``K3_EXTRA_SHAPES`` with M >= 512,
+  held bit-equal on a repeat of the same call, beside the floor of its hi / lo
+  split, and the host time of one K3-bwd call;
 - ``learn``: 200 full-width learn steps from
   ``configs/reference_atari_defaults.json`` (synthetic frames) through the
   port's ``Agent``, ``PrioritizedReplay`` and write-back ring under
@@ -184,6 +189,19 @@ K1_TOL = dict(atol=1e-5, rtol=1e-5)  # fp32 loss, td and gradient, summation ord
 K1_OPS_PER_PAIR = 16  # flops per (i, j) pair in the loss, |u|, weight and gradient
 K2B_TOL = dict(atol=1e-2, rtol=1e-2)  # bf16 results of fp32 sums in another order: ~1 ulp
 K3B_TOL = dict(atol=1e-2, rtol=1e-2)  # bf16 dx / dW (fp32 sums, split dy); db fp32
+# K3's other main-path shapes (layer, M, K, N, ReLU), beside bucket 64's: the
+# act tick (16 lanes x 32 taus) and the learner's online pass at s' (K 32) on
+# F 3136, the jaxgame trunk (F 2304) at M 2048 and 512, and the R2D2 head over
+# B x T = 32 x 80 rows and at a 16-lane tick; K3-bwd takes those with M >= 512
+K3_EXTRA_SHAPES = (("hidden", 512, 3136, 512, True), ("value_out", 512, 512, 1, False),
+                   ("advantage_out", 512, 512, 18, False), ("hidden", 1024, 3136, 512, True),
+                   ("value_out", 1024, 512, 1, False), ("advantage_out", 1024, 512, 18, False),
+                   ("hidden_jaxgame", 2048, 2304, 512, True),
+                   ("hidden_jaxgame", 512, 2304, 512, True),
+                   ("r2d2_hidden", 2560, 512, 512, True), ("r2d2_hidden", 16, 512, 512, True),
+                   ("r2d2_advantage_out", 2560, 512, 18, False))
+HOST_CALLS = 100  # eager calls per host-time reading
+HOST_ROUNDS = 5  # readings per host time (median reported)
 K4B_TOL = dict(atol=1e-6, rtol=1e-6)  # fp32, one product and one subtraction per element
 # K2g-bwd: the CPU tests' bound for bf16 gradients, 4 bf16 ulps (2^-6) of each
 # element and of the output's largest element: dphi sums 64 products of dh and
@@ -374,6 +392,22 @@ def time_ms(torch, fn, graph: bool = True, reps: int = REPS) -> float:
     return times[len(times) // 2]
 
 
+def host_us(torch, fn) -> float:
+    """Host time of one wrapper call in us: the median over HOST_ROUNDS of
+    HOST_CALLS eager calls enqueued back to back on the host clock, each
+    round followed by a sync that is not timed."""
+    fn()
+    torch.cuda.synchronize()
+    rounds = []
+    for _ in range(HOST_ROUNDS):
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        rounds.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+        torch.cuda.synchronize()
+    return sorted(rounds)[HOST_ROUNDS // 2]
+
+
 def bound_ms(nbytes: float, ops: float, peak: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -391,7 +425,11 @@ def errors(torch, got, want, tol):
 def phase_kernels(torch, cfg):
     """Each kernel against its plain twin at the bucket-64 full-width shapes."""
     from rainbow_iqn_apex_tpu_torch.kernels.dueling_head import dueling_head, dueling_head_plain
-    from rainbow_iqn_apex_tpu_torch.kernels.noisy_linear import noisy_linear, noisy_linear_plain
+    from rainbow_iqn_apex_tpu_torch.kernels.noisy_linear import (
+        forward_plan,
+        noisy_linear,
+        noisy_linear_plain,
+    )
     from rainbow_iqn_apex_tpu_torch.kernels.tau_embed import tau_embed, tau_embed_plain
     from rainbow_iqn_apex_tpu_torch.models.layers import _f, trunk_features
 
@@ -426,48 +464,79 @@ def phase_kernels(torch, cfg):
     results["K2_tau_embed"] = dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms,
                                    bound_ms=bms, bound_by=by, library_ms=None)
 
-    # K3: every (N, noise, ReLU) the serving path can ask for -------------
+    # K3: every (N, noise, ReLU) the serving path can ask for, then each other
+    # main-path shape (K3_EXTRA_SHAPES) in both modes ------------------------
     x_hidden = randn(m, feat, dtype=bf)
     x_out = randn(m, hidden).relu().to(bf)
-    layers = {}
-    for n, x in ((hidden, x_hidden), (actions, x_out), (1, x_out)):
+
+    def k3_layer(x, n):
         k = x.shape[1]
-        layers[n] = dict(
-            x=x, w_mu=randn(n, k, scale=k ** -0.5, dtype=bf), b_mu=randn(n, scale=0.1),
-            w_sigma=(randn(n, k).abs() * 0.5 * k ** -0.5).to(bf),
-            b_sigma=randn(n).abs() * 0.5 * k ** -0.5,
-            f_in=_f(randn(k)), f_out=_f(randn(n)))
+        return dict(x=x, w_mu=randn(n, k, scale=k ** -0.5, dtype=bf), b_mu=randn(n, scale=0.1),
+                    w_sigma=(randn(n, k).abs() * 0.5 * k ** -0.5).to(bf),
+                    b_sigma=randn(n).abs() * 0.5 * k ** -0.5, f_in=_f(randn(k)), f_out=_f(randn(n)))
+
+    def k3_case(p, layer, noisy, relu):
+        x = p["x"]
+        rows, k = x.shape
+        n = p["w_mu"].shape[0]
+        a = [x, p["w_mu"], p["b_mu"]]
+        if noisy:
+            a += [p["w_sigma"], p["b_sigma"], p["f_in"], p["f_out"]]
+        got = noisy_linear(*a, relu=relu)
+        want = noisy_linear_plain(*a, relu=relu)
+        torch.cuda.synchronize()
+        max_abs, max_rel, ok = errors(torch, got, want, K3_TOL)
+        products = 2 if noisy else 1
+        nbytes = (rows * k * 2 + products * n * k * 2 + products * n * 4 + rows * n * 4
+                  + (k * 4 + n * 4 if noisy else 0))
+        bms, by = bound_ms(nbytes, products * 2 * rows * n * k, BF16_FLOPS)
+        k_ms = time_ms(torch, lambda: noisy_linear(*a, relu=relu))
+        p_ms = time_ms(torch, lambda: noisy_linear_plain(*a, relu=relu))
+        if noisy:  # two calls and the scale; x * f_in formed outside the timing
+            xe, b_bf = x * p["f_in"].to(bf), (p["b_mu"] + p["b_sigma"] * p["f_out"]).to(bf)
+            fo_bf, w_sg = p["f_out"].to(bf), p["w_sigma"]
+            lib = "F.linear(x, W_mu, b) + F.linear(x * f_in, W_sigma) * f_out (two calls)"
+
+            def lib_fn():
+                return torch.addcmul(torch.nn.functional.linear(x, p["w_mu"], b_bf),
+                                     torch.nn.functional.linear(xe, w_sg), fo_bf)
+        else:
+            b_bf, lib = p["b_mu"].to(bf), "F.linear"
+
+            def lib_fn():
+                return torch.nn.functional.linear(x, p["w_mu"], b_bf)
+        lib_ms = time_ms(torch, lib_fn)
+        emit({"phase": "kernels", "kernel": "K3_noisy_linear", "layer": layer,
+              "shape": [rows, k, n], "noisy": noisy, "relu": relu, "path": forward_plan(rows, n),
+              "max_abs_err": max_abs, "max_rel_err": max_rel, "tol": K3_TOL, "ok": ok,
+              "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "library": lib,
+              "bound_ms": bms, "bound_by": by})
+        check(ok, f"K3 ({layer} {[rows, k, n]}, noisy={noisy}, relu={relu}) disagrees: "
+              f"max abs {max_abs}")
+        return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                    max_abs_err=max_abs)
+
+    layers = {hidden: ("hidden", k3_layer(x_hidden, hidden)),
+              actions: ("advantage_out", k3_layer(x_out, actions)),
+              1: ("value_out", k3_layer(x_out, 1))}
     k3 = {}
-    k3_max_abs = 0.0
-    for n, p in layers.items():
-        k = p["x"].shape[1]
+    for n, (layer, p) in layers.items():
         for noisy in (False, True):
             for relu in (False, True):
-                a = [p["x"], p["w_mu"], p["b_mu"]]
-                if noisy:
-                    a += [p["w_sigma"], p["b_sigma"], p["f_in"], p["f_out"]]
-                got = noisy_linear(*a, relu=relu)
-                want = noisy_linear_plain(*a, relu=relu)
-                torch.cuda.synchronize()
-                max_abs, max_rel, ok = errors(torch, got, want, K3_TOL)
-                k3_max_abs = max(k3_max_abs, max_abs)
-                products = 2 if noisy else 1
-                nbytes = (m * k * 2 + products * n * k * 2 + products * n * 4 + m * n * 4
-                          + (k * 4 + n * 4 if noisy else 0))
-                bms, by = bound_ms(nbytes, products * 2 * m * n * k, BF16_FLOPS)
-                k_ms = time_ms(torch, lambda: noisy_linear(*a, relu=relu))
-                p_ms = time_ms(torch, lambda: noisy_linear_plain(*a, relu=relu))
-                lib_ms = None
-                if not noisy:
-                    b_bf = p["b_mu"].to(bf)
-                    lib_ms = time_ms(torch, lambda: torch.nn.functional.linear(p["x"], p["w_mu"], b_bf))
-                emit({"phase": "kernels", "kernel": "K3_noisy_linear", "shape": [m, k, n],
-                      "noisy": noisy, "relu": relu, "max_abs_err": max_abs,
-                      "max_rel_err": max_rel, "tol": K3_TOL, "ok": ok, "kernel_ms": k_ms,
-                      "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": bms, "bound_by": by})
-                check(ok, f"K3 (N={n}, noisy={noisy}, relu={relu}) disagrees: max abs {max_abs}")
-                k3[(n, noisy, relu)] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                                            bound_ms=bms, bound_by=by)
+                k3[(n, noisy, relu)] = k3_case(p, layer, noisy, relu)
+    for layer, rows, k, n, relu in K3_EXTRA_SHAPES:
+        x = randn(rows, k).relu().to(bf) if k <= hidden else randn(rows, k, dtype=bf)
+        p = k3_layer(x, n)
+        for noisy in (False, True):
+            k3[(layer, rows, noisy)] = k3_case(p, layer, noisy, relu)
+    for noisy in (False, True):  # the wrapper's host time per call (launch plan, maps, ctypes)
+        p = layers[hidden][1]
+        a = [p["x"], p["w_mu"], p["b_mu"]] + (
+            [p["w_sigma"], p["b_sigma"], p["f_in"], p["f_out"]] if noisy else [])
+        emit({"phase": "kernels", "kernel": "K3_noisy_linear", "noisy": noisy,
+              "shape": [m, feat, hidden],
+              "host_us_per_call": host_us(torch, lambda: noisy_linear(*a, relu=True))})
+    k3_max_abs = max(c["max_abs_err"] for c in k3.values())
     # the greedy main path per dispatch: two hidden layers (ReLU), value_out, advantage_out
     path = [k3[(hidden, False, True)], k3[(hidden, False, True)],
             k3[(1, False, False)], k3[(actions, False, False)]]
@@ -515,6 +584,7 @@ def phase_kernels_learn(torch, cfg):
         dueling_gather_plain,
     )
     from rainbow_iqn_apex_tpu_torch.kernels.noisy_linear import (
+        backward_plan,
         noisy_linear_bwd,
         noisy_linear_bwd_plain,
         noisy_linear_plain,
@@ -608,19 +678,21 @@ def phase_kernels_learn(torch, cfg):
                 + batch * feat * 2 + feat * cos_n * 2 + feat * 4),
         ops=2 * 2 * m * feat * cos_n, peak=BF16_FLOPS)
 
-    # K3-bwd: the learner's noisy layers ------------------------------------
+    # K3-bwd: the learner's noisy layers, then K3's other main-path shapes ----
     k3 = {}
     k3_max_abs = 0.0
     x_hidden = randn(m, feat, dtype=bf)
     x_out = randn(m, hidden).relu().to(bf)
-    for name, x, n_out, relu in (("hidden", x_hidden, hidden, True),
-                                 ("value_out", x_out, 1, False),
-                                 ("advantage_out", x_out, actions, False)):
-        k = x.shape[1]
+    cases = [("hidden", x_hidden, hidden, True), ("value_out", x_out, 1, False),
+             ("advantage_out", x_out, actions, False)]
+    cases += [(layer, randn(rows, k).relu().to(bf) if k <= hidden else randn(rows, k, dtype=bf),
+               n_out, relu) for layer, rows, k, n_out, relu in K3_EXTRA_SHAPES if rows >= 512]
+    for name, x, n_out, relu in cases:
+        rows, k = x.shape
         w_mu = randn(n_out, k, scale=k ** -0.5, dtype=bf)
         w_sigma = (randn(n_out, k).abs() * 0.5 * k ** -0.5).to(bf)
         f_in, f_out = _f(randn(k)), _f(randn(n_out))
-        g = randn(m, n_out)
+        g = randn(rows, n_out)
         y = noisy_linear_plain(x, w_mu, randn(n_out, scale=0.1), w_sigma,
                                randn(n_out).abs() * 0.5 * k ** -0.5, f_in, f_out,
                                relu=True) if relu else None
@@ -634,21 +706,35 @@ def phase_kernels_learn(torch, cfg):
             torch.matmul(g_b.t(), x)
             torch.matmul(dys_b.t(), xe)
 
+        plan = backward_plan(rows, n_out, k, True)
+        # no atomics: a repeat of the same call gives the same bits
+        first, second = noisy_linear_bwd(*args), noisy_linear_bwd(*args)
+        torch.cuda.synchronize()
+        repeat_equal = all(torch.equal(u, v) for u, v in zip(first, second))
+        ops = 4 * 2 * rows * n_out * k
         res = report(
-            "K3_noisy_linear_bwd", [m, k, n_out], K3B_TOL,
+            "K3_noisy_linear_bwd", [rows, k, n_out], K3B_TOL,
             lambda: noisy_linear_bwd(*args), lambda: noisy_linear_bwd_plain(*args), lib,
-            nbytes=(m * n_out * 4 * (2 if relu else 1) + m * k * 2 + 2 * n_out * k * 2
-                    + (k + n_out) * 4 + m * k * 2 + 2 * n_out * k * 2 + 2 * n_out * 4),
-            ops=4 * 2 * m * n_out * k, peak=BF16_FLOPS,
-            extra={"layer": name, "noisy": True, "relu": relu})
+            nbytes=(rows * n_out * 4 * (2 if relu else 1) + rows * k * 2 + 2 * n_out * k * 2
+                    + (k + n_out) * 4 + rows * k * 2 + 2 * n_out * k * 2 + 2 * n_out * 4),
+            ops=ops, peak=BF16_FLOPS,
+            extra={"layer": name, "noisy": True, "relu": relu, "bn_w": plan.bn_w,
+                   "splits": plan.splits, "repeat_bit_equal": repeat_equal,
+                   # the hi / lo split's floor: twice the products at the card's peak
+                   "split_floor_ms": 2 * ops / BF16_FLOPS * 1e3})
+        check(repeat_equal, f"K3-bwd ({name} {[rows, k, n_out]}) differs on a repeat")
         k3_max_abs = max(k3_max_abs, res["max_abs_err"])
-        k3[name] = res
+        k3[(name, rows)] = res
+    host_args = (randn(m, hidden), None, x_hidden, randn(hidden, feat, dtype=bf),
+                 randn(hidden, feat, dtype=bf), _f(randn(feat)), _f(randn(hidden)))
+    emit({"phase": "kernels_learn", "kernel": "K3_noisy_linear_bwd", "shape": [m, feat, hidden],
+          "host_us_per_call": host_us(torch, lambda: noisy_linear_bwd(*host_args))})
     # one learn step runs it on two hidden layers and the two out layers
-    path = [k3["hidden"], k3["hidden"], k3["value_out"], k3["advantage_out"]]
+    path = [k3[("hidden", m)], k3[("hidden", m)], k3[("value_out", m)], k3[("advantage_out", m)]]
     results["K3_noisy_linear_bwd"] = dict(
         max_abs_err=k3_max_abs,
         **{key: sum(c[key] for c in path) for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
-        bound_by=k3["hidden"]["bound_by"])
+        bound_by=k3[("hidden", m)]["bound_by"])
 
     # K4: gather mode (checked here, timed in K4's row) and K4-bwd -------------
     value, adv = randn(m, 1), randn(m, actions)
@@ -812,6 +898,7 @@ def profile_learn(torch, agent, prefetcher, ring, committer):
           "wall_us_per_step": wall_us / PROFILE_STEPS,
           "device_us_per_step": device_us / PROFILE_STEPS if rows else "not measured",
           "device_idle_share": 1.0 - device_us / wall_us if rows else "not measured",
+          **k3_fields(rows),
           "top": [{"name": k[:80], "us_per_step": t / PROFILE_STEPS, "calls_per_step": c / PROFILE_STEPS}
                   for k, t, c in rows[:15]]})
 
@@ -1359,6 +1446,7 @@ def profile_anakin(torch, fused, ts, ds, gen, beta):
           "wall_us_per_step": wall_us / PROFILE_STEPS,
           "device_us_per_step": device_us / PROFILE_STEPS if rows else "not measured",
           "device_idle_share": 1.0 - device_us / wall_us if rows else "not measured",
+          **k3_fields(rows),
           "top": [{"name": k[:80], "us_per_step": t / PROFILE_STEPS,
                    "calls_per_step": c / PROFILE_STEPS} for k, t, c in rows[:15]]})
 
@@ -1771,6 +1859,7 @@ def profile_apex(torch, driver, feed, ring, committer, tick, per_tick):
           "wall_us_per_step": wall_us / PROFILE_STEPS,
           "device_us_per_step": device_us / PROFILE_STEPS if rows else "not measured",
           "device_idle_share": 1.0 - device_us / wall_us if rows else "not measured",
+          **k3_fields(rows),
           "top": [{"name": k[:80], "us_per_step": t / PROFILE_STEPS,
                    "calls_per_step": c / PROFILE_STEPS} for k, t, c in rows[:15]]})
 
@@ -2536,6 +2625,7 @@ def profile_r2d2(torch, one_step):
           "device_us_per_step": device_us / R2D2_PROFILE_STEPS if rows else "not measured",
           "device_busy_share": device_us / wall_us if rows else "not measured",
           "device_idle_share": 1.0 - device_us / wall_us if rows else "not measured",
+          **k3_fields(rows),
           "top": [{"name": k[:80], "us_per_step": t / R2D2_PROFILE_STEPS,
                    "calls_per_step": c / R2D2_PROFILE_STEPS} for k, t, c in rows[:15]]})
 
@@ -3060,6 +3150,7 @@ def profile_anakin_r2d2(torch, fused, ts, ss, gen, beta):
           "device_us_per_step": device_us / n if rows else "not measured",
           "device_busy_share": device_us / wall_us if rows else "not measured",
           "device_idle_share": 1.0 - device_us / wall_us if rows else "not measured",
+          **k3_fields(rows),
           "top": [{"name": k[:80], "us_per_step": t / n, "calls_per_step": c / n}
                   for k, t, c in rows[:15]]})
 
@@ -3420,6 +3511,7 @@ def profile_fused(torch, segment, carry, key, gen):
           "device_us_per_segment": device_us if rows else "not measured",
           "device_busy_share": device_us / wall_us if rows else "not measured",
           "device_idle_share": 1.0 - device_us / wall_us if rows else "not measured",
+          **k3_fields(rows),
           "top": [{"name": k[:80], "us_per_segment": t, "calls": c} for k, t, c in rows[:15]]})
 
 
@@ -3872,6 +3964,7 @@ def phase_apex_mt(torch, cfg):
           "learn_share": shares, "replay_occupancy": occupancy,
           "clip_frac": [r.get("clip_frac") for r in learn_rows],
           "device_idle_share": idle if idle is not None else "not measured",
+          **k3_fields(prof_rows),
           "profile_ticks": MT_PROFILE_TICKS, "peak_memory_allocated": peak,
           "launches": counts, "launches_per_batch": MT_PER_BATCH, "launches_per_act": MT_PER_ACT,
           "batch_launch_mismatches": rec["batch_launch_bad"][:3],
@@ -4126,6 +4219,18 @@ def phase_train_apex_mt(torch):
     check(reuse_ok, "train_apex_mt: the multi-game reuse run failed its assertions")
 
 
+def k3_fields(rows):
+    """K3's and K3-bwd's device time among profile rows (name, us, calls):
+    each share of the window's device time, and the window's total us.  The
+    kernels are named k3_* (csrc/noisy_linear.cu) and k3b_* (its backward)."""
+    busy = sum(t for _, t, _ in rows)
+    fwd = sum(t for k, t, _ in rows if "k3_wide_kernel" in k or "k3_narrow_kernel" in k)
+    bwd = sum(t for k, t, _ in rows if "k3b_" in k)
+    return {"k3_device_us": fwd, "k3_bwd_device_us": bwd,
+            "k3_share_of_device": fwd / busy if busy else None,
+            "k3_bwd_share_of_device": bwd / busy if busy else None}
+
+
 def device_rows(torch, prof):
     """(name, device us, calls) of the device-side events: kernels and
     copies.  CPU-side op rows carry the same device time again, and user
@@ -4155,6 +4260,7 @@ def profile_dispatch(torch, engine, obs, dispatches=20):
           "wall_us_per_dispatch": wall_us / dispatches,
           "device_us_per_dispatch": device_us / dispatches if rows else "not measured",
           "device_idle_share": 1.0 - device_us / wall_us if rows else "not measured",
+          **k3_fields(rows),
           "top": [{"name": k[:80], "us_per_dispatch": t / dispatches, "calls": c}
                   for k, t, c in rows[:10]]})
 

@@ -23,348 +23,402 @@
 // far below the final bf16 rounding (2^-9), where a single bf16 dy would
 // add an error as large as that final rounding.
 //
-// Bound on the H100: for a noisy hidden layer of the learner (M = 2048,
-// K = 3136, N = 512) the function is four products of 2*M*N*K = 6.6 GFLOP,
-// 26 GFLOP, ~27 us of bf16 tensor-core time against ~25 MB of operands
-// (~8 us): compute-bound.  The split doubles the tensor-core work to 53 GFLOP.
-// The *_out layers (N = 1, 18) are launch-bound.  Design: three launches.
-//   1. prep: one pass over g forms the masked dy and dys and writes their bf16
-//      halves, zero-padded to N8 = roundup(N, 8) columns so every operand row is
-//      16-byte aligned.
-//   2. dx: a tiled tensor-core GEMM over (M, K) with depth N: the dy halves are
-//      the A operand, W_mu / W_sigma [N, K] the B operand read along its rows;
-//      the epilogue forms dxc with the bf16 rounding points above.
-//   3. dW: a tiled tensor-core GEMM over (N, K) with depth M: the dy halves read
-//      transposed are the A operand, xc [M, K] the B operand, and in noisy mode
-//      xc * f_in is formed in shared memory from the xc tile already there.  The
-//      blocks of the first K tile also sum dy over M for db.  Each output
-//      element's whole depth is one block's loop, so there is no cross-block
-//      reduction and no atomic: the same result on every run.
-// Both GEMMs stream their tiles through a 3-stage cp.async ring (as K3's
-// forward does) into 16x16x16 bf16 wmma with fp32 accumulators.  Not yet
-// wgmma/TMA.
-#include <mma.h>
-
+// Bound on the H100 (989 TFLOP/s bf16, 3.35 TB/s): a noisy hidden layer of the
+// learner (M 2048, K 3136, N 512) is four products of 2 M N K = 6.6 GFLOP,
+// 26 us, against ~25 MB of operands (7.5 us): operation-bound.  The split
+// doubles the tensor work to eight products, 53 us: the floor of this design.
+// The *_out layers (N 1, 18; K 512) move ~2 MB of xc and dxc each (~1.3 us),
+// far above their operations.
+//
+// Design: four launches, one count.
+//   1. prep: 32 x 32 tiles of g (and y) form the masked dy and dys, write
+//      their bf16 halves both as planes P [M, N8] (depth n along the row, for
+//      dx) and transposed as PT [N8, MP] (depth m along the row, for dW;
+//      N8 = roundup(N, 8), MP = roundup(M, 8), the pads zero), and sum each
+//      tile's 32 rows of dy per column into dbp [MP / 32, N].
+//   2. dx and 3. dW: one warp-specialised wgmma GEMM, both written transposed
+//      so that the dy planes are the B operand and the bf16 matrix the A
+//      operand:  out^T[k, j] = sum_d A[d, k] * B[j, d].
+//        dx:  A = W_mu / W_sigma [N, K] (d = n),  B = P rows m,  out dxc [M, K]
+//        dW:  A = xc [M, K] (d = m),              B = PT rows n, out dW [N, K]
+//      One CTA per output tile.  A producer warp streams a ring of TMA boxes
+//      (64 k x 64 d of each A source per consumer warpgroup, BN j x 64 d of
+//      each plane), 128-byte swizzled, completing on mbarriers.  Two consumer
+//      warpgroups own 64 rows k each: per k16 step a warp ldmatrix.trans-loads
+//      its A fragment (the tile's rows run along d) and issues wgmma.m64nBNk16
+//      with A in registers against the hi and the lo plane.  dW_sigma's
+//      operand bf16(xc * f_in) is that fragment times bf16(f_in[k]) for the
+//      warp's rows k, one bf16x2 multiply in registers; nothing is formed in
+//      shared memory.  dx's epilogue rounds as above; dW's writes bf16 when
+//      the depth is whole.  The depth of dW (M) is split into S chunks when
+//      the (k, n) tiles alone leave the card idle (the *_out layers: 4 tiles,
+//      S 32; the R2D2 head's 512 x 512 over 2560 rows: 32 tiles, S 5): each
+//      chunk writes fp32 partials.  A persistent grid (one CTA per SM walking
+//      the tiles, the ring running on across them) measured 2 % slower.
+//   4. finalize: the partials summed in chunk order and rounded to bf16 once,
+//      db_mu summed from dbp in chunk order, db_sigma = f_out * db_mu.
+// No atomics anywhere: the result is the same on every run.  The launch plan
+// (dW's BN and S, the workspace sizes) is kernels/noisy_linear.py's.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using namespace hopper;
 
-constexpr int BM = 128;  // rows of the output tile
-constexpr int BN = 64;   // columns of the output tile
-constexpr int BR = 32;   // depth of one pipeline stage
-constexpr int STAGES = 3;
-constexpr int THREADS = 128;
-constexpr int LDA = BR + 8;   // A tile [BM][LDA] (dx: rows m, depth n)
-constexpr int LDAT = BM + 8;  // A tile [BR][LDAT] (dW: depth m, rows n)
-constexpr int LDB = BN + 8;   // B tile [BR][LDB]
-constexpr int LDC = BN + 4;   // fp32 epilogue tile [BM][LDC]
-constexpr int A_TILE = BM * LDA > BR * LDAT ? BM * LDA : BR * LDAT;  // elements
-constexpr int B_TILE = BR * LDB;
-constexpr int STAGE = 4 * A_TILE + 2 * B_TILE;  // hi | lo | s_hi | s_lo | B0 | B1
-constexpr int PIPE_BYTES = (STAGES * STAGE + B_TILE) * (int)sizeof(__nv_bfloat16);
-constexpr int EPI_BYTES = 2 * BM * LDC * (int)sizeof(float);
-constexpr int SMEM_BYTES = PIPE_BYTES > EPI_BYTES ? PIPE_BYTES : EPI_BYTES;
+constexpr int MODE_DX = 0;
+constexpr int MODE_DW = 1;
+constexpr int NWG = 2;            // consumer warpgroups: 128 rows k per block
+constexpr int BK = 64 * NWG;
+constexpr int THREADS = NWG * 128 + 32;
+constexpr int BOX_BYTES = 64 * ROW_BYTES;  // a 64 x 64 bf16 box
+constexpr int STAGE_CAP = 196608;           // shared bytes of the ring
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> FragARow;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> FragACol;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
+template <int MODE, int BN>
+struct Gemm {
+    static constexpr int A_SRC = MODE == MODE_DX ? 2 : 1;  // dx: W_mu, W_sigma; dW: xc
+    static constexpr int A_BYTES = A_SRC * NWG * BOX_BYTES;
+    static constexpr int B_BYTES = 4 * BN * ROW_BYTES;     // hi, lo, s_hi, s_lo
+    static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+    static constexpr int STAGES = STAGE_CAP / STAGE_BYTES < 4 ? STAGE_CAP / STAGE_BYTES : 4;
+    static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
+};
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    const int n = pred ? 16 : 0;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-// Queue the copy of the ROWS x COLS bf16 block at (row0, col0) of a row-major
-// [rows, cols] matrix (row stride ld) into shared memory (row stride lds).
-// cols % 8 == 0, so each 16-byte chunk is wholly inside or outside.
-template <int ROWS, int COLS>
-__device__ __forceinline__ void load_block(__nv_bfloat16* dst, int lds, const __nv_bfloat16* src,
-                                           int ld, int row0, int rows, int col0, int cols) {
-    for (int i = threadIdx.x; i < ROWS * COLS / 8; i += THREADS) {
-        const int r = i / (COLS / 8);
-        const int c = (i % (COLS / 8)) * 8;
-        const bool in = row0 + r < rows && col0 + c < cols;
-        const __nv_bfloat16* g = in ? src + (size_t)(row0 + r) * ld + col0 + c : src;
-        cp_async16(dst + r * lds + c, g, in);
-    }
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+    return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
 // ---------------------------------------------------------------- 1. prep
-__global__ void prep_kernel(const float* __restrict__ g,      // [M, N]
+__global__ void k3b_prep_kernel(const float* __restrict__ g,      // [M, N]
                             const float* __restrict__ y,      // [M, N] or null (no ReLU)
                             const float* __restrict__ f_out,  // [N] or null (greedy)
-                            __nv_bfloat16* __restrict__ halves,  // 2 or 4 x [M, N8]
-                            int M, int N, int N8) {
+                            __nv_bfloat16* __restrict__ P,    // planes x [M, N8]
+                            __nv_bfloat16* __restrict__ PT,   // planes x [N8, MP]
+                            float* __restrict__ dbp,          // [MP / 32, N]
+                            int M, int N, int N8, int MP) {
+    __shared__ float t_dy[32][33];
+    __shared__ float t_ds[32][33];
+    const bool noisy = f_out != nullptr;
+    const int tx = threadIdx.x;
+    const int ty = threadIdx.y;
+    const int n0 = blockIdx.x * 32;
+    const int m0 = blockIdx.y * 32;
     const size_t plane = (size_t)M * N8;
-    const size_t total = plane;
-    for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-         i += (size_t)gridDim.x * blockDim.x) {
-        const int m = (int)(i / N8);
-        const int n = (int)(i % N8);
-        float dy = 0.f;
-        if (n < N) {
-            const size_t src = (size_t)m * N + n;
-            dy = g[src];
-            if (y != nullptr && !(y[src] > 0.f)) dy = 0.f;
+    const size_t plane_t = (size_t)N8 * MP;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int r = ty + 8 * i;
+        const int m = m0 + r;
+        const int n = n0 + tx;
+        float dy = 0.f, ds = 0.f;
+        if (m < M && n < N) {
+            const size_t o = (size_t)m * N + n;
+            dy = g[o];
+            if (y != nullptr && !(y[o] > 0.f)) dy = 0.f;
+            if (noisy) ds = dy * f_out[n];
         }
+        if (m < M && n < N8) {
+            const size_t o = (size_t)m * N8 + n;
+            const __nv_bfloat16 hi = __float2bfloat16(dy);
+            P[o] = hi;
+            P[plane + o] = __float2bfloat16(dy - __bfloat162float(hi));
+            if (noisy) {
+                const __nv_bfloat16 shi = __float2bfloat16(ds);
+                P[2 * plane + o] = shi;
+                P[3 * plane + o] = __float2bfloat16(ds - __bfloat162float(shi));
+            }
+        }
+        t_dy[r][tx] = dy;
+        t_ds[r][tx] = ds;
+    }
+    __syncthreads();
+    if (ty == 0 && n0 + tx < N) {  // the tile's rows in order
+        float s = 0.f;
+        for (int r = 0; r < 32; ++r) s += t_dy[r][tx];
+        dbp[(size_t)blockIdx.y * N + n0 + tx] = s;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int c = ty + 8 * i;
+        const int n = n0 + c;
+        const int m = m0 + tx;
+        if (n >= N8 || m >= MP) continue;
+        const size_t o = (size_t)n * MP + m;
+        const float dy = t_dy[tx][c];
         const __nv_bfloat16 hi = __float2bfloat16(dy);
-        halves[i] = hi;
-        halves[plane + i] = __float2bfloat16(dy - __bfloat162float(hi));
-        if (f_out != nullptr) {
-            const float s = n < N ? dy * f_out[n] : 0.f;
-            const __nv_bfloat16 shi = __float2bfloat16(s);
-            halves[2 * plane + i] = shi;
-            halves[3 * plane + i] = __float2bfloat16(s - __bfloat162float(shi));
+        PT[o] = hi;
+        PT[plane_t + o] = __float2bfloat16(dy - __bfloat162float(hi));
+        if (noisy) {
+            const float ds = t_ds[tx][c];
+            const __nv_bfloat16 shi = __float2bfloat16(ds);
+            PT[2 * plane_t + o] = shi;
+            PT[3 * plane_t + o] = __float2bfloat16(ds - __bfloat162float(shi));
         }
     }
 }
 
-// ------------------------------------------------------- 2./3. the GEMMs
-// TRANS == false (dx):  C[M, K] = halves[M, N8] @ W[N, K]         rows = M, depth = N
-// TRANS == true  (dW):  C[N, K] = halves[M, N8]^T @ xc[M, K]      rows = N, depth = M
-template <bool TRANS>
-__global__ void __launch_bounds__(THREADS) gemm_kernel(
-    const __nv_bfloat16* __restrict__ halves,  // hi, lo[, s_hi, s_lo] planes of [M, N8]
-    const __nv_bfloat16* __restrict__ b0,      // dx: W_mu [N, K];  dW: xc [M, K]
-    const __nv_bfloat16* __restrict__ b1,      // dx: W_sigma [N, K] or null; dW: unused
-    const float* __restrict__ f_in,            // [K] (noisy) or null
-    const float* __restrict__ f_out,           // [N] (dW, noisy) or null
-    __nv_bfloat16* __restrict__ out0,          // dx: dxc [M, K];  dW: dW_mu [N, K]
-    __nv_bfloat16* __restrict__ out1,          // dW: dW_sigma [N, K] (noisy)
-    float* __restrict__ db_mu,                 // dW: [N]
-    float* __restrict__ db_sigma,              // dW: [N] (noisy)
-    int M, int N, int N8, int K) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    __nv_bfloat16* pipe = reinterpret_cast<__nv_bfloat16*>(smem);
-    __nv_bfloat16* xes = pipe + STAGES * STAGE;  // dW, noisy: xc * f_in of the current tile
-    float* c_mu = reinterpret_cast<float*>(smem);
-    float* c_sg = c_mu + BM * LDC;
-
+// ------------------------------------------------------ 2./3. the GEMMs
+// out^T[k, j] = sum_d A[d, k] B[j, d] over the depth tiles [z T / S, (z + 1) T / S)
+// of this block's chunk z = blockIdx.z (T = d_tiles).  grid: (j tiles of BN,
+// k tiles of BK, S).
+template <int MODE, int BN>
+__global__ void __launch_bounds__(THREADS, 1) k3b_gemm_kernel(
+    const __grid_constant__ CUtensorMap map_a0,  // dx: W_mu [N, K];   dW: xc [M, K]
+    const __grid_constant__ CUtensorMap map_a1,  // dx: W_sigma [N, K] (noisy)
+    const __grid_constant__ CUtensorMap map_b,   // dx: P [planes * M, N8]; dW: PT [planes * N8, MP]
+    const float* __restrict__ f_in,              // [K] (noisy) or null
+    __nv_bfloat16* __restrict__ out0,            // dx: dxc [M, K];  dW: dW_mu [N, K] (S == 1)
+    __nv_bfloat16* __restrict__ out1,            // dW: dW_sigma [N, K] (noisy, S == 1)
+    float* __restrict__ part,                    // dW, S > 1: [2][S][N, K] fp32 partials
+    int J, int K, int plane_rows, int d_tiles, int S) {
+    using C = Gemm<MODE, BN>;
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* smem = align1024(smem_raw);
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::STAGES * C::STAGE_BYTES);
+    uint64_t* empty = full + C::STAGES;
     const bool noisy = f_in != nullptr;
-    const int rows = TRANS ? N : M;
-    const int depth = TRANS ? M : N;
-    const int r0 = blockIdx.x * BM;
-    const int k0 = blockIdx.y * BN;
     const int warp = threadIdx.x / 32;
-    const int wm = (warp / 2) * 64;
-    const int wn = (warp % 2) * 32;
-    const int tiles = (depth + BR - 1) / BR;
-    const size_t plane = (size_t)M * N8;
-    const int nplanes = noisy ? 4 : 2;
-    const bool do_bias = TRANS && blockIdx.y == 0;
-    float bias_acc = 0.f;  // dW: sum over m of dy for row r0 + threadIdx.x
+    const int lane = threadIdx.x % 32;
+    const int j0 = blockIdx.x * BN;
+    const int k0 = blockIdx.y * BK;
+    const int d_begin = (int)((long long)blockIdx.z * d_tiles / S);
+    const int d_end = (int)((long long)(blockIdx.z + 1) * d_tiles / S);
+    const int tiles = d_end - d_begin;
 
-    FragC acc_mu[4][2], acc_sg[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-            wmma::fill_fragment(acc_mu[i][j], 0.f);
-            wmma::fill_fragment(acc_sg[i][j], 0.f);
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < C::STAGES; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], 4 * NWG);
         }
-
-    auto issue = [&](int t) {
-        __nv_bfloat16* st = pipe + (t % STAGES) * STAGE;
-        const int d0 = t * BR;
-        for (int p = 0; p < nplanes; ++p) {
-            if (TRANS)  // depth m along the tile's rows, output rows n along its columns
-                load_block<BR, BM>(st + p * A_TILE, LDAT, halves + p * plane, N8, d0, M, r0, N8);
-            else
-                load_block<BM, BR>(st + p * A_TILE, LDA, halves + p * plane, N8, r0, M, d0, N8);
-        }
-        __nv_bfloat16* bt = st + 4 * A_TILE;
-        if (TRANS) {
-            load_block<BR, BN>(bt, LDB, b0, K, d0, M, k0, K);
-        } else {
-            load_block<BR, BN>(bt, LDB, b0, K, d0, N, k0, K);
-            if (noisy) load_block<BR, BN>(bt + B_TILE, LDB, b1, K, d0, N, k0, K);
-        }
-    };
-
-#pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s) {
-        if (s < tiles) issue(s);
-        cp_async_commit();
+        mbar_init_fence();
     }
-
-    for (int t = 0; t < tiles; ++t) {
-        cp_async_wait<STAGES - 2>();
-        __syncthreads();
-        if (t + STAGES - 1 < tiles) issue(t + STAGES - 1);
-        cp_async_commit();
-
-        const __nv_bfloat16* st = pipe + (t % STAGES) * STAGE;
-        const __nv_bfloat16* bt = st + 4 * A_TILE;
-        const __nv_bfloat16* bs = noisy ? (TRANS ? xes : bt + B_TILE) : nullptr;
-        if (TRANS && (noisy || do_bias)) {
-            if (noisy) {  // xc * f_in, rounded to bf16 as the JAX layer's product is
-                for (int i = threadIdx.x; i < BR * BN / 8; i += THREADS) {
-                    const int r = i / (BN / 8);
-                    const int c = (i % (BN / 8)) * 8;
-                    const uint4 raw = *reinterpret_cast<const uint4*>(bt + r * LDB + c);
-                    const __nv_bfloat16* xv = reinterpret_cast<const __nv_bfloat16*>(&raw);
-                    uint4 prod = make_uint4(0, 0, 0, 0);
-                    __nv_bfloat16* pv = reinterpret_cast<__nv_bfloat16*>(&prod);
-                    if (k0 + c < K) {
-#pragma unroll
-                        for (int j = 0; j < 8; ++j)
-                            pv[j] = __float2bfloat16(port::to_float(xv[j]) *
-                                                     port::bf16_round(f_in[k0 + c + j]));
-                    }
-                    *reinterpret_cast<uint4*>(xes + r * LDB + c) = prod;
-                }
-            }
-            if (do_bias) {  // one thread per output row n; depth rows in order
-                const int d0 = t * BR;
-                for (int r = 0; r < BR && d0 + r < M; ++r)
-                    bias_acc += port::to_float(st[r * LDAT + threadIdx.x]) +
-                                port::to_float(st[A_TILE + r * LDAT + threadIdx.x]);
-            }
-            __syncthreads();
-        }
-#pragma unroll
-        for (int kk = 0; kk < BR; kk += 16) {
-            FragB fb[2];
-#pragma unroll
-            for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(fb[j], bt + kk * LDB + wn + 16 * j, LDB);
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                const __nv_bfloat16* a = st + half * A_TILE;
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    if (TRANS) {
-                        FragACol fa;
-                        wmma::load_matrix_sync(fa, a + kk * LDAT + wm + 16 * i, LDAT);
-#pragma unroll
-                        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc_mu[i][j], fa, fb[j], acc_mu[i][j]);
-                    } else {
-                        FragARow fa;
-                        wmma::load_matrix_sync(fa, a + (wm + 16 * i) * LDA + kk, LDA);
-#pragma unroll
-                        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc_mu[i][j], fa, fb[j], acc_mu[i][j]);
-                    }
-                }
-            }
-            if (noisy) {
-#pragma unroll
-                for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(fb[j], bs + kk * LDB + wn + 16 * j, LDB);
-#pragma unroll
-                for (int half = 2; half < 4; ++half) {
-                    const __nv_bfloat16* a = st + half * A_TILE;
-#pragma unroll
-                    for (int i = 0; i < 4; ++i) {
-                        if (TRANS) {
-                            FragACol fa;
-                            wmma::load_matrix_sync(fa, a + kk * LDAT + wm + 16 * i, LDAT);
-#pragma unroll
-                            for (int j = 0; j < 2; ++j) wmma::mma_sync(acc_sg[i][j], fa, fb[j], acc_sg[i][j]);
-                        } else {
-                            FragARow fa;
-                            wmma::load_matrix_sync(fa, a + (wm + 16 * i) * LDA + kk, LDA);
-#pragma unroll
-                            for (int j = 0; j < 2; ++j) wmma::mma_sync(acc_sg[i][j], fa, fb[j], acc_sg[i][j]);
-                        }
-                    }
-                }
-            }
-        }
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // every MMA done before the epilogue reuses the ring
-
-    if (do_bias) {
-        const int n = r0 + threadIdx.x;
-        if (n < N) {
-            db_mu[n] = bias_acc;
-            if (noisy) db_sigma[n] = f_out[n] * bias_acc;
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-            const int off = (wm + 16 * i) * LDC + wn + 16 * j;
-            wmma::store_matrix_sync(c_mu + off, acc_mu[i][j], LDC, wmma::mem_row_major);
-            if (noisy) wmma::store_matrix_sync(c_sg + off, acc_sg[i][j], LDC, wmma::mem_row_major);
-        }
     __syncthreads();
 
-    for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
-        const int r = i / BN;
-        const int c = i % BN;
-        const int row = r0 + r;
-        const int k = k0 + c;
-        if (row >= rows || k >= K) continue;
-        const size_t o = (size_t)row * K + k;
-        if (TRANS) {
-            out0[o] = __float2bfloat16(c_mu[r * LDC + c]);
-            if (noisy) out1[o] = __float2bfloat16(c_sg[r * LDC + c]);
-        } else {
-            float v = port::bf16_round(c_mu[r * LDC + c]);
-            if (noisy) {
-                const float t = port::bf16_round(port::bf16_round(c_sg[r * LDC + c]) *
-                                                 port::bf16_round(f_in[k]));
-                v = v + t;
+    if (warp == 4 * NWG) {  // ------------------------------------ producer
+        if (lane == 0) {
+            const int srcs = MODE == MODE_DX && noisy ? 2 : 1;
+            const int planes = noisy ? 4 : 2;
+            const uint32_t bytes = srcs * NWG * BOX_BYTES + planes * BN * ROW_BYTES;
+            for (int t = 0; t < tiles; ++t) {
+                const int s = t % C::STAGES;
+                if (t >= C::STAGES) mbar_wait(&empty[s], ((t / C::STAGES) - 1) & 1);
+                uint8_t* st = smem + s * C::STAGE_BYTES;
+                const int d = (d_begin + t) * TILE_K;
+                mbar_expect_tx(&full[s], bytes);
+                for (int src = 0; src < srcs; ++src)
+                    for (int wg = 0; wg < NWG; ++wg)
+                        tma_load_2d(st + (src * NWG + wg) * BOX_BYTES, src ? &map_a1 : &map_a0,
+                                    &full[s], k0 + 64 * wg, d);
+                for (int p = 0; p < planes; ++p)
+                    tma_load_2d(st + C::A_BYTES + p * BN * ROW_BYTES, &map_b, &full[s], d,
+                                p * plane_rows + j0);
             }
-            out0[o] = __float2bfloat16(v);
+        }
+        return;
+    }
+
+    // ---------------------------------------------------------- consumers
+    const int wg = warp / 4;
+    const int w = warp % 4;
+    const int g = lane / 4;
+    const int tq = lane % 4;
+    // ldmatrix.trans: lane gives depth row 16 kk + (lane % 8) + 8 * bit 1 of
+    // (lane / 8), chunk 2 w + bit 0 (the warp's rows k)
+    const int ldrow = (lane % 8) + 8 * ((lane / 8) >> 1);
+    const int lchunk = 2 * w + ((lane / 8) & 1);
+    const int kr = k0 + 64 * wg + 16 * w + g;  // this lane's rows k: kr, kr + 8
+    float fin[2] = {0.f, 0.f};
+    if (noisy) {
+        if (kr < K) fin[0] = port::bf16_round(f_in[kr]);
+        if (kr + 8 < K) fin[1] = port::bf16_round(f_in[kr + 8]);
+    }
+    const uint32_t sc0 = pack_bf16x2(fin[0], fin[0]);
+    const uint32_t sc1 = pack_bf16x2(fin[1], fin[1]);
+
+    float acc_mu[BN / 2], acc_sg[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc_mu[i] = acc_sg[i] = 0.f;
+
+    for (int t = 0; t < tiles; ++t) {
+        const int s = t % C::STAGES;
+        mbar_wait(&full[s], (t / C::STAGES) & 1);
+        uint8_t* st = smem + s * C::STAGE_BYTES;
+        const uint32_t a_mu = smem_u32(st + wg * BOX_BYTES);
+        const uint32_t a_sg = smem_u32(st + (NWG + wg) * BOX_BYTES);
+        uint8_t* b = st + C::A_BYTES;
+        const uint64_t d_hi = desc_sw128(b);
+        const uint64_t d_lo = desc_sw128(b + BN * ROW_BYTES);
+        const uint64_t d_shi = desc_sw128(b + 2 * BN * ROW_BYTES);
+        const uint64_t d_slo = desc_sw128(b + 3 * BN * ROW_BYTES);
+        uint32_t fa[4][4], fs[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            const uint32_t off = sw128_offset(16 * kk + ldrow, lchunk);
+            ldmatrix_x4_trans(fa[kk], a_mu + off);
+            if (noisy) {
+                if (MODE == MODE_DX) {
+                    ldmatrix_x4_trans(fs[kk], a_sg + off);
+                } else {  // bf16(xc * bf16(f_in[k])) for rows kr (a[0], a[2]) and kr + 8
+                    fs[kk][0] = mul_bf16x2(fa[kk][0], sc0);
+                    fs[kk][1] = mul_bf16x2(fa[kk][1], sc1);
+                    fs[kk][2] = mul_bf16x2(fa[kk][2], sc0);
+                    fs[kk][3] = mul_bf16x2(fa[kk][3], sc1);
+                }
+            }
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            wgmma_rs<BN>(acc_mu, fa[kk], d_hi + 2 * kk);
+            wgmma_rs<BN>(acc_mu, fa[kk], d_lo + 2 * kk);
+        }
+        if (noisy) {
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+                wgmma_rs<BN>(acc_sg, fs[kk], d_shi + 2 * kk);
+                wgmma_rs<BN>(acc_sg, fs[kk], d_slo + 2 * kk);
+            }
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the group of tile t - 1 has retired: release its stage
+        if (t > 0 && lane == 0) mbar_arrive(&empty[(t - 1) % C::STAGES]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc_mu);
+    fence_regs(acc_sg);
+
+#pragma unroll
+    for (int jb = 0; jb < BN / 8; ++jb) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int k = kr + 8 * h;
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+                const int j = j0 + 8 * jb + 2 * tq + c;
+                if (j >= J || k >= K) continue;
+                const float mu = acc_mu[4 * jb + 2 * h + c];
+                const float sg = acc_sg[4 * jb + 2 * h + c];
+                const size_t o = (size_t)j * K + k;
+                if (MODE == MODE_DX) {
+                    float v = port::bf16_round(mu);
+                    if (noisy) v = v + port::bf16_round(port::bf16_round(sg) * fin[h]);
+                    out0[o] = __float2bfloat16(v);
+                } else if (part != nullptr) {
+                    const size_t plane = (size_t)J * K;
+                    part[(size_t)blockIdx.z * plane + o] = mu;
+                    if (noisy) part[((size_t)S + blockIdx.z) * plane + o] = sg;
+                } else {
+                    out0[o] = __float2bfloat16(mu);
+                    if (noisy) out1[o] = __float2bfloat16(sg);
+                }
+            }
         }
     }
 }
 
-template <bool TRANS>
-int opt_in() {
-    static bool done = false;  // once, before any graph capture
-    if (!done) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            gemm_kernel<TRANS>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-        if (err != cudaSuccess) return (int)err;
-        done = true;
+// ------------------------------------------------------------ 4. finalize
+__global__ void k3b_finalize_kernel(const float* __restrict__ part,  // [2][S][N, K] or null
+                                const float* __restrict__ dbp,   // [chunks, N]
+                                const float* __restrict__ f_out, // [N] or null (greedy)
+                                __nv_bfloat16* __restrict__ dw_mu, __nv_bfloat16* __restrict__ dw_sigma,
+                                float* __restrict__ db_mu, float* __restrict__ db_sigma, int N,
+                                int K, int S, int chunks) {
+    const bool noisy = f_out != nullptr;
+    const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    const size_t plane = (size_t)N * K;
+    if (part != nullptr && i < plane) {
+        float s = 0.f, ss = 0.f;
+        for (int c = 0; c < S; ++c) {
+            s += part[(size_t)c * plane + i];
+            if (noisy) ss += part[((size_t)S + c) * plane + i];
+        }
+        dw_mu[i] = __float2bfloat16(s);
+        if (noisy) dw_sigma[i] = __float2bfloat16(ss);
     }
-    return 0;
+    if (i < (size_t)N) {
+        float s = 0.f;
+        for (int c = 0; c < chunks; ++c) s += dbp[(size_t)c * N + i];
+        db_mu[i] = s;
+        if (noisy) db_sigma[i] = f_out[i] * s;
+    }
+}
+
+template <int MODE, int BN>
+int launch_gemm(const CUtensorMap& a0, const CUtensorMap& a1, const CUtensorMap& b,
+                const float* f_in, __nv_bfloat16* out0, __nv_bfloat16* out1, float* part, int J,
+                int K, int plane_rows, int d_tiles, int S, cudaStream_t stream) {
+    using C = Gemm<MODE, BN>;
+    static bool smem_opted_in = false;  // once, before any graph capture
+    if (!smem_opted_in) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            k3b_gemm_kernel<MODE, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+        if (err != cudaSuccess) return (int)err;
+        smem_opted_in = true;
+    }
+    const dim3 grid((J + BN - 1) / BN, (K + BK - 1) / BK, S);
+    k3b_gemm_kernel<MODE, BN><<<grid, THREADS, C::SMEM, stream>>>(
+        a0, a1, b, f_in, out0, out1, part, J, K, plane_rows, d_tiles, S);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// workspace: (noisy ? 4 : 2) * M * roundup(N, 8) bf16 elements, 16-byte aligned
+// Workspaces, from the wrapper's plan (kernels/noisy_linear.py):
+//   ws_bf16: planes * M * N8 (P) then planes * N8 * MP (PT) bf16 values,
+//   ws_f32:  (MP / 32) * N (dbp) then, when S > 1, 2 * S * N * K (partials),
+// with planes = 4 noisy, 2 greedy.  bn_w is dW's tile width over n (8, 24 or
+// 64), S (<= the 64-row tiles of M) the chunks of dW's depth.
 PORT_API int port_noisy_linear_bwd(const void* g, const void* y, const void* xc,
                                    const void* w_mu, const void* w_sigma, const void* f_in,
                                    const void* f_out, void* dxc, void* dw_mu, void* dw_sigma,
-                                   void* db_mu, void* db_sigma, void* workspace, int M, int N,
-                                   int K, void* stream) {
-    int err = opt_in<false>();
-    if (err) return err;
-    err = opt_in<true>();
-    if (err) return err;
+                                   void* db_mu, void* db_sigma, void* ws_bf16, void* ws_f32,
+                                   int M, int N, int K, int bn_w, int S, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int N8 = (N + 7) / 8 * 8;
+    if (M <= 0 || N <= 0 || K <= 0 || K % 8 || S < 1) return (int)cudaErrorInvalidValue;
     const bool noisy = w_sigma != nullptr;
-    auto* halves = static_cast<__nv_bfloat16*>(workspace);
-    const size_t elems = (size_t)M * N8;
-    int blocks = (int)((elems + 255) / 256);
-    if (blocks > 4096) blocks = 4096;
-    prep_kernel<<<blocks, 256, 0, s>>>(static_cast<const float*>(g), static_cast<const float*>(y),
-                                       noisy ? static_cast<const float*>(f_out) : nullptr,
-                                       halves, M, N, N8);
+    const int N8 = (N + 7) / 8 * 8;
+    const int MP = (M + 7) / 8 * 8;
+    const int planes = noisy ? 4 : 2;
+    const int m_tiles = (M + TILE_K - 1) / TILE_K;
+    if (S > m_tiles) return (int)cudaErrorInvalidValue;  // no chunk may be empty
+    auto* P = static_cast<__nv_bfloat16*>(ws_bf16);
+    __nv_bfloat16* PT = P + (size_t)planes * M * N8;
+    auto* dbp = static_cast<float*>(ws_f32);
+    const int db_chunks = (MP + 31) / 32;
+    float* part = S > 1 ? dbp + (size_t)db_chunks * N : nullptr;
     const float* fi = noisy ? static_cast<const float*>(f_in) : nullptr;
     const float* fo = noisy ? static_cast<const float*>(f_out) : nullptr;
-    const dim3 grid_dx((M + BM - 1) / BM, (K + BN - 1) / BN);
-    gemm_kernel<false><<<grid_dx, THREADS, SMEM_BYTES, s>>>(
-        halves, static_cast<const __nv_bfloat16*>(w_mu),
-        static_cast<const __nv_bfloat16*>(w_sigma), fi, fo, static_cast<__nv_bfloat16*>(dxc),
-        nullptr, nullptr, nullptr, M, N, N8, K);
-    const dim3 grid_dw((N + BM - 1) / BM, (K + BN - 1) / BN);
-    gemm_kernel<true><<<grid_dw, THREADS, SMEM_BYTES, s>>>(
-        halves, static_cast<const __nv_bfloat16*>(xc), nullptr, fi, fo,
-        static_cast<__nv_bfloat16*>(dw_mu), static_cast<__nv_bfloat16*>(dw_sigma),
-        static_cast<float*>(db_mu), static_cast<float*>(db_sigma), M, N, N8, K);
+
+    k3b_prep_kernel<<<dim3((N8 + 31) / 32, db_chunks), dim3(32, 8), 0, s>>>(
+        static_cast<const float*>(g), static_cast<const float*>(y), fo, P, PT, dbp, M, N, N8, MP);
+    int err = (int)cudaGetLastError();
+    if (err) return err;
+
+    CUtensorMap m_wmu, m_wsg, m_p, m_x, m_pt;
+    if (!make_map(&m_wmu, w_mu, N, K, K, 64) ||
+        (noisy && !make_map(&m_wsg, w_sigma, N, K, K, 64)) ||
+        !make_map(&m_p, P, (uint64_t)planes * M, N8, N8, 64) ||
+        !make_map(&m_x, xc, M, K, K, 64) ||
+        !make_map(&m_pt, PT, (uint64_t)planes * N8, MP, MP, bn_w))
+        return (int)cudaErrorInvalidValue;
+    if (!noisy) m_wsg = m_wmu;  // never read
+
+    auto* dx = static_cast<__nv_bfloat16*>(dxc);
+    err = launch_gemm<MODE_DX, 64>(m_wmu, m_wsg, m_p, fi, dx, nullptr, nullptr, M, K, M,
+                                   (N8 + TILE_K - 1) / TILE_K, 1, s);
+    if (err) return err;
+    auto* wm = static_cast<__nv_bfloat16*>(dw_mu);
+    auto* ws = static_cast<__nv_bfloat16*>(dw_sigma);
+    switch (bn_w) {
+        case 8: err = launch_gemm<MODE_DW, 8>(m_x, m_x, m_pt, fi, wm, ws, part, N, K, N8, m_tiles, S, s); break;
+        case 24: err = launch_gemm<MODE_DW, 24>(m_x, m_x, m_pt, fi, wm, ws, part, N, K, N8, m_tiles, S, s); break;
+        case 64: err = launch_gemm<MODE_DW, 64>(m_x, m_x, m_pt, fi, wm, ws, part, N, K, N8, m_tiles, S, s); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    if (err) return err;
+    const size_t work = part != nullptr ? (size_t)N * K : (size_t)N;
+    k3b_finalize_kernel<<<(unsigned)((work + 255) / 256), 256, 0, s>>>(
+        part, dbp, fo, wm, ws, static_cast<float*>(db_mu), static_cast<float*>(db_sigma), N, K, S,
+        db_chunks);
     return (int)cudaGetLastError();
 }

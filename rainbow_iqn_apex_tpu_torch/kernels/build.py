@@ -35,7 +35,7 @@ SOURCES = ("tau_embed.cu", "noisy_linear.cu", "dueling_head.cu", "quantile_huber
            "frontier_writeback.cu", "quantize.cu", "noisy_linear_q.cu", "dequantize.cu", "lstm.cu",
            "r2d2_td.cu", "seq_stack.cu", "seq_append.cu", "seq_draw.cu", "seq_assemble.cu",
            "device_games.cu")
-HEADERS = ("common.cuh", "threefry.cuh")
+HEADERS = ("common.cuh", "hopper.cuh", "threefry.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -11,12 +11,16 @@ with f_in = f(eps_in), f_out = f(eps_out) and f(e) = sign(e) sqrt|e|, bf16
 operands, fp32 accumulation, an fp32 bias and an fp32 output; ReLU after when
 asked.  Weights are [N, K], torch's Linear layout.
 
-Bound on the H100: each serving hidden layer (M = 2048, K = 3136, N = 512)
-is 6.6 GFLOP, ~7 us at 989 TFLOP/s bf16, so compute-bound; the *_out layers
-(N = 1, 18) are launch-bound.  The kernel (``csrc/noisy_linear.cu``) runs a
-tiled tensor-core GEMM that, in noisy mode, loads each x tile once for both
-products and never forms the [N, K] noise matrix; the noise scale, the bias
-and the ReLU are applied in the epilogue before the one store.
+Bound on the H100: each hidden layer at M = 2048 (K = 3136, N = 512) is 6.6
+GFLOP a product, ~7 us at 989 TFLOP/s bf16, so operation-bound; the *_out
+layers (N = 1, 18) are bound by the 2 MB of x and by the launch.  The kernel
+(``csrc/noisy_linear.cu``) has two paths, one launch either way: N > 32 runs a
+warp-specialised wgmma GEMM fed by TMA through an mbarrier ring, which in
+noisy mode takes x * f_in as a register operand formed from the x tile
+already in shared memory (x is read once; the [N, K] noise matrix is never
+formed); N <= 32 runs an mma.sync kernel of 16 rows a block so that M fills
+the card.  The noise scale, the bias and the ReLU are applied in the epilogue
+before the one store.  ``forward_plan`` picks the path and the tile height.
 
 ``noisy_linear`` runs the kernel for CUDA tensors and ``noisy_linear_plain``
 for CPU tensors.  The kernel takes bf16 operands only.
@@ -24,11 +28,15 @@ for CPU tensors.  The kernel takes bf16 operands only.
 K3-bwd, its backward (``noisy_linear_bwd``, kernel ``csrc/noisy_linear_bwd.cu``,
 plain twin ``noisy_linear_bwd_plain``), gives the cotangents that
 ``jax.grad`` gives the JAX layer, at the jaxpr's rounding points: each
-cotangent of a bf16 operand is an fp32 product rounded once to bf16.  For
-the learner's noisy hidden layers (M = 2048, K = 3136, N = 512) it is four
-6.6 GFLOP products, ~27 us of bf16 tensor-core time: compute-bound.  The
-kernel splits the fp32 dy into two bf16 halves so the tensor cores see it to
-~2^-17, and runs each product on both (see the source for the design).
+cotangent of a bf16 operand is an fp32 product rounded once to bf16.  It
+splits the fp32 dy into two bf16 halves so the tensor cores see it to ~2^-17,
+and runs each product on both: for the learner's noisy hidden layers (M =
+2048, K = 3136, N = 512) eight 6.6 GFLOP products, ~53 us of bf16
+tensor-core time.  A prep pass writes the halves in both layouts, dx and dW
+run as one wgmma GEMM with the bf16 matrix as a register operand, dW's depth
+(M) split into chunks where its tiles alone would leave the card idle, and a
+finalize pass sums the chunks in order (see the source for the design).
+``backward_plan`` gives dW's tile width, the split and the workspace sizes.
 ``NoisyLinearFn`` is the ``torch.autograd.Function`` over K3 and K3-bwd.
 """
 
@@ -36,7 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -48,6 +56,51 @@ REPLACES = "rainbow_iqn_apex_tpu/models/layers.py:48"
 NAME_BWD = NAME + "_bwd"
 SOURCE_BWD = "rainbow_iqn_apex_tpu_torch/csrc/noisy_linear_bwd.cu"
 REPLACES_BWD = "rainbow_iqn_apex_tpu/models/layers.py:48"
+
+SMS = 132  # streaming multiprocessors of the H100 SXM: the wave the plans fill
+FULL_WAVE = 100  # output tiles from which one wave keeps the card busy enough
+NARROW_N = 32  # K3's mma.sync path takes N up to this; wider layers run wgmma
+TILE = 64  # rows of a wgmma tile and bf16 values of a TMA box row
+BK_BWD = 128  # rows k of a K3-bwd GEMM block (two consumer warpgroups)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=256)
+def forward_plan(m: int, n: int) -> int:
+    """K3's path for an [m, k] x [n, k]^T product: 0 is the narrow mma.sync
+    kernel (N <= 32, 16 rows a block), else the consumer warpgroups of a
+    wgmma tile of (64 * that) x 64: two where that still gives a full wave."""
+    if n <= NARROW_N:
+        return 0
+    return 2 if _cdiv(m, 2 * TILE) * _cdiv(n, TILE) >= FULL_WAVE else 1
+
+
+class BackwardPlan(NamedTuple):
+    bn_w: int  # dW's tile width over n: 8, 24 or 64
+    splits: int  # S: chunks of dW's depth M; chunk c is depth tiles [c T / S, (c + 1) T / S)
+    ws_bf16: int  # bf16 values of the dy planes: [planes, M, N8] then [planes, N8, MP]
+    ws_f32: int  # fp32 values of the column sums [MP / 32, N], then dW's partials
+
+
+@functools.lru_cache(maxsize=256)
+def backward_plan(m: int, n: int, k: int, noisy: bool) -> BackwardPlan:
+    """K3-bwd's launch plan (``csrc/noisy_linear_bwd.cu``).  dW's output
+    tiles are BK_BWD rows k by bn_w columns n; where they number fewer than a
+    full wave, dW's depth (m_tiles tiles of 64 rows of M) is split into S
+    chunks so that tiles x S fills the 132 SMs, and the chunks' fp32 partials
+    are summed in order by the finalize pass."""
+    n8, mp = _cdiv(n, 8) * 8, _cdiv(m, 8) * 8
+    planes = 4 if noisy else 2
+    bn_w = 8 if n8 <= 8 else 24 if n8 <= 24 else TILE
+    m_tiles = _cdiv(m, TILE)
+    tiles = _cdiv(k, BK_BWD) * _cdiv(n, bn_w)
+    splits = 1 if tiles >= FULL_WAVE else min(m_tiles, _cdiv(SMS, tiles))
+    partials = (2 if noisy else 1) * splits * n * k if splits > 1 else 0
+    return BackwardPlan(bn_w, splits, ws_bf16=planes * m * n8 + planes * n8 * mp,
+                        ws_f32=_cdiv(mp, 32) * n + partials)
 
 
 def noisy_linear_plain(x: torch.Tensor, w_mu: torch.Tensor, b_mu: torch.Tensor,
@@ -72,7 +125,7 @@ def noisy_linear_plain(x: torch.Tensor, w_mu: torch.Tensor, b_mu: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = build.library().port_noisy_linear
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -116,7 +169,7 @@ def noisy_linear(x: torch.Tensor, w_mu: torch.Tensor, b_mu: torch.Tensor,
         code = _entry()(
             build.ptr(x), build.ptr(w_mu), build.ptr(w_sigma), build.ptr(b_mu),
             build.ptr(b_sigma), build.ptr(f_in), build.ptr(f_out), build.ptr(y),
-            m, n, k, int(relu), build.stream_of(x.device))
+            m, n, k, int(relu), forward_plan(m, n), build.stream_of(x.device))
     build.check_launch(NAME, code)
     return y
 
@@ -146,7 +199,7 @@ def noisy_linear_bwd_plain(g: torch.Tensor, y: Optional[torch.Tensor], xc: torch
 @functools.lru_cache(maxsize=None)
 def _bwd_entry():
     fn = build.library().port_noisy_linear_bwd
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -183,8 +236,9 @@ def noisy_linear_bwd(g: torch.Tensor, y: Optional[torch.Tensor], xc: torch.Tenso
     if any(t.data_ptr() % 16 for t in mats):
         raise ValueError("K3-bwd x and weights must be 16-byte aligned")
     dev = g.device
-    n8 = (n + 7) // 8 * 8
-    workspace = torch.empty(((4 if noisy else 2) * m * n8,), dtype=torch.bfloat16, device=dev)
+    plan = backward_plan(m, n, k, noisy)
+    f32_at = _cdiv(2 * plan.ws_bf16, 256) * 256  # one allocation: bf16 planes, then fp32
+    workspace = torch.empty((f32_at + 4 * plan.ws_f32,), dtype=torch.uint8, device=dev)
     dxc = torch.empty((m, k), dtype=torch.bfloat16, device=dev)
     dw_mu = torch.empty((n, k), dtype=torch.bfloat16, device=dev)
     db_mu = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -195,7 +249,8 @@ def noisy_linear_bwd(g: torch.Tensor, y: Optional[torch.Tensor], xc: torch.Tenso
             build.ptr(g), build.ptr(y), build.ptr(xc), build.ptr(w_mu), build.ptr(w_sigma),
             build.ptr(f_in), build.ptr(f_out), build.ptr(dxc), build.ptr(dw_mu),
             build.ptr(dw_sigma), build.ptr(db_mu), build.ptr(db_sigma), build.ptr(workspace),
-            m, n, k, build.stream_of(dev))
+            ctypes.c_void_p(workspace.data_ptr() + f32_at), m, n, k, plan.bn_w, plan.splits,
+            build.stream_of(dev))
     build.check_launch(NAME_BWD, code)
     return dxc, dw_mu, db_mu, dw_sigma, db_sigma
 

@@ -1,0 +1,124 @@
+#!/usr/bin/env python3
+"""End-to-end phases of one checkout's ``chip_smoke.py``, and the host time of
+each K3 / K3-bwd wrapper call inside the learn step and the serving dispatch.
+
+Runs the ``learn``, ``anakin``, ``apex`` and ``anakin_fused`` phases of the
+``chip_smoke.py`` at ``--root`` on that checkout's port, as the whole script
+runs them, so that two trees (say the parent commit unpacked with ``git
+archive`` into the ignored ``_compare/``) are compared on one card, run after
+run, in the order parent, change, change, parent:
+
+    python3 scripts/k3_e2e.py --root _compare/parent --label parent
+    python3 scripts/k3_e2e.py --label change
+
+Then it runs the ``learn`` and ``serve`` phases once more with a host timer
+around ``noisy_linear`` and ``noisy_linear_bwd``: the wrappers' host time per
+call where the learner casts its weights afresh on every step, so the
+operands' pointers change from call to call.  ``--phases`` and
+``--host-phases`` name other lists of phases (an empty string: none).
+Each phase prints its own JSON line; the script adds one ``k3_host`` line per
+timed phase and a ``k3_e2e`` summary.  Needs a CUDA card: exits with 2 where
+there is none.
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+E2E_PHASES = "learn,anakin,apex,anakin_fused"
+HOST_PHASES = "learn,serve"
+
+
+def _summary(us):
+    us = sorted(us)
+    if not us:
+        return {"calls": 0}
+    return {"calls": len(us), "p50_us": us[len(us) // 2], "p90_us": us[int(0.9 * (len(us) - 1))],
+            "mean_us": sum(us) / len(us)}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=ROOT)
+    ap.add_argument("--label", default="change")
+    ap.add_argument("--phases", default=E2E_PHASES)
+    ap.add_argument("--host-phases", default=HOST_PHASES)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("k3_e2e: needs a CUDA card", file=sys.stderr)
+        return 2
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import chip_smoke as smoke
+    from rainbow_iqn_apex_tpu_torch.config import Config
+    from rainbow_iqn_apex_tpu_torch.kernels import build
+    from rainbow_iqn_apex_tpu_torch.kernels import noisy_linear as nl
+    from rainbow_iqn_apex_tpu_torch.models import layers
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    build.library()
+    build_s = time.perf_counter() - t0
+    cfgs = {}
+    for name in ("serve_defaults", "reference_atari_defaults"):
+        with open(os.path.join(root, "configs", name + ".json")) as f:
+            cfgs[name] = Config.from_json(f.read())
+    phases = {"learn": (smoke.phase_learn, "reference_atari_defaults"),
+              "anakin": (smoke.phase_anakin, "reference_atari_defaults"),
+              "apex": (smoke.phase_apex, "reference_atari_defaults"),
+              "anakin_fused": (smoke.phase_anakin_fused, "reference_atari_defaults"),
+              "serve": (smoke.phase_serve, "serve_defaults")}
+
+    def run(name):
+        fn, cfg = phases[name]
+        t = time.perf_counter()
+        fn(torch, cfgs[cfg])
+        seconds = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+        return seconds
+
+    seconds = {name: run(name) for name in args.phases.split(",") if name}
+
+    calls = {"fwd": [], "bwd": []}
+    fwd, bwd = nl.noisy_linear, nl.noisy_linear_bwd
+
+    def timed(kind, fn):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            calls[kind].append((time.perf_counter() - t) * 1e6)
+            return out
+        return wrapper
+
+    nl.noisy_linear = layers.noisy_linear = timed("fwd", fwd)
+    nl.noisy_linear_bwd = timed("bwd", bwd)
+    try:
+        for name in filter(None, args.host_phases.split(",")):
+            calls["fwd"].clear()
+            calls["bwd"].clear()
+            run(name)
+            print(json.dumps({"phase": "k3_host", "label": args.label, "of": name,
+                              "fwd": _summary(calls["fwd"]), "bwd": _summary(calls["bwd"])}),
+                  flush=True)
+    finally:
+        nl.noisy_linear = layers.noisy_linear = fwd
+        nl.noisy_linear_bwd = bwd
+    print(json.dumps({"phase": "k3_e2e", "label": args.label, "root": args.root,
+                      "device": torch.cuda.get_device_name(0), "build_s": build_s,
+                      "seconds_by_phase": seconds}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

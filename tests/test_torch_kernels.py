@@ -6,7 +6,9 @@ jax.grad in tests/test_torch_learn.py and tests/test_torch_losses.py).
 On the CPU each wrapper must run its plain twin (and count no launch), and
 each plain twin must match its JAX counterpart: K2 against
 CosineTauEmbedding plus the Hadamard merge, K3 against NoisyLinear, K4
-against the dueling combine with q_values / greedy_action.  Inputs come from
+against the dueling combine with q_values / greedy_action.  K3's and
+K3-bwd's launch plans (tile height, dW's tile width and split over M,
+workspace sizes) are checked on the CPU at every main-path shape.  Inputs come from
 seeded numpy draws; noise is injected on the JAX side by monkeypatching
 ``jax.random.normal`` in this process only.
 
@@ -19,7 +21,8 @@ K3's fp32 output within 2e-3 abs/rel (tensor-core fp32 accumulation over up
 to 3136 terms in another order), K4 within 1e-5.  The learner's kernels on
 the card: K1 1e-5 (fp32, summation order); K2-bwd and K3-bwd 1e-2 abs/rel
 on their bf16 results (fp32 sums in another order move a bf16 rounding by
-one ulp; K3-bwd splits the fp32 dy into two bf16 halves, exact to ~2^-17);
+one ulp; K3-bwd splits the fp32 dy into two bf16 halves, exact to ~2^-17),
+and K3-bwd bit-equal on a repeat (no atomics);
 K4's gather mode and K4-bwd 1e-6 (one fp32 product and subtraction).
 R2D2's kernels on the card: K9 and K9-bwd 1e-4 abs/rel (fp32 products of
 512 (2048) terms per step summed in another order, carried through up to 120
@@ -62,6 +65,7 @@ from rainbow_iqn_apex_tpu_torch.kernels.dueling_head import (
     dueling_logp,
     dueling_logp_plain,
 )
+from rainbow_iqn_apex_tpu_torch.kernels import noisy_linear as noisy_linear_module
 from rainbow_iqn_apex_tpu_torch.kernels.noisy_linear import (
     noisy_linear,
     noisy_linear_bwd,
@@ -223,6 +227,57 @@ def test_k4_plain_first_index_wins_a_forced_tie(jax_ref):
     assert no_duel.tolist() == [1, 1]
 
 
+# ----------------------------------------- CPU: K3 / K3-bwd launch plans
+# every (M, K, N) the main paths give K3: the IQN learner (M 2048 at s and s',
+# 1024 for the online pass at s' with K 32), serving buckets 8-64 x K 32, the
+# act tick (16 lanes x 32 taus) on Atari and jaxgame frames, multi-game heads,
+# R2D2's heads over B x T rows and at a 16-lane tick, and the catch widths
+PLAN_SHAPES = [(m, k, n) for m in (2048, 1024, 512, 256) for k, n in
+               ((3136, 512), (2304, 512), (512, 1), (512, 18), (512, 5))] + [
+    (m, 512, n) for m in (2560, 3840, 16) for n in (512, 1, 18)] + [
+    (256, 2304, 128), (1024, 2304, 128), (256, 128, 3), (33, 40, 70), (64, 200, 512)]
+
+
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES)
+def test_k3_launch_plans_cover_the_shape(m, k, n):
+    nl = noisy_linear_module
+    cd = nl._cdiv
+    nwg = nl.forward_plan(m, n)
+    if n <= nl.NARROW_N:
+        assert nwg == 0  # the mma.sync path: 16 rows a block, all N columns
+    else:
+        assert nwg in (1, 2)
+        big = cd(m, 128) * cd(n, 64) >= nl.FULL_WAVE
+        assert (nwg == 2) == big  # the taller tile only where it still fills a wave
+        assert cd(m, 64 * nwg) * 64 * nwg >= m and cd(n, 64) * 64 >= n
+    for noisy in (False, True):
+        plan = nl.backward_plan(m, n, k, noisy)
+        n8, mp, planes = cd(n, 8) * 8, cd(m, 8) * 8, 4 if noisy else 2  # as the C entry pads
+        assert plan.bn_w in (8, 24, 64) and (plan.bn_w >= n8 or plan.bn_w == 64)
+        m_tiles = cd(m, 64)
+        chunks = [range(c * m_tiles // plan.splits, (c + 1) * m_tiles // plan.splits)
+                  for c in range(plan.splits)]  # as csrc/noisy_linear_bwd.cu cuts them
+        assert all(len(c) > 0 for c in chunks)  # no chunk is empty
+        assert [t for c in chunks for t in c] == list(range(m_tiles))  # each depth tile once
+        tiles = cd(k, nl.BK_BWD) * cd(n, plan.bn_w)
+        assert tiles * plan.splits >= min(nl.FULL_WAVE, tiles * m_tiles)
+        partials = (2 if noisy else 1) * plan.splits * n * k if plan.splits > 1 else 0
+        assert plan.ws_bf16 == planes * m * n8 + planes * n8 * mp
+        assert plan.ws_f32 == cd(mp, 32) * n + partials
+
+
+def test_k3_bwd_plan_splits_the_narrow_layers_and_not_the_hidden_ones():
+    nl = noisy_linear_module
+    hidden = nl.backward_plan(2048, 512, 3136, True)  # (M, N, K)
+    assert (hidden.bn_w, hidden.splits) == (64, 1)  # 200 tiles: no partials
+    assert hidden.ws_f32 == 64 * 512
+    for n, bn in ((1, 8), (18, 24)):
+        out = nl.backward_plan(2048, n, 512, True)
+        assert (out.bn_w, out.splits) == (bn, 32)
+    head = nl.backward_plan(3840, 512, 512, True)
+    assert head.splits * 32 >= nl.FULL_WAVE and head.splits > 1
+
+
 # ------------------------------------------- on the card: kernel vs plain twin
 @pytest.fixture
 def cuda():
@@ -247,9 +302,17 @@ def test_k2_kernel_matches_plain(cuda, batch, n, feat, cos):
     torch.testing.assert_close(got.float(), tau_embed_plain(*args).float(), **BF16)
 
 
+# K3 / K3-bwd shapes on the card: the main paths' (hidden, value_out,
+# advantage_out at M 2048), ragged edges, K off the k-tile (200, 2304), N on
+# either side of the narrow path's limit (24, 40, 64), M below one tile (16)
+# and the R2D2 head (512 -> 512 over B x T rows)
+K3_SHAPES = [(2048, 3136, 512), (2048, 512, 18), (2048, 512, 1), (40, 256, 20), (33, 40, 70),
+             (64, 200, 512), (512, 2304, 512), (256, 512, 24), (256, 512, 40), (256, 512, 64),
+             (16, 512, 512), (3840, 512, 512)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(2048, 3136, 512), (2048, 512, 18), (2048, 512, 1),
-                                   (40, 256, 20), (33, 40, 70)])
+@pytest.mark.parametrize("m,k,n", K3_SHAPES)
 @pytest.mark.parametrize("use_noise", [False, True], ids=["greedy", "noisy"])
 @pytest.mark.parametrize("relu", [False, True])
 def test_k3_kernel_matches_plain(cuda, m, k, n, use_noise, relu):
@@ -336,8 +399,7 @@ def test_k2_bwd_kernel_matches_plain(cuda, batch, n, feat, cos):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(2048, 3136, 512), (2048, 512, 18), (2048, 512, 1),
-                                   (40, 256, 20), (33, 40, 70)])
+@pytest.mark.parametrize("m,k,n", K3_SHAPES)
 @pytest.mark.parametrize("use_noise", [False, True], ids=["greedy", "noisy"])
 @pytest.mark.parametrize("relu", [False, True])
 def test_k3_bwd_kernel_matches_plain(cuda, m, k, n, use_noise, relu):
@@ -355,6 +417,70 @@ def test_k3_bwd_kernel_matches_plain(cuda, m, k, n, use_noise, relu):
             assert g_ is None
         else:
             torch.testing.assert_close(g_.float(), w_.float(), **BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(2048, 3136, 512), (2048, 512, 18), (3840, 512, 512),
+                                   (33, 40, 70)])
+def test_k3_bwd_kernel_is_bit_equal_on_a_repeat(cuda, m, k, n):
+    """No atomics: dW's split over M is summed in chunk order, db in tile order."""
+    x, p, e_in, e_out = _k3_inputs(m, k, n)
+    bf = torch.bfloat16
+    xc, w_mu = _t(x, bf).to(cuda), _t(p["w_mu"].T, bf).to(cuda)
+    g = _t(_rng(23).standard_normal((m, n))).to(cuda)
+    y = noisy_linear_plain(xc, w_mu, _t(p["b_mu"]).to(cuda), relu=True)
+    args = [g, y, xc, w_mu, _t(p["w_sigma"].T, bf).to(cuda), _f(_t(e_in)).to(cuda),
+            _f(_t(e_out)).to(cuda)]
+    first = _counted("K3_noisy_linear_bwd", lambda: noisy_linear_bwd(*args))
+    second = _counted("K3_noisy_linear_bwd", lambda: noisy_linear_bwd(*args))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(2048, 3136, 512), (2048, 512, 18), (2048, 512, 1),
+                                   (3840, 512, 512), (33, 40, 70)])
+@pytest.mark.parametrize("use_noise", [False, True], ids=["greedy", "noisy"])
+def test_k3_bwd_stays_inside_the_planned_workspace(cuda, m, k, n, use_noise):
+    """The C entry's own offsets (dy planes, their transpose, db's tile sums,
+    dW's partials) against ``backward_plan``'s sizes: each of the two regions
+    is followed by a canary that the kernel must leave as it was, and the
+    results equal the wrapper's."""
+    import ctypes
+
+    from rainbow_iqn_apex_tpu_torch.kernels import build
+
+    nl = noisy_linear_module
+    x, p, e_in, e_out = _k3_inputs(m, k, n)
+    bf = torch.bfloat16
+    xc, w_mu = _t(x, bf).to(cuda), _t(p["w_mu"].T, bf).to(cuda)
+    g = _t(_rng(24).standard_normal((m, n))).to(cuda)
+    y = noisy_linear_plain(xc, w_mu, _t(p["b_mu"]).to(cuda), relu=True)
+    w_sg, f_in, f_out = ((_t(p["w_sigma"].T, bf).to(cuda), _f(_t(e_in)).to(cuda),
+                          _f(_t(e_out)).to(cuda)) if use_noise else (None, None, None))
+    plan = nl.backward_plan(m, n, k, use_noise)
+    canary = 4096
+    f32_at = nl._cdiv(2 * plan.ws_bf16 + canary, 256) * 256
+    end = f32_at + 4 * plan.ws_f32
+    workspace = torch.full((end + canary,), 0xA5, dtype=torch.uint8, device=cuda)
+    dxc = torch.empty((m, k), dtype=bf, device=cuda)
+    dw_mu = torch.empty((n, k), dtype=bf, device=cuda)
+    db_mu = torch.empty((n,), dtype=torch.float32, device=cuda)
+    dw_sg = torch.empty((n, k), dtype=bf, device=cuda) if use_noise else None
+    db_sg = torch.empty((n,), dtype=torch.float32, device=cuda) if use_noise else None
+    code = nl._bwd_entry()(
+        build.ptr(g), build.ptr(y), build.ptr(xc), build.ptr(w_mu), build.ptr(w_sg),
+        build.ptr(f_in), build.ptr(f_out), build.ptr(dxc), build.ptr(dw_mu), build.ptr(dw_sg),
+        build.ptr(db_mu), build.ptr(db_sg), build.ptr(workspace),
+        ctypes.c_void_p(workspace.data_ptr() + f32_at), m, n, k, plan.bn_w, plan.splits,
+        build.stream_of(cuda))
+    assert code == 0
+    torch.cuda.synchronize()
+    assert bool((workspace[2 * plan.ws_bf16:f32_at] == 0xA5).all())
+    assert bool((workspace[end:] == 0xA5).all())
+    want = noisy_linear_bwd(g, y, xc, w_mu, w_sg, f_in, f_out)
+    for a, b in zip((dxc, dw_mu, db_mu, dw_sg, db_sg), want):
+        assert (a is None and b is None) or torch.equal(a, b)
 
 
 @pytest.mark.cuda
