@@ -188,6 +188,13 @@ PATH_Q_TOL = 2e-3  # their means over tau; actions must agree where the gap > 2x
 K1_TOL = dict(atol=1e-5, rtol=1e-5)  # fp32 loss, td and gradient, summation order only
 K1_OPS_PER_PAIR = 16  # flops per (i, j) pair in the loss, |u|, weight and gradient
 K2B_TOL = dict(atol=1e-2, rtol=1e-2)  # bf16 results of fp32 sums in another order: ~1 ulp
+# K2's other main-path shapes (B, N, F, C), beside bucket 64's [64 x 32, 3136,
+# 64]: the learner's online pass at s' (32 x 32) and the act tick (16 lanes x
+# 32 taus) on F 3136, the jaxgame trunk (F 2304) at 32 x 64 and at its tick,
+# and num_cosines 8 (the reuse scenario's depth, off the MMA's 16); K2-bwd
+# takes the learner's shape at num_cosines 64 and 8
+K2_EXTRA_SHAPES = ((32, 32, 3136, 64), (16, 32, 3136, 64), (32, 64, 2304, 64),
+                   (16, 32, 2304, 64), (64, 32, 3136, 8))
 K3B_TOL = dict(atol=1e-2, rtol=1e-2)  # bf16 dx / dW (fp32 sums, split dy); db fp32
 # K3's other main-path shapes (layer, M, K, N, ReLU), beside bucket 64's: the
 # act tick (16 lanes x 32 taus) and the learner's online pass at s' (K 32) on
@@ -445,24 +452,29 @@ def phase_kernels(torch, cfg):
 
     results = {}
 
-    # K2 -----------------------------------------------------------------
-    taus = torch.rand((batch, taus_n), generator=gen, device=dev)
-    w_e = randn(feat, cos_n, scale=cos_n ** -0.5, dtype=bf)
-    b_e = randn(feat, scale=0.1)
-    phi = randn(batch, feat).relu().to(bf)
-    args = (taus, w_e, b_e, phi)
-    got, want = tau_embed(*args), tau_embed_plain(*args)
-    torch.cuda.synchronize()
-    max_abs, max_rel, ok = errors(torch, got, want, K2_TOL)
-    nbytes = m * 4 + feat * cos_n * 2 + feat * 4 + batch * feat * 2 + m * feat * 2
-    bms, by = bound_ms(nbytes, 2 * m * feat * cos_n, BF16_FLOPS)
-    k_ms, p_ms = time_ms(torch, lambda: tau_embed(*args)), time_ms(torch, lambda: tau_embed_plain(*args))
-    emit({"phase": "kernels", "kernel": "K2_tau_embed", "shape": [m, feat, cos_n],
-          "max_abs_err": max_abs, "max_rel_err": max_rel, "tol": K2_TOL, "ok": ok,
-          "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": None, "bound_ms": bms})
-    check(ok, f"K2 disagrees with its plain twin: max abs {max_abs}")
-    results["K2_tau_embed"] = dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms,
-                                   bound_ms=bms, bound_by=by, library_ms=None)
+    # K2: bucket 64's shape, then each other main-path shape (K2_EXTRA_SHAPES)
+    for b_, n_, f_, c_ in ((batch, taus_n, feat, cos_n),) + K2_EXTRA_SHAPES:
+        rows_ = b_ * n_
+        taus = torch.rand((b_, n_), generator=gen, device=dev)
+        w_e = randn(f_, c_, scale=c_ ** -0.5, dtype=bf)
+        b_e = randn(f_, scale=0.1)
+        phi = randn(b_, f_).relu().to(bf)
+        args = (taus, w_e, b_e, phi)
+        got, want = tau_embed(*args), tau_embed_plain(*args)
+        torch.cuda.synchronize()
+        max_abs, max_rel, ok = errors(torch, got, want, K2_TOL)
+        nbytes = rows_ * 4 + f_ * c_ * 2 + f_ * 4 + b_ * f_ * 2 + rows_ * f_ * 2
+        bms, by = bound_ms(nbytes, 2 * rows_ * f_ * c_, BF16_FLOPS)
+        k_ms = time_ms(torch, lambda: tau_embed(*args))
+        p_ms = time_ms(torch, lambda: tau_embed_plain(*args))
+        emit({"phase": "kernels", "kernel": "K2_tau_embed", "shape": [rows_, f_, c_],
+              "batch": b_, "max_abs_err": max_abs, "max_rel_err": max_rel, "tol": K2_TOL,
+              "ok": ok, "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+              "bound_ms": bms, "bound_by": by})
+        check(ok, f"K2 {[rows_, f_, c_]} disagrees with its plain twin: max abs {max_abs}")
+        if (b_, n_, f_, c_) == (batch, taus_n, feat, cos_n):
+            results["K2_tau_embed"] = dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms,
+                                           bound_ms=bms, bound_by=by, library_ms=None)
 
     # K3: every (N, noise, ReLU) the serving path can ask for, then each other
     # main-path shape (K3_EXTRA_SHAPES) in both modes ------------------------
@@ -595,6 +607,7 @@ def phase_kernels_learn(torch, cfg):
     )
     from rainbow_iqn_apex_tpu_torch.kernels.tau_embed import (
         _cos_features,
+        tau_embed,
         tau_embed_bwd,
         tau_embed_bwd_plain,
     )
@@ -661,22 +674,26 @@ def phase_kernels_learn(torch, cfg):
         nbytes=(2 * batch * n + batch * n_t) * 4 + (2 * batch + batch * n) * 4,
         ops=K1_OPS_PER_PAIR * batch * n * n_t, peak=FP32_FLOPS)
 
-    # K2-bwd ------------------------------------------------------------------
-    taus = torch.rand((batch, n), generator=gen, device=dev)
-    w_e = randn(feat, cos_n, scale=cos_n ** -0.5, dtype=bf)
-    b_e = randn(feat, scale=0.1)
-    phi = randn(batch, feat).relu().to(bf)
-    dh = randn(m, feat, dtype=bf)
-    k2 = (taus, w_e, b_e, phi, dh)
-    dpre = randn(m, feat, dtype=bf)
-    cos_m = _cos_features(taus, cos_n, bf).reshape(m, cos_n)
-    results["K2_tau_embed_bwd"] = report(
-        "K2_tau_embed_bwd", [m, feat, cos_n], K2B_TOL,
-        lambda: tau_embed_bwd(*k2), lambda: tau_embed_bwd_plain(*k2),
-        lambda: torch.matmul(dpre.t(), cos_m),
-        nbytes=(m * 4 + feat * cos_n * 2 + feat * 4 + batch * feat * 2 + m * feat * 2
-                + batch * feat * 2 + feat * cos_n * 2 + feat * 4),
-        ops=2 * 2 * m * feat * cos_n, peak=BF16_FLOPS)
+    # K2-bwd: the learner's shape at the config's num_cosines and at 8 --------
+    for c_ in (cos_n, 8):
+        taus = torch.rand((batch, n), generator=gen, device=dev)
+        w_e = randn(feat, c_, scale=c_ ** -0.5, dtype=bf)
+        b_e = randn(feat, scale=0.1)
+        phi = randn(batch, feat).relu().to(bf)
+        dh = randn(m, feat, dtype=bf)
+        k2 = (taus, w_e, b_e, phi, dh)
+        cos_t = tau_embed(*k2[:4], save_cos=True)[1]  # what K2 saves for the backward
+        dpre = randn(m, feat, dtype=bf)
+        cos_m = _cos_features(taus, c_, bf).reshape(m, c_)
+        res = report(
+            "K2_tau_embed_bwd", [m, feat, c_], K2B_TOL,
+            lambda: tau_embed_bwd(*k2, cos_t=cos_t), lambda: tau_embed_bwd_plain(*k2),
+            lambda: torch.matmul(dpre.t(), cos_m),
+            nbytes=(m * 4 + feat * c_ * 2 + feat * 4 + batch * feat * 2
+                    + m * feat * 2 + batch * feat * 2 + feat * c_ * 2 + feat * 4),
+            ops=2 * 2 * m * feat * c_, peak=BF16_FLOPS)
+        if c_ == cos_n:
+            results["K2_tau_embed_bwd"] = res
 
     # K3-bwd: the learner's noisy layers, then K3's other main-path shapes ----
     k3 = {}
@@ -3712,7 +3729,8 @@ def phase_kernels_mt(torch, cfg):
                                                  bound_ms=bms, bound_by=by, library_ms=None)
 
         dh = torch.randn((m, feat), generator=gen, device=dev).to(bf)
-        got = tau_embed_bwd(*args[:4], dh, game, emb)
+        cos_t = tau_embed(*args, save_cos=True)[1]  # what K2g saves for the backward
+        got = tau_embed_bwd(*args[:4], dh, game, emb, cos_t)
         want = tau_embed_bwd_plain(*args[:4], dh, game, emb)
         torch.cuda.synchronize()
         errs, ok = {}, True
@@ -3724,11 +3742,11 @@ def phase_kernels_mt(torch, cfg):
         # dE is the per-game fp32 sum of the kernel's own bf16 dphi
         de_err, _, de_ok = errors(torch, got[3], game_embed_grad(got[0], game, games), K4_TOL)
         ok = ok and de_ok
-        nbytes = (m * 4 + feat * cos_n * 2 + feat * 4 + batch * feat * 2 + m * feat * 2
-                  + games * feat * 4 + batch * 4 + batch * feat * 2 + feat * cos_n * 2 + feat * 4
-                  + games * feat * 4)
+        nbytes = (m * 4 + feat * cos_n * 2 + feat * 4 + batch * feat * 2
+                  + m * feat * 2 + games * feat * 4 + batch * 4 + batch * feat * 2
+                  + feat * cos_n * 2 + feat * 4 + games * feat * 4)
         bms, by = bound_ms(nbytes, 4 * m * feat * cos_n, BF16_FLOPS)
-        k_ms = time_ms(torch, lambda: tau_embed_bwd(*args[:4], dh, game, emb))
+        k_ms = time_ms(torch, lambda: tau_embed_bwd(*args[:4], dh, game, emb, cos_t))
         p_ms = time_ms(torch, lambda: tau_embed_bwd_plain(*args[:4], dh, game, emb))
         dphi32, game64 = got[0].float(), game.long()
         out = torch.zeros((games, feat), device=dev)
@@ -4134,10 +4152,8 @@ def phase_train_apex_mt(torch):
     """On the card, the two JAX acceptance runs of multi-game Ape-X:
     tests/test_multitask.py's two-game toy run (:389-437) and
     tests/test_replay_reuse.py's reuse run (:284-302), each config field
-    for field but bf16 (the card's path takes no other compute dtype) and,
-    in the reuse run, 16 cosines for the test's 8 (K2 and K2-bwd take the
-    cosine count in multiples of the bf16 MMA's depth of 16), with
-    those tests' own assertions (the JSONL lint of scripts/lint_jsonl.py
+    for field but bf16 (the card's path takes no other compute dtype), the
+    reuse run at the test's 8 cosines, with those tests' own assertions (the JSONL lint of scripts/lint_jsonl.py
     against the port's schema: the script imports the JAX package's)."""
     import tempfile
 
@@ -4186,9 +4202,9 @@ def phase_train_apex_mt(torch):
               and bool(games_rows) and set(games_rows[-1]["games"]) == eval_games
               and all(abs(s - 0.5) <= 0.05 for s in shares)
               and bool(mt_rows) and mt_rows[-1]["hn_median"] is not None)
-    reuse = Config(  # num_cosines 16 where the test has 8: K2 takes multiples of 16
+    reuse = Config(
         env_id="toy:catch", compute_dtype="bfloat16", frame_height=44, frame_width=44,
-        history_length=2, hidden_size=32, num_cosines=16, num_tau_samples=4,
+        history_length=2, hidden_size=32, num_cosines=8, num_tau_samples=4,
         num_tau_prime_samples=4, num_quantile_samples=4, batch_size=16, learning_rate=1e-3,
         multi_step=3, gamma=0.9, memory_capacity=4096, learn_start=256, frames_per_learn=4,
         target_update_period=100, num_envs_per_actor=8, metrics_interval=50, eval_interval=0,
@@ -4220,15 +4236,21 @@ def phase_train_apex_mt(torch):
 
 
 def k3_fields(rows):
-    """K3's and K3-bwd's device time among profile rows (name, us, calls):
-    each share of the window's device time, and the window's total us.  The
-    kernels are named k3_* (csrc/noisy_linear.cu) and k3b_* (its backward)."""
+    """K3's, K3-bwd's, K2's and K2-bwd's device time among profile rows
+    (name, us, calls): each share of the window's device time, and the
+    window's total us.  The kernels are named k3_* (csrc/noisy_linear.cu),
+    k3b_* (its backward), tau_embed_kernel and tau_embed_bwd_kernel (K2g's
+    modes included)."""
     busy = sum(t for _, t, _ in rows)
-    fwd = sum(t for k, t, _ in rows if "k3_wide_kernel" in k or "k3_narrow_kernel" in k)
-    bwd = sum(t for k, t, _ in rows if "k3b_" in k)
-    return {"k3_device_us": fwd, "k3_bwd_device_us": bwd,
-            "k3_share_of_device": fwd / busy if busy else None,
-            "k3_bwd_share_of_device": bwd / busy if busy else None}
+    fields = {}
+    for name, match in (("k3", lambda k: "k3_wide_kernel" in k or "k3_narrow_kernel" in k),
+                        ("k3_bwd", lambda k: "k3b_" in k),
+                        ("k2", lambda k: "tau_embed_kernel" in k),
+                        ("k2_bwd", lambda k: "tau_embed_bwd_kernel" in k)):
+        us = sum(t for k, t, _ in rows if match(k))
+        fields[f"{name}_device_us"] = us
+        fields[f"{name}_share_of_device"] = us / busy if busy else None
+    return fields
 
 
 def device_rows(torch, prof):

@@ -1,7 +1,8 @@
-// Hopper building blocks shared by K3 and K3-bwd (noisy_linear.cu,
-// noisy_linear_bwd.cu): TMA tile loads into a shared-memory ring guarded by
-// mbarriers, wgmma.mma_async on 128-byte-swizzled tiles, and ldmatrix loads
-// of register A fragments from the same tiles.
+// Hopper building blocks shared by K3, K3-bwd (noisy_linear.cu,
+// noisy_linear_bwd.cu), K2 and K2-bwd (tau_embed.cu, tau_embed_bwd.cu): TMA
+// tile loads into a shared-memory ring guarded by mbarriers, wgmma.mma_async
+// on 128-byte-swizzled tiles, and ldmatrix loads of register A fragments from
+// the same tiles.
 //
 // Tile layout.  Every operand tile is a TMA box of 64 bf16 (128 bytes) along
 // the row, loaded with CU_TENSOR_MAP_SWIZZLE_128B into a 1024-byte-aligned
@@ -68,6 +69,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
             : "r"(addr), "r"(parity)
             : "memory");
     } while (!done);
+}
+
+// named barrier over `threads` threads (a multiple of 32) of the block
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// make this thread's shared-memory writes visible to the async proxy (wgmma
+// operands, TMA) before a barrier hands them over
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ------------------------------------------------------------------- TMA
@@ -185,11 +197,40 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// D[64 x 16] += A[64 x 16] * B[16 x 16], A in registers, B K-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b) {
     if constexpr (N == 8) wgmma_rs_n8(d, a, desc_b);
     else if constexpr (N == 24) wgmma_rs_n24(d, a, desc_b);
     else wgmma_rs_n64(d, a, desc_b);
+}
+
+// Copy rows [r0, r0 + 64) x columns [0, 64 * boxes) of a row-major bf16
+// matrix [rows, cols] (row stride ld) into `boxes` SW128 boxes of 64 x 64 at
+// dst, zeros outside the matrix: what a TMA box load gives, for a matrix
+// whose row stride TMA cannot take (ld % 8 != 0).  One warp; the caller
+// fences the writes to the async proxy before wgmma reads them.
+__device__ __forceinline__ void fill_boxes_sw128(uint8_t* dst, const __nv_bfloat16* src, int rows,
+                                                 int cols, int ld, int r0, int boxes, int lane) {
+    for (int i = lane; i < 64 * boxes * 8; i += 32) {
+        const int r = i / (boxes * 8);
+        const int q = i % (boxes * 8);
+        const int c0 = q * 8;  // box q / 8, chunk q % 8
+        uint4 v = make_uint4(0, 0, 0, 0);
+        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
+        if (r0 + r < rows)
+            for (int t = 0; t < 8 && c0 + t < cols; ++t) e[t] = src[(size_t)(r0 + r) * ld + c0 + t];
+        *reinterpret_cast<uint4*>(dst + (q / 8) * 64 * ROW_BYTES + sw128_offset(r, q % 8)) = v;
+    }
 }
 
 // ------------------------------------------------------- host: tensor maps
@@ -221,6 +262,15 @@ inline bool make_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t
                      uint64_t ld, uint32_t box_rows) {
     EncodeTiledFn fn = encode_tiled();
     if (fn == nullptr) return false;
+    // The encode needs the device's context current on this thread, which a
+    // thread whose first CUDA call this is (an autograd worker running K2-bwd
+    // first) does not have yet: cudaSetDevice makes it current.
+    static thread_local bool bound = false;
+    if (!bound) {
+        int dev = 0;
+        if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess) return false;
+        bound = true;
+    }
     const cuuint64_t dims[2] = {cols, rows};
     const cuuint64_t strides[1] = {ld * sizeof(__nv_bfloat16)};
     const cuuint32_t box[2] = {(cuuint32_t)TILE_K, box_rows};

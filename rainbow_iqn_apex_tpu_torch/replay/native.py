@@ -3,15 +3,24 @@
 v1: sum-tree set/find hot loops (sumtree.cc).  v2 adds the fused per-tick
 append and per-batch assembly paths (replay_core.cc).  Builds one shared
 library on first use with g++ (no pip/pybind11 needed) and caches it in
-the port's ``_build/`` directory.  Falls back silently to the NumPy
-implementation when no compiler is available — ``native_available()`` is
-the gate.
+the port's ``_build/`` directory.  The NumPy implementation is taken only
+where no g++ exists (``native_available()`` is the gate): the two draw
+different indices, so a build or load that fails with a compiler present
+raises with the compiler's stderr rather than switching numerics.
+
+Processes that start together (pytest-xdist workers, the trainer's actor
+processes) may all find the library missing: the build runs under an
+exclusive ``flock`` on a lock file beside it, g++ writes a temporary name
+in the same directory, and ``os.replace`` puts the finished file in place,
+so no process ever loads a partial file.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
+import shutil
 import subprocess
 import threading
 from typing import Optional, Tuple
@@ -56,56 +65,76 @@ _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 
 
+def _build() -> None:
+    """Build ``_SO`` unless it exists, under an exclusive lock on a file
+    beside it: a process that arrives mid-build waits for the finished
+    library.  g++ writes a temporary name that ``os.replace`` moves into
+    place, so ``_SO`` is never seen half written."""
+    if os.path.exists(_SO):  # name is content-hashed: exists == fresh
+        return
+    build_dir = os.path.dirname(_SO)
+    os.makedirs(build_dir, exist_ok=True)
+    with open(_SO + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(_SO):  # another process built it while this one waited
+            return
+        tmp = f"{_SO}.{os.getpid()}.tmp"
+        try:
+            done = subprocess.run(
+                ["g++", "-O3", "-march=native", "-shared", "-fPIC", *_SRCS, "-o", tmp],
+                capture_output=True, text=True, timeout=120)
+            if done.returncode != 0:
+                raise RuntimeError(f"building the native replay core failed:\n{done.stderr}")
+            os.replace(tmp, _SO)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+
+
 def _build_and_load() -> Optional[ctypes.CDLL]:
+    """The native library, built at first use; None only where no g++
+    exists.  A failed build or load raises."""
     global _lib, _tried
     with _lock:
         if _lib is not None or _tried:
             return _lib
+        if shutil.which("g++") is None:
+            _tried = True
+            return None
+        _build()
+        lib = ctypes.CDLL(_SO)
+        lib.st_set.argtypes = [_f64p, ctypes.c_int64, _i64p, _f64p, ctypes.c_int64]
+        lib.st_set.restype = None
+        lib.st_find_prefix.argtypes = [
+            _f64p, ctypes.c_int64, ctypes.c_int64, _f64p, _i64p, ctypes.c_int64,
+        ]
+        lib.st_find_prefix.restype = None
+        lib.st_sample.argtypes = [
+            _f64p, ctypes.c_int64, ctypes.c_int64, _f64p, _i64p, _f64p,
+            ctypes.c_int64,
+        ]
+        lib.st_sample.restype = None
+        i64 = ctypes.c_int64
+        lib.rb_append_tick.argtypes = [
+            _u8p, _i32p, _f32p, _u8p, _u8p,  # frames/actions/rewards/term/cuts
+            _f64p, i64,  # tree, span
+            i64, i64, i64, i64, i64, i64, i64,  # lanes seg pos filled hist n fb
+            _u8p, _i32p, _f32p, _u8p,  # new frame/action/reward/terminal
+            ctypes.c_void_p, ctypes.c_void_p,  # truncs?, priorities?
+            ctypes.c_double, ctypes.c_double,  # eps, omega
+            ctypes.POINTER(ctypes.c_double),  # max_priority (inout)
+        ]
+        lib.rb_append_tick.restype = None
+        lib.rb_assemble.argtypes = [
+            _u8p, _i32p, _f32p, _u8p, _u8p,
+            i64, i64, i64, i64, i64,  # seg filled hist n fb
+            _f32p,  # gammas
+            _i64p, i64,  # idx, batch
+            _u8p, _u8p, _i32p, _f32p, _f32p,  # outputs
+        ]
+        lib.rb_assemble.restype = None
+        _lib = lib
         _tried = True
-        try:
-            if not os.path.exists(_SO):  # name is content-hashed: exists == fresh
-                os.makedirs(_BUILD, exist_ok=True)
-                subprocess.run(
-                    ["g++", "-O3", "-march=native", "-shared", "-fPIC", *_SRCS,
-                     "-o", _SO],
-                    check=True,
-                    capture_output=True,
-                    timeout=120,
-                )
-            lib = ctypes.CDLL(_SO)
-            lib.st_set.argtypes = [_f64p, ctypes.c_int64, _i64p, _f64p, ctypes.c_int64]
-            lib.st_set.restype = None
-            lib.st_find_prefix.argtypes = [
-                _f64p, ctypes.c_int64, ctypes.c_int64, _f64p, _i64p, ctypes.c_int64,
-            ]
-            lib.st_find_prefix.restype = None
-            lib.st_sample.argtypes = [
-                _f64p, ctypes.c_int64, ctypes.c_int64, _f64p, _i64p, _f64p,
-                ctypes.c_int64,
-            ]
-            lib.st_sample.restype = None
-            i64 = ctypes.c_int64
-            lib.rb_append_tick.argtypes = [
-                _u8p, _i32p, _f32p, _u8p, _u8p,  # frames/actions/rewards/term/cuts
-                _f64p, i64,  # tree, span
-                i64, i64, i64, i64, i64, i64, i64,  # lanes seg pos filled hist n fb
-                _u8p, _i32p, _f32p, _u8p,  # new frame/action/reward/terminal
-                ctypes.c_void_p, ctypes.c_void_p,  # truncs?, priorities?
-                ctypes.c_double, ctypes.c_double,  # eps, omega
-                ctypes.POINTER(ctypes.c_double),  # max_priority (inout)
-            ]
-            lib.rb_append_tick.restype = None
-            lib.rb_assemble.argtypes = [
-                _u8p, _i32p, _f32p, _u8p, _u8p,
-                i64, i64, i64, i64, i64,  # seg filled hist n fb
-                _f32p,  # gammas
-                _i64p, i64,  # idx, batch
-                _u8p, _u8p, _i32p, _f32p, _f32p,  # outputs
-            ]
-            lib.rb_assemble.restype = None
-            _lib = lib
-        except Exception:
-            _lib = None
         return _lib
 
 

@@ -1,27 +1,37 @@
 #!/usr/bin/env python3
-"""Per-layer times of K3 (the NoisyLinear GEMM) and K3-bwd on the card.
+"""Per-shape times of K3 (the NoisyLinear GEMM), K3-bwd, K2 (the cosine-tau
+embedding merged with phi) and K2-bwd on the card, K2's multi-game modes
+K2g and K2g-bwd included.
 
 Times the port's ``noisy_linear`` and ``noisy_linear_bwd`` at every shape the
 main paths give them (bucket 64's layers and ``chip_smoke.py``'s
 ``K3_EXTRA_SHAPES``: M 2048 / 1024 / 512 over F 3136 and the jaxgame F 2304,
 the 512 -> 1 and 512 -> 18 out layers, the R2D2 head 512 -> 512 over B x T =
-32 x 80 rows and at a 16-lane tick), each beside its plain twin's error, and
-the host time of one wrapper call, with ``chip_smoke.py``'s timers.  The
-port is imported from ``--root`` (default: this checkout), so two trees, e.g.
-a parent commit unpacked into an ignored directory, are compared on one card
-by running the script once per tree in one call:
+32 x 80 rows and at a 16-lane tick), and ``tau_embed`` and ``tau_embed_bwd``
+at theirs (the learner's [B 32 x N 64, F 3136], the online pass at s' [32 x
+32] and serving's bucket 64 [64 x 32], the act tick [16 x 32], the jaxgame
+trunk's F 2304 at [32 x 64] and [16 x 32], the multi-game path's K2g /
+K2g-bwd at [32 x 64, F 2304] and serving's at [64 x 32, F 3136] over four
+games, and num_cosines 8), each beside its plain twin's error, with
+``chip_smoke.py``'s timers (and, for K3, the host time of one wrapper call).
+The port is imported from ``--root`` (default: this checkout), so two trees,
+e.g. a parent commit unpacked into an ignored directory, are compared on one
+card by running the script once per tree in one call:
 
-    python3 scripts/bench_k3.py --label change
-    python3 scripts/bench_k3.py --root parent --label parent
+    python3 scripts/bench_kernels.py --label change
+    python3 scripts/bench_kernels.py --root parent --label parent
 
-Prints one JSON object per (kernel, layer, mode); ``--out`` appends them to a
-file as well; ``--only fwd`` (or ``bwd``, or layer names) times a subset.
-Needs a CUDA card: it exits with 2 where there is none.
+A tree whose K2-bwd recomputes the cos features (no ``save_cos``) is called
+that way; a shape a tree refuses is reported as refused.  Prints one JSON
+object per (kernel, shape, mode); ``--out`` appends them to a file as well;
+``--only fwd`` (or ``bwd``, ``k2``, ``k2bwd``, or layer names) times a
+subset.  Needs a CUDA card: it exits with 2 where there is none.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import sys
@@ -33,6 +43,15 @@ REPS = 30  # CUDA-graph replays per time (median reported)
 # main-path shapes; K3-bwd runs on the learner's online pass, always noisy
 FWD_SHAPES = [("hidden", 2048, 3136, 512, True), ("value_out", 2048, 512, 1, False),
               ("advantage_out", 2048, 512, 18, False)]
+# (name, B, N, F, C, games): games 0 is K2 / K2-bwd
+K2_FWD = [("learner", 32, 64, 3136, 64, 0), ("s_prime", 32, 32, 3136, 64, 0),
+          ("bucket64", 64, 32, 3136, 64, 0), ("act_tick", 16, 32, 3136, 64, 0),
+          ("jaxgame", 32, 64, 2304, 64, 0), ("jaxgame_tick", 16, 32, 2304, 64, 0),
+          ("learner_c8", 32, 64, 3136, 8, 0), ("mt_path", 32, 64, 2304, 64, 4),
+          ("mt_serving", 64, 32, 3136, 64, 4)]
+K2_BWD = [("learner", 32, 64, 3136, 64, 0), ("jaxgame", 32, 64, 2304, 64, 0),
+          ("learner_c8", 32, 64, 3136, 8, 0), ("mt_path", 32, 64, 2304, 64, 4),
+          ("mt_serving", 64, 32, 3136, 64, 4)]
 
 
 def main() -> int:
@@ -42,7 +61,7 @@ def main() -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--seed", type=int, default=11)
     ap.add_argument("--only", default=None,
-                    help="comma-separated kernels (fwd, bwd) or layer names to time; default all")
+                    help="comma-separated kernels (fwd, bwd, k2, k2bwd) or layer names to time; default all")
     args = ap.parse_args()
     only = set(args.only.split(",")) if args.only else None
 
@@ -51,7 +70,7 @@ def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
-        print("bench_k3: needs a CUDA card", file=sys.stderr)
+        print("bench_kernels: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
     from chip_smoke import K3_EXTRA_SHAPES, host_us, time_ms
@@ -64,6 +83,12 @@ def main() -> int:
         noisy_linear_bwd,
         noisy_linear_bwd_plain,
         noisy_linear_plain,
+    )
+    from rainbow_iqn_apex_tpu_torch.kernels.tau_embed import (
+        tau_embed,
+        tau_embed_bwd,
+        tau_embed_bwd_plain,
+        tau_embed_plain,
     )
     from rainbow_iqn_apex_tpu_torch.models.layers import _f
 
@@ -117,6 +142,49 @@ def main() -> int:
               "relu": relu, "max_abs_err": err,
               "ms": time_ms(torch, lambda: noisy_linear_bwd(*a), reps=REPS),
               "host_us": host_us(torch, lambda: noisy_linear_bwd(*a))})
+
+    saves_cos = "save_cos" in inspect.signature(tau_embed).parameters
+
+    def k2_inputs(batch, n, feat, cos_n, games):
+        taus = torch.rand((batch, n), generator=gen, device=dev)
+        w_e = randn(feat, cos_n, scale=cos_n ** -0.5, dtype=bf)
+        phi = randn(batch, feat).relu().to(bf)
+        extra = ()
+        if games:
+            game = (torch.arange(batch, device=dev, dtype=torch.int32) % games).contiguous()
+            extra = (game, randn(games, feat, scale=0.3))
+        return (taus, w_e, randn(feat, scale=0.1), phi), extra
+
+    for name, batch, n, feat, cos_n, games in K2_FWD:
+        if not wanted("k2", name):
+            continue
+        a, extra = k2_inputs(batch, n, feat, cos_n, games)
+        row = {"kernel": "K2g_tau_embed_game" if games else "K2_tau_embed", "at": name,
+               "shape": [batch * n, feat, cos_n, games]}
+        try:
+            err = (tau_embed(*a, *extra).float() - tau_embed_plain(*a, *extra).float()).abs().max()
+        except ValueError as e:
+            emit({**row, "refused": str(e)})
+            continue
+        emit({**row, "max_abs_err": float(err),
+              "ms": time_ms(torch, lambda: tau_embed(*a, *extra), reps=REPS)})
+    for name, batch, n, feat, cos_n, games in K2_BWD:
+        if not wanted("k2bwd", name):
+            continue
+        a, extra = k2_inputs(batch, n, feat, cos_n, games)
+        dh = randn(batch * n, feat, dtype=bf)
+        row = {"kernel": "K2g_tau_embed_game_bwd" if games else "K2_tau_embed_bwd", "at": name,
+               "shape": [batch * n, feat, cos_n, games]}
+        try:
+            kw = {"cos_t": tau_embed(*a, *extra, save_cos=True)[1]} if saves_cos else {}
+            got = tau_embed_bwd(*a, dh, *extra, **kw)
+        except ValueError as e:
+            emit({**row, "refused": str(e)})
+            continue
+        want = tau_embed_bwd_plain(*a, dh, *extra)
+        err = max(float((u.float() - v.float()).abs().max()) for u, v in zip(got, want))
+        emit({**row, "max_abs_err": err,
+              "ms": time_ms(torch, lambda: tau_embed_bwd(*a, dh, *extra, **kw), reps=REPS)})
     return 0
 
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """End-to-end phases of one checkout's ``chip_smoke.py``, and the host time of
-each K3 / K3-bwd wrapper call inside the learn step and the serving dispatch.
+each K3 / K3-bwd and K2 / K2-bwd wrapper call inside the learn step and the
+serving dispatch.
 
 Runs the ``learn``, ``anakin``, ``apex`` and ``anakin_fused`` phases of the
 ``chip_smoke.py`` at ``--root`` on that checkout's port, as the whole script
@@ -12,12 +13,13 @@ run, in the order parent, change, change, parent:
     python3 scripts/k3_e2e.py --label change
 
 Then it runs the ``learn`` and ``serve`` phases once more with a host timer
-around ``noisy_linear`` and ``noisy_linear_bwd``: the wrappers' host time per
-call where the learner casts its weights afresh on every step, so the
-operands' pointers change from call to call.  ``--phases`` and
+around ``noisy_linear``, ``noisy_linear_bwd``, ``tau_embed`` and
+``tau_embed_bwd``: the wrappers' host time per call where the learner casts
+its weights afresh on every step, so the operands' pointers change from call
+to call.  ``--phases`` and
 ``--host-phases`` name other lists of phases (an empty string: none).
 Each phase prints its own JSON line; the script adds one ``k3_host`` line per
-timed phase and a ``k3_e2e`` summary.  Needs a CUDA card: exits with 2 where
+timed phase (``fwd`` / ``bwd`` K3's, ``k2`` / ``k2_bwd`` K2's) and a ``k3_e2e`` summary.  Needs a CUDA card: exits with 2 where
 there is none.
 """
 
@@ -61,6 +63,7 @@ def main() -> int:
     from rainbow_iqn_apex_tpu_torch.config import Config
     from rainbow_iqn_apex_tpu_torch.kernels import build
     from rainbow_iqn_apex_tpu_torch.kernels import noisy_linear as nl
+    from rainbow_iqn_apex_tpu_torch.kernels import tau_embed as te
     from rainbow_iqn_apex_tpu_torch.models import layers
 
     torch.backends.cudnn.allow_tf32 = False
@@ -90,8 +93,9 @@ def main() -> int:
 
     seconds = {name: run(name) for name in args.phases.split(",") if name}
 
-    calls = {"fwd": [], "bwd": []}
+    calls = {"fwd": [], "bwd": [], "k2": [], "k2_bwd": []}
     fwd, bwd = nl.noisy_linear, nl.noisy_linear_bwd
+    k2, k2_bwd = te.tau_embed, te.tau_embed_bwd
 
     def timed(kind, fn):
         def wrapper(*a, **kw):
@@ -103,17 +107,21 @@ def main() -> int:
 
     nl.noisy_linear = layers.noisy_linear = timed("fwd", fwd)
     nl.noisy_linear_bwd = timed("bwd", bwd)
+    te.tau_embed = layers.tau_embed = timed("k2", k2)
+    te.tau_embed_bwd = timed("k2_bwd", k2_bwd)
     try:
         for name in filter(None, args.host_phases.split(",")):
-            calls["fwd"].clear()
-            calls["bwd"].clear()
+            for us in calls.values():
+                us.clear()
             run(name)
             print(json.dumps({"phase": "k3_host", "label": args.label, "of": name,
-                              "fwd": _summary(calls["fwd"]), "bwd": _summary(calls["bwd"])}),
+                              **{kind: _summary(us) for kind, us in calls.items()}}),
                   flush=True)
     finally:
         nl.noisy_linear = layers.noisy_linear = fwd
         nl.noisy_linear_bwd = bwd
+        te.tau_embed = layers.tau_embed = k2
+        te.tau_embed_bwd = k2_bwd
     print(json.dumps({"phase": "k3_e2e", "label": args.label, "root": args.root,
                       "device": torch.cuda.get_device_name(0), "build_s": build_s,
                       "seconds_by_phase": seconds}), flush=True)

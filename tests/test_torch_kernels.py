@@ -73,7 +73,9 @@ from rainbow_iqn_apex_tpu_torch.kernels.noisy_linear import (
     noisy_linear_plain,
 )
 from rainbow_iqn_apex_tpu_torch.kernels.quantile_huber import quantile_huber, quantile_huber_plain
+from rainbow_iqn_apex_tpu_torch.kernels import tau_embed as tau_embed_module
 from rainbow_iqn_apex_tpu_torch.kernels.tau_embed import (
+    TauEmbedFn,
     tau_embed,
     tau_embed_bwd,
     tau_embed_bwd_plain,
@@ -177,6 +179,25 @@ def test_k2_plain_matches_jax_embedding_and_merge(jax_ref, dtype):
                                **(FP32 if dtype == "float32" else BF16))
 
 
+# the shapes the kernels take since their limits were lifted: any num_cosines
+# (8, 24, 72: off the MMA's 16, past one 64-wide box; 13: a row stride TMA
+# cannot take, so W_e is copied by the producer warp), 200 taus a row, batch 1
+# and an odd batch, F off the 64-feature tile
+K2_LIFTED = [(1, 200, 200, 72), (3, 5, 200, 24), (2, 16, 256, 8), (5, 8, 96, 72),
+             (3, 8, 200, 13)]
+
+
+@pytest.mark.parametrize("batch,n,feat,cos", K2_LIFTED)
+def test_k2_plain_matches_jax_at_the_lifted_shapes(jax_ref, batch, n, feat, cos):
+    taus, w, b, phi = _k2_inputs(batch, n, feat, cos)
+    jdt = jax_ref["float32"]
+    psi = JaxCosEmbed(features=feat, num_cosines=cos, compute_dtype=jdt).apply(
+        {"params": {"embed": {"kernel": w, "bias": b}}}, jnp.asarray(taus))
+    want = (jnp.asarray(phi)[:, None, :] * psi).reshape(-1, feat)
+    got = tau_embed_plain(_t(taus), _t(w.T), _t(b), _t(phi))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FP32)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("relu", [False, True])
 @pytest.mark.parametrize("use_noise", [False, True], ids=["greedy", "noisy"])
@@ -278,6 +299,57 @@ def test_k3_bwd_plan_splits_the_narrow_layers_and_not_the_hidden_ones():
     assert head.splits * 32 >= nl.FULL_WAVE and head.splits > 1
 
 
+# ----------------------------------------------- CPU: K2 / K2-bwd launch plans
+# (B, N, F, C): the learner (B 32, N = N' 64, K 32 at s'), serving bucket 64 x
+# K 32, the act tick (16 lanes x 32 taus), jaxgame frames (F 2304), the reuse
+# scenario (N 4, 8; F 256), and the lifted shapes
+K2_PLAN_SHAPES = [(32, 64, 3136, 64), (32, 32, 3136, 64), (64, 32, 3136, 64),
+                  (16, 32, 3136, 64), (32, 64, 2304, 64), (16, 32, 2304, 64), (16, 4, 256, 8),
+                  (32, 8, 256, 8), *K2_LIFTED, (3, 7, 200, 32), (128, 64, 3136, 128)]
+
+
+@pytest.mark.parametrize("batch,n,feat,cos", K2_PLAN_SHAPES)
+def test_k2_plans_cover_every_row_and_feature(batch, n, feat, cos):
+    te = tau_embed_module
+    rows, cd = batch * n, te._cdiv
+    tiles = cd(feat, 64)
+    for limit in (None, lambda size: 8 * (48 // size)):  # a card of 8 groups of 16 SMs
+        splits, cluster = te.forward_plan(rows, feat, cos, False, limit)
+        assert 1 <= splits <= tiles and 1 <= cluster <= 8 and splits % cluster == 0
+        runs = [range(tiles * s // splits, tiles * (s + 1) // splits) for s in range(splits)]
+        assert all(len(r) > 0 for r in runs)  # as csrc/tau_embed.cu cuts them: no idle block
+        assert [t for r in runs for t in r] == list(range(tiles))  # each feature tile once
+        assert cluster == max(d for d in range(1, 9) if splits % d == 0)
+
+    def room(size):  # a card of 8 groups of 16 SMs, three blocks an SM
+        return 8 * (48 // size)
+
+    for limit in (None, room):
+        per_block, clusters = te.backward_plan(rows, n, tiles, limit)
+        assert 1 <= clusters <= 8 and per_block % 64 == 0 and per_block % n == 0
+        assert (clusters - 1) * per_block < rows <= clusters * per_block  # no empty block
+        if limit is not None:  # one wave where any split gives one
+            assert tiles <= room(clusters) or clusters == 1
+    assert te.cos_shape(rows, cos) == (cd(cos, 16) * 16, cd(rows, 64) * 64)
+
+
+def test_k2_autograd_saves_no_cos_features_on_the_cpu():
+    """The CPU path recomputes the cos features in the plain backward:
+    ``save_cos`` gives None beside h, and ``TauEmbedFn``'s gradients are
+    the plain twin's."""
+    taus, w, b, phi = _k2_inputs(3, 5, 200, 24)
+    args = (_t(taus), _t(w.T), _t(b), _t(phi))
+    h, cos_t = tau_embed(*args, save_cos=True)
+    assert cos_t is None and torch.equal(h, tau_embed_plain(*args))
+    leaves = [a.clone().requires_grad_(True) for a in args[1:]]
+    out = TauEmbedFn.apply(args[0], *leaves)
+    dh = _t(_rng(23).standard_normal(out.shape))
+    out.backward(dh)
+    dphi, dw, db = tau_embed_bwd_plain(*args, dh)
+    for leaf, want in zip(leaves, (dw, db, dphi)):
+        assert torch.equal(leaf.grad, want)
+
+
 # ------------------------------------------- on the card: kernel vs plain twin
 @pytest.fixture
 def cuda():
@@ -290,7 +362,8 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch,n,feat,cos", [(64, 32, 3136, 64), (5, 8, 256, 16),
-                                              (3, 7, 200, 32)])
+                                              (3, 7, 200, 32), *K2_LIFTED,
+                                              (5, 64, 3136, 64), (1, 32, 2304, 64)])
 def test_k2_kernel_matches_plain(cuda, batch, n, feat, cos):
     taus, w, b, phi = _k2_inputs(batch, n, feat, cos)
     args = (_t(taus).to(cuda), _t(w.T, torch.bfloat16).to(cuda), _t(b).to(cuda),
@@ -386,16 +459,95 @@ def test_k1_kernel_matches_plain(cuda, b, n, n_t, kappa):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,n,feat,cos", [(32, 64, 3136, 64), (5, 8, 256, 16),
-                                              (3, 7, 200, 32)])
-def test_k2_bwd_kernel_matches_plain(cuda, batch, n, feat, cos):
+@pytest.mark.parametrize("batch,n,feat,cos", [(64, 32, 3136, 64), (5, 8, 256, 16),
+                                              (3, 7, 200, 32), *K2_LIFTED,
+                                              (5, 64, 3136, 64), (1, 32, 2304, 64)])
+def test_k2_saves_the_cos_features_k2_bwd_reads(cuda, batch, n, feat, cos):
+    """cos_t is bf16(cos(pi i tau)) transposed to [Cp, Mp], zeros in the pads,
+    and h is the same with and without it."""
+    from rainbow_iqn_apex_tpu_torch.kernels.tau_embed import _cos_features
+
+    taus, w, b, phi = _k2_inputs(batch, n, feat, cos)
+    bf = torch.bfloat16
+    args = (_t(taus).to(cuda), _t(w.T, bf).to(cuda), _t(b).to(cuda), _t(phi, bf).to(cuda))
+    h, cos_t = tau_embed(*args, save_cos=True)
+    rows = batch * n
+    want = torch.zeros(tau_embed_module.cos_shape(rows, cos), dtype=bf, device=cuda)
+    want[:cos, :rows] = _cos_features(args[0], cos, bf).reshape(rows, cos).t()
+    assert torch.equal(cos_t, want)
+    assert torch.equal(h, tau_embed(*args))
+
+
+def _k2b_args(cuda, batch, n, feat, cos):
     taus, w, b, phi = _k2_inputs(batch, n, feat, cos)
     bf = torch.bfloat16
     dh = _t(_rng(21).standard_normal((batch * n, feat)), bf).to(cuda)
     args = (_t(taus).to(cuda), _t(w.T, bf).to(cuda), _t(b).to(cuda), _t(phi, bf).to(cuda), dh)
-    got = _counted("K2_tau_embed_bwd", lambda: tau_embed_bwd(*args))
+    return args, tau_embed(*args[:4], save_cos=True)[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n,feat,cos", [(32, 64, 3136, 64), (5, 8, 256, 16),
+                                              (3, 7, 200, 32), *K2_LIFTED,
+                                              (5, 64, 3136, 64), (32, 8, 256, 8)])
+def test_k2_bwd_kernel_matches_plain(cuda, batch, n, feat, cos):
+    args, cos_t = _k2b_args(cuda, batch, n, feat, cos)
+    got = _counted("K2_tau_embed_bwd", lambda: tau_embed_bwd(*args, cos_t=cos_t))
     for g, w_ in zip(got, tau_embed_bwd_plain(*args)):
         torch.testing.assert_close(g.float(), w_.float(), **BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n,feat,cos", [(32, 64, 3136, 64), (1, 200, 200, 72)])
+@pytest.mark.parametrize("games", [0, 4])
+def test_k2_bwd_repeats_bit_equal(cuda, batch, n, feat, cos, games):
+    """No atomics: the cluster sums its partials in rank order, so two calls
+    (K2-bwd, and K2g-bwd with dE) give the same bits."""
+    args, cos_t = _k2b_args(cuda, batch, n, feat, cos)
+    extra = {}
+    if games:
+        extra = dict(game=torch.arange(batch, device=cuda, dtype=torch.int32) % games,
+                     emb=_t(_rng(42).normal(0, 0.5, (games, feat))).to(cuda))
+    first = tau_embed_bwd(*args, cos_t=cos_t, **extra)
+    for _ in range(3):
+        for a, b in zip(first, tau_embed_bwd(*args, cos_t=cos_t, **extra)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_k2_bwd_refuses_a_call_without_the_saved_cos_features(cuda):
+    args, cos_t = _k2b_args(cuda, 2, 8, 64, 16)
+    with pytest.raises(ValueError, match="cos_t"):
+        tau_embed_bwd(*args)
+    with pytest.raises(ValueError, match="cos_t"):
+        tau_embed_bwd(*args, cos_t=cos_t[:, :64].contiguous()[:8])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("games", [0, 3])
+def test_k2_autograd_runs_k2_then_k2_bwd_on_the_card(cuda, games):
+    """TauEmbedFn: one K2 launch that saves the cos features, one K2-bwd
+    launch that reads them, and the kernels' own gradients."""
+    args, _ = _k2b_args(cuda, 4, 16, 200, 24)
+    taus, w, b, phi, dh = args
+    extra = ()
+    if games:
+        extra = (torch.arange(4, device=cuda, dtype=torch.int32) % games,
+                 _t(_rng(43).normal(0, 0.5, (games, 200))).to(cuda))
+    fwd, bwd = (("K2_tau_embed", "K2_tau_embed_bwd") if not games
+                else ("K2g_tau_embed_game", "K2g_tau_embed_game_bwd"))
+    leaves = [t.clone().requires_grad_(True) for t in (w, b, phi)]
+    emb = extra[1].clone().requires_grad_(True) if games else None
+    before = dict(launches)
+    out = TauEmbedFn.apply(taus, *leaves, *((extra[0], emb) if games else ()))
+    out.backward(dh)
+    torch.cuda.synchronize()
+    assert launches[fwd] == before[fwd] + 1 and launches[bwd] == before[bwd] + 1
+    h, cos_t = tau_embed(taus, w, b, phi, *extra, save_cos=True)
+    want = tau_embed_bwd(taus, w, b, phi, dh, *extra, cos_t=cos_t)
+    assert torch.equal(out.detach(), h)
+    for leaf, g in zip(leaves + ([emb] if games else []), (want[1], want[2], want[0], *want[3:])):
+        assert torch.equal(leaf.grad, g)
 
 
 @pytest.mark.cuda
@@ -1019,12 +1171,15 @@ def test_multigame_wrappers_run_plain_twins_on_cpu_without_counting():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,n,feat", [(32, 64, 2304), (5, 3, 200)])
-def test_k2g_kernels_match_plain(cuda, batch, n, feat):
-    k2, game, emb, dh, *_ = _mt_inputs(cuda, batch, n, feat, 64, 4)
+@pytest.mark.parametrize("batch,n,feat,cos", [(32, 64, 2304, 64), (5, 3, 200, 64),
+                                              (3, 200, 200, 24), (1, 64, 256, 8),
+                                              (7, 5, 200, 72), (32, 4, 256, 8), (2, 8, 64, 13)])
+def test_k2g_kernels_match_plain(cuda, batch, n, feat, cos):
+    k2, game, emb, dh, *_ = _mt_inputs(cuda, batch, n, feat, cos, 4)
     got = _counted("K2g_tau_embed_game", lambda: tau_embed(*k2, game, emb))
     torch.testing.assert_close(got.float(), tau_embed_plain(*k2, game, emb).float(), **BF16)
-    got = _counted("K2g_tau_embed_game_bwd", lambda: tau_embed_bwd(*k2, dh, game, emb))
+    cos_t = tau_embed(*k2, game, emb, save_cos=True)[1]
+    got = _counted("K2g_tau_embed_game_bwd", lambda: tau_embed_bwd(*k2, dh, game, emb, cos_t))
     want = tau_embed_bwd_plain(*k2, dh, game, emb)
     for g, w in zip(got, want):  # 4 bf16 ulps of the element and of the largest element
         scale = float(w.float().abs().max())

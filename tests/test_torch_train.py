@@ -10,6 +10,7 @@ own bar (catch eval mean > 0.2 after 4,000 frames) runs on the card in
 
 import json
 import os
+import subprocess
 
 import numpy as np
 import pytest
@@ -177,15 +178,32 @@ def test_train_runs_on_cuda_unless_asked_and_raises_without_it(tmp_path, monkeyp
         train(_cfg(tmp_path), max_frames=8)
 
 
+def _jax_native_core_in(tmp_path, monkeypatch):
+    """The JAX package's C++ replay core, built into ``tmp_path`` with its
+    loader's own g++ line and handed to that loader: its build in the source
+    tree has no lock, and the reference's files stay as they are."""
+    from rainbow_iqn_apex_tpu.replay import native as jax_native
+
+    so = str(tmp_path / os.path.basename(jax_native._SO))
+    subprocess.run(["g++", "-O3", "-march=native", "-shared", "-fPIC", *jax_native._SRCS,
+                    "-o", so], check=True, capture_output=True, timeout=120)
+    monkeypatch.setattr(jax_native, "_SO", so)
+    monkeypatch.setattr(jax_native, "_lib", None)
+    monkeypatch.setattr(jax_native, "_tried", False)
+
+
 @pytest.mark.parametrize("use_native", [False, True], ids=["numpy", "native"])
-def test_replay_samples_what_the_jax_package_samples(use_native):
+def test_replay_samples_what_the_jax_package_samples(use_native, tmp_path, monkeypatch):
     """Same seed, same appends, same priority updates: the port's replay
     (a copy) draws the same indices and IS weights and assembles the same
-    batches as the JAX package's."""
+    batches as the JAX package's.  ``native``: both run their C++ cores."""
+    if use_native:
+        _jax_native_core_in(tmp_path, monkeypatch)
     rng = np.random.default_rng(3)
     kw = dict(history=2, n_step=3, gamma=0.9, lanes=2, priority_exponent=0.5,
               priority_eps=1e-6, seed=5, use_native=use_native)
     mine, ref = PrioritizedReplay(256, (8, 8), **kw), JaxReplay(256, (8, 8), **kw)
+    assert (mine._core is not None) == use_native and (ref._core is not None) == use_native
     for t in range(150):
         frames = rng.integers(0, 256, (2, 8, 8), dtype=np.uint8)
         actions = rng.integers(0, 3, 2)
