@@ -32,7 +32,9 @@ and runs every phase, in this order:
 - ``learn_parity``: one full-width learn step on the card against the same
   step through the plain twins on the CPU;
 - ``train``: ``python -m rainbow_iqn_apex_tpu_torch.train`` on ``toy:catch``
-  for 4,000 frames, held to an evaluation score above 0.2;
+  for 4,000 frames at seeds 7, 56, 57 and 58 (fixed before any run of 56-58
+  was read), one process each, all at once, their mean evaluation held
+  above 0.2 and every run above 1,500 learn steps;
 - ``kernels_replay``: the device replay's kernels (K5 PER draw over
   1,000,000 priorities, K6 write-back, K7 append of 16 lanes of 84x84, K8
   assembly at B 32, h 4, n 3) against their twins, timed the same way;
@@ -44,7 +46,7 @@ and runs every phase, in this order:
 - ``anakin_parity``: one fused step on the card against the same step
   through the plain twins on the CPU;
 - ``train_anakin``: ``python -m rainbow_iqn_apex_tpu_torch.train --role
-  anakin`` on ``toy:catch`` for 4,000 frames, held to the same bar;
+  anakin`` on ``toy:catch`` for 4,000 frames, at the same seeds and bar;
 - ``kernels_frontier``: the device sample frontier's kernels (K5f draw with
   IS weights over the 1,000,000-slot mirror of two shards, one of them
   dead, G 8, B 32; K6f write-back at B 32 with repeated ids and zero slots)
@@ -77,15 +79,16 @@ and runs every phase, in this order:
 - ``apex_parity``: one frontier draw and one learn step on the card against
   the same through the plain twins on the CPU;
 - ``train_apex``: ``python -m rainbow_iqn_apex_tpu_torch.train --role apex``
-  with device sampling on ``toy:catch`` for 4,000 frames, held to the bar
-  the JAX ``train_apex`` clears on the same scenario;
+  with device sampling on ``toy:catch`` for 4,000 frames, at the same seeds,
+  held to the bar the JAX ``train_apex`` clears on the same scenario;
 - ``train_apex_quant``: the same with ``--serve-quantize int8
   --quant-agreement-min 0`` at seeds 33-36 (fixed before any run read them),
   one process each, all at once, their mean evaluation held to the same
   bar, with the count of publishes that shipped int8;
 - ``kernels_r2d2``: R2D2's kernels (K9, the resettable LSTM recurrence, at
-  the learner's [32, 120, 512] with planted resets and an act tick's
-  [16, 1, 512]; K9-bwd at [32, 80, 512]; K11, the TD and priority epilogue,
+  [32, 120, 512] with planted resets, the learner's burn-in [32, 40, 512]
+  and train slice [32, 80, 512], and an act tick's [16, 1, 512]; K9-bwd at
+  [32, 80, 512]; K11, the TD and priority epilogue,
   at [32, 80, 18], n 3; K8s-stack at [32, 120, 84, 84], h 4) against their
   twins, timed the same way (K9's yardstick: cuDNN's LSTM layer);
 - ``learn_r2d2``: the R2D2 learner of the reference config (``--role single
@@ -265,6 +268,10 @@ APEX_QUANT_STEPS = 120  # learn steps of the apex_quant run, publishes every APE
 APEX_QUANT_PUBLISH = 40
 # train_apex_quant: four seeds fixed before any run read them (ROADMAP.md C1 step 1)
 QUANT_CATCH_SEEDS = (33, 34, 35, 36)
+# train, train_anakin, train_apex: seed 7 is the JAX tests' own; 56-58 were
+# fixed before any run of them was read.  One seed is one draw from a spread
+# that correct changes of rounding move (PERF.md, C5), so the bar takes four.
+IQN_CATCH_SEEDS = (7, 56, 57, 58)
 # R2D2 (--role single --architecture r2d2), the reference config's widths
 R2D2_KERNELS = ("K9_lstm", "K9_lstm_bwd", "K11_r2d2_td", "K8s_seq_stack")
 R2D2_PARAMS = 8_621_254  # R2D2Net at 84x84x4, LSTM 512, hidden 512, 18 actions
@@ -361,9 +368,8 @@ def time_ms(torch, fn, graph: bool = True, reps: int = REPS) -> float:
     """Median device time of one ``fn()`` in ms: CALLS_PER_REPLAY calls are
     captured in a CUDA graph (so host launch overhead is not timed), and each
     of ``reps`` replays is bracketed by CUDA events.  ``graph=False`` brackets
-    CALLS_PER_REPLAY eager calls instead, for work that is not captured
-    (K9's cooperative launches, cuDNN's LSTM): fair where one call keeps the
-    device busy longer than its launch takes."""
+    CALLS_PER_REPLAY eager calls instead (K9's unrolls, cuDNN's LSTM): fair
+    where one call keeps the device busy longer than its launch takes."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -915,7 +921,7 @@ def profile_learn(torch, agent, prefetcher, ring, committer):
           "wall_us_per_step": wall_us / PROFILE_STEPS,
           "device_us_per_step": device_us / PROFILE_STEPS if rows else "not measured",
           "device_idle_share": 1.0 - device_us / wall_us if rows else "not measured",
-          **k3_fields(rows),
+          **kernel_fields(rows),
           "top": [{"name": k[:80], "us_per_step": t / PROFILE_STEPS, "calls_per_step": c / PROFILE_STEPS}
                   for k, t, c in rows[:15]]})
 
@@ -996,40 +1002,47 @@ def phase_learn_parity(torch, cfg):
 
 
 def phase_train(torch):
-    """The port's training CLI, in process: toy:catch with the scenario of
+    """The port's training CLI: toy:catch with the scenario of
     tests/test_train_integration.py (_cfg), bf16 (the card's path takes no
-    other compute dtype), 4,000 frames; the JAX test's own bar."""
-    _train_catch(torch, "single", "train")
+    other compute dtype), 4,000 frames; the JAX test's own bar, over
+    IQN_CATCH_SEEDS."""
+    _catch_over_seeds("train", "single", IQN_CATCH_SEEDS)
 
 
-def _train_catch(torch, role, phase):
-    """``role``'s catch scenario (``catch_bar.argv``) at seed 7 through the
-    trainer's CLI entry, held to the JAX test's bar."""
-    import contextlib
-    import io
-    import tempfile
+def _catch_over_seeds(phase, role, seeds, env="toy:catch", every_run=False, **run_kw):
+    """``role``'s catch scenario (``catch_bar``) at ``seeds``, one trainer
+    process each, all at once (``catch_bar.run``; ``run_kw`` are its
+    options); held to the scenario's bar: the mean of the evaluations above
+    it (each of them with ``every_run``), and every run above its least
+    count of learn steps.  Returns the runs."""
+    from concurrent.futures import ThreadPoolExecutor
 
     from rainbow_iqn_apex_tpu_torch import catch_bar
-    from rainbow_iqn_apex_tpu_torch.train import main as train_main
 
-    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{phase}_", dir=ROOT) as tmp:
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()):
-            summary = train_main(catch_bar.argv(role, 7, tmp))
-        elapsed = time.perf_counter() - t0
-    row = {"phase": phase, "env": "toy:catch", "frames": summary["frames"],
-           "learn_steps": summary["learn_steps"], "seconds": elapsed,
-           "frames_per_s": summary["frames"] / elapsed,
-           "learn_steps_per_s": summary["learn_steps"] / elapsed,
-           "eval_score_mean": summary["eval_score_mean"],
-           "train_return_mean": summary["train_return_mean"]}
-    if "rollbacks" in summary:
-        row["rollbacks"] = summary["rollbacks"]
+    bar = catch_bar.BARS.get(role, catch_bar.BAR)
+    min_steps = catch_bar.MIN_STEPS.get(role, catch_bar.MIN_LEARN_STEPS)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(seeds)) as pool:
+        runs = list(pool.map(lambda seed: catch_bar.run(role, seed, "cuda:0", **run_kw), seeds))
+    elapsed = time.perf_counter() - t0
+    failed = [r for r in runs if r["rc"] != 0]
+    check(not failed, f"{phase}: a trainer failed: {failed[:1]}")
+    evals = [r["eval_score_mean"] for r in runs]
+    mean = sum(evals) / len(evals)
+    row = {"phase": phase, "env": env, **run_kw, "seeds": list(seeds), "evals": evals,
+           "eval_by_seed": {str(seed): e for seed, e in zip(seeds, evals)}, "eval_mean": mean,
+           "bar": bar, "rule": "each run" if every_run else "mean",
+           "train_returns": [r["train_return_mean"] for r in runs],
+           "learn_steps": [r["learn_steps"] for r in runs], "seconds": elapsed}
+    if "quant_publishes" in runs[0]:
+        row["quant_publishes"] = [r["quant_publishes"] for r in runs]
     emit(row)
-    check(summary["eval_score_mean"] > catch_bar.BAR,
-          f"{phase}: catch eval mean {summary['eval_score_mean']} <= {catch_bar.BAR}")
-    check(summary["learn_steps"] > catch_bar.MIN_LEARN_STEPS,
-          f"{phase}: only {summary['learn_steps']} learn steps")
+    if every_run:
+        check(all(e > bar for e in evals), f"{phase}: a catch eval at or below {bar}: {evals}")
+    else:
+        check(mean > bar, f"{phase}: mean catch eval {mean} <= {bar}")
+    check(all(r["learn_steps"] > min_steps for r in runs), f"{phase}: too few learn steps")
+    return runs
 
 
 # ------------------------------------------------------------ device replay
@@ -1463,7 +1476,7 @@ def profile_anakin(torch, fused, ts, ds, gen, beta):
           "wall_us_per_step": wall_us / PROFILE_STEPS,
           "device_us_per_step": device_us / PROFILE_STEPS if rows else "not measured",
           "device_idle_share": 1.0 - device_us / wall_us if rows else "not measured",
-          **k3_fields(rows),
+          **kernel_fields(rows),
           "top": [{"name": k[:80], "us_per_step": t / PROFILE_STEPS,
                    "calls_per_step": c / PROFILE_STEPS} for k, t, c in rows[:15]]})
 
@@ -1544,10 +1557,10 @@ def phase_anakin_parity(torch, cfg):
 
 
 def phase_train_anakin(torch):
-    """The port's training CLI with ``--role anakin``, in process: toy:catch
-    with the scenario of tests/test_anakin.py (test_anakin_learns_catch),
-    bf16, 4,000 frames; the JAX test's own bar."""
-    _train_catch(torch, "anakin", "train_anakin")
+    """The port's training CLI with ``--role anakin``: toy:catch with the
+    scenario of tests/test_anakin.py (test_anakin_learns_catch), bf16, 4,000
+    frames; the JAX test's own bar, over IQN_CATCH_SEEDS."""
+    _catch_over_seeds("train_anakin", "anakin", IQN_CATCH_SEEDS)
 
 
 def _apex_cfg(cfg):
@@ -1876,7 +1889,7 @@ def profile_apex(torch, driver, feed, ring, committer, tick, per_tick):
           "wall_us_per_step": wall_us / PROFILE_STEPS,
           "device_us_per_step": device_us / PROFILE_STEPS if rows else "not measured",
           "device_idle_share": 1.0 - device_us / wall_us if rows else "not measured",
-          **k3_fields(rows),
+          **kernel_fields(rows),
           "top": [{"name": k[:80], "us_per_step": t / PROFILE_STEPS,
                    "calls_per_step": c / PROFILE_STEPS} for k, t, c in rows[:15]]})
 
@@ -1966,11 +1979,11 @@ def phase_apex_parity(torch, cfg):
 
 
 def phase_train_apex(torch):
-    """The port's training CLI with ``--role apex`` and device sampling, in
-    process: toy:catch with ``catch_bar``'s apex scenario (the single
-    scenario as an Ape-X run), bf16, 4,000 frames, seed 7; the bar the JAX
-    ``train_apex`` clears on the same scenario (PERF.md)."""
-    _train_catch(torch, "apex", "train_apex")
+    """The port's training CLI with ``--role apex`` and device sampling:
+    toy:catch with ``catch_bar``'s apex scenario (the single scenario as an
+    Ape-X run), bf16, 4,000 frames; the bar the JAX ``train_apex`` clears on
+    the same scenario (PERF.md), over IQN_CATCH_SEEDS."""
+    _catch_over_seeds("train_apex", "apex", IQN_CATCH_SEEDS)
 
 
 # ---------------------------------------------------- quantized act path (K10)
@@ -2316,28 +2329,8 @@ def phase_train_apex_quant(torch):
     each, all at once; the mean of their evaluations is held to the bar.
     One seed is one draw from a wide spread (PERF.md §6), so the bar takes
     four; the seeds were fixed before any run of them was read."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from rainbow_iqn_apex_tpu_torch import catch_bar
-
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(QUANT_CATCH_SEEDS)) as pool:
-        runs = list(pool.map(lambda seed: catch_bar.run("apex", seed, "cuda:0",
-                                                        serve_quantize="int8"),
-                             QUANT_CATCH_SEEDS))
-    elapsed = time.perf_counter() - t0
-    failed = [r for r in runs if r["rc"] != 0]
-    check(not failed, f"train_apex_quant: a trainer failed: {failed[:1]}")
-    evals = [r["eval_score_mean"] for r in runs]
-    mean = sum(evals) / len(evals)
-    emit({"phase": "train_apex_quant", "env": "toy:catch", "serve_quantize": "int8",
-          "seeds": list(QUANT_CATCH_SEEDS), "evals": evals, "eval_mean": mean,
-          "train_returns": [r["train_return_mean"] for r in runs],
-          "learn_steps": [r["learn_steps"] for r in runs],
-          "quant_publishes": [r["quant_publishes"] for r in runs], "seconds": elapsed})
-    check(mean > catch_bar.BAR, f"train_apex_quant: mean catch eval {mean} <= {catch_bar.BAR}")
-    check(all(r["learn_steps"] > catch_bar.MIN_LEARN_STEPS for r in runs),
-          "train_apex_quant: too few learn steps")
+    runs = _catch_over_seeds("train_apex_quant", "apex", QUANT_CATCH_SEEDS,
+                             serve_quantize="int8")
     check(all(r["quant_publishes"] > 0 for r in runs),
           "train_apex_quant: a run shipped no int8 publish")
 
@@ -2404,8 +2397,9 @@ def phase_kernels_r2d2(torch, cfg):
         w_i = torch.randn((feat, 4 * hidden), generator=gen, device=dev) * feat ** -0.5
         return lstm, phi, w_i
 
-    # K9 forward -------------------------------------------------------------
-    for b, t, save in ((batch, seq, True), (cfg.num_envs_per_actor, 1, False)):
+    # K9 forward: the whole sequence, the burn-in and train unrolls, an act tick
+    for b, t, save in ((batch, seq, True), (batch, burn, False), (batch, steps, True),
+                       (cfg.num_envs_per_actor, 1, False)):
         args = _lstm_args(torch, gen, b, t, hidden, R2D2_RESET_P)
         got = lstm_forward(*args, save=save)
         want = lstm_forward_plain(*args, save=save)
@@ -2416,7 +2410,9 @@ def phase_kernels_r2d2(torch, cfg):
         nbytes = 4 * (b * t * 4 * hidden + 4 * hidden * hidden + 4 * hidden + 2 * b * hidden
                       + outs) + b * t
         bms, by = bound_ms(nbytes, t * (2 * b * hidden * 4 * hidden + 30 * b * hidden), FP32_FLOPS)
-        k_ms = time_ms(torch, lambda: lstm_forward(*args, save=save), graph=False, reps=R2D2_REPS)
+        # an act tick (T 1) is a plain launch, captured in a CUDA graph like its twin
+        k_ms = time_ms(torch, lambda: lstm_forward(*args, save=save), graph=t == 1,
+                       reps=R2D2_REPS)
         p_ms = time_ms(torch, lambda: lstm_forward_plain(*args, save=save), reps=R2D2_REPS)
         lstm, phi, w_i = cudnn_lstm(b, t)
         with torch.no_grad():
@@ -2430,7 +2426,7 @@ def phase_kernels_r2d2(torch, cfg):
               "input_matmul_ms": xw_ms, "kernel_plus_input_matmul_ms": k_ms + xw_ms,
               "bound_ms": bms, "bound_by": by})
         check(ok, f"K9 [{b}, {t}, {hidden}] disagrees with its twin: max abs {max_abs}")
-        if save:
+        if t == seq:
             results["K9_lstm"] = dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms, bound_ms=bms,
                                       bound_by=by, library_ms=lib_ms)
 
@@ -2642,7 +2638,7 @@ def profile_r2d2(torch, one_step):
           "device_us_per_step": device_us / R2D2_PROFILE_STEPS if rows else "not measured",
           "device_busy_share": device_us / wall_us if rows else "not measured",
           "device_idle_share": 1.0 - device_us / wall_us if rows else "not measured",
-          **k3_fields(rows),
+          **kernel_fields(rows),
           "top": [{"name": k[:80], "us_per_step": t / R2D2_PROFILE_STEPS,
                    "calls_per_step": c / R2D2_PROFILE_STEPS} for k, t, c in rows[:15]]})
 
@@ -2742,26 +2738,7 @@ def phase_train_r2d2(torch):
     test_r2d2_learns_catch, 20,000 frames) at R2D2_CATCH_SEEDS, one trainer
     process each, all at once; the JAX test's bar: more than 100 learn steps
     each and an evaluation mean above 0.3."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from rainbow_iqn_apex_tpu_torch import catch_bar
-
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(R2D2_CATCH_SEEDS)) as pool:
-        runs = list(pool.map(lambda seed: catch_bar.run("r2d2", seed, "cuda:0"),
-                             R2D2_CATCH_SEEDS))
-    elapsed = time.perf_counter() - t0
-    failed = [r for r in runs if r["rc"] != 0]
-    check(not failed, f"train_r2d2: a trainer failed: {failed[:1]}")
-    evals = [r["eval_score_mean"] for r in runs]
-    mean = sum(evals) / len(evals)
-    emit({"phase": "train_r2d2", "env": "toy:catch", "seeds": list(R2D2_CATCH_SEEDS),
-          "evals": evals, "eval_mean": mean,
-          "train_returns": [r["train_return_mean"] for r in runs],
-          "learn_steps": [r["learn_steps"] for r in runs], "seconds": elapsed})
-    check(mean > catch_bar.R2D2_BAR, f"train_r2d2: mean catch eval {mean} <= {catch_bar.R2D2_BAR}")
-    check(all(r["learn_steps"] > catch_bar.R2D2_MIN_LEARN_STEPS for r in runs),
-          "train_r2d2: too few learn steps")
+    _catch_over_seeds("train_r2d2", "r2d2", R2D2_CATCH_SEEDS)
 
 
 # ------------------------------------- R2D2 anakin: the device sequence replay
@@ -3167,7 +3144,7 @@ def profile_anakin_r2d2(torch, fused, ts, ss, gen, beta):
           "device_us_per_step": device_us / n if rows else "not measured",
           "device_busy_share": device_us / wall_us if rows else "not measured",
           "device_idle_share": 1.0 - device_us / wall_us if rows else "not measured",
-          **k3_fields(rows),
+          **kernel_fields(rows),
           "top": [{"name": k[:80], "us_per_step": t / n, "calls_per_step": c / n}
                   for k, t, c in rows[:15]]})
 
@@ -3279,27 +3256,7 @@ def phase_train_anakin_r2d2(torch):
     R2D2_ANAKIN_CATCH_SEEDS, one trainer process each, all at once; the JAX
     test's bar: more than 100 learn steps each and an evaluation mean above
     0.3."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from rainbow_iqn_apex_tpu_torch import catch_bar
-
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(R2D2_ANAKIN_CATCH_SEEDS)) as pool:
-        runs = list(pool.map(lambda seed: catch_bar.run("r2d2_anakin", seed, "cuda:0"),
-                             R2D2_ANAKIN_CATCH_SEEDS))
-    elapsed = time.perf_counter() - t0
-    failed = [r for r in runs if r["rc"] != 0]
-    check(not failed, f"train_anakin_r2d2: a trainer failed: {failed[:1]}")
-    evals = [r["eval_score_mean"] for r in runs]
-    mean = sum(evals) / len(evals)
-    emit({"phase": "train_anakin_r2d2", "env": "toy:catch", "seeds": list(R2D2_ANAKIN_CATCH_SEEDS),
-          "evals": evals, "eval_mean": mean,
-          "train_returns": [r["train_return_mean"] for r in runs],
-          "learn_steps": [r["learn_steps"] for r in runs], "seconds": elapsed})
-    check(mean > catch_bar.R2D2_BAR,
-          f"train_anakin_r2d2: mean catch eval {mean} <= {catch_bar.R2D2_BAR}")
-    check(all(r["learn_steps"] > catch_bar.R2D2_MIN_LEARN_STEPS for r in runs),
-          "train_anakin_r2d2: too few learn steps")
+    _catch_over_seeds("train_anakin_r2d2", "r2d2_anakin", R2D2_ANAKIN_CATCH_SEEDS)
 
 
 # ------------------------------------------------ device games, fused anakin
@@ -3528,7 +3485,7 @@ def profile_fused(torch, segment, carry, key, gen):
           "device_us_per_segment": device_us if rows else "not measured",
           "device_busy_share": device_us / wall_us if rows else "not measured",
           "device_idle_share": 1.0 - device_us / wall_us if rows else "not measured",
-          **k3_fields(rows),
+          **kernel_fields(rows),
           "top": [{"name": k[:80], "us_per_segment": t, "calls": c} for k, t, c in rows[:15]]})
 
 
@@ -3635,26 +3592,8 @@ def phase_train_anakin_fused(torch):
     8,000 frames) at FUSED_CATCH_SEEDS, one trainer process each, all at
     once; the JAX test's bar in every run: eval above 0.5 and more than
     2,500 learn steps."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from rainbow_iqn_apex_tpu_torch import catch_bar
-
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(FUSED_CATCH_SEEDS)) as pool:
-        runs = list(pool.map(lambda seed: catch_bar.run("anakin_fused", seed, "cuda:0"),
-                             FUSED_CATCH_SEEDS))
-    elapsed = time.perf_counter() - t0
-    failed = [r for r in runs if r["rc"] != 0]
-    check(not failed, f"train_anakin_fused: a trainer failed: {failed[:1]}")
-    evals = [r["eval_score_mean"] for r in runs]
-    emit({"phase": "train_anakin_fused", "env": "jaxgame:catch", "seeds": list(FUSED_CATCH_SEEDS),
-          "evals": evals, "eval_mean": sum(evals) / len(evals),
-          "train_returns": [r["train_return_mean"] for r in runs],
-          "learn_steps": [r["learn_steps"] for r in runs], "seconds": elapsed})
-    check(all(e > catch_bar.FUSED_BAR for e in evals),
-          f"train_anakin_fused: a catch eval at or below {catch_bar.FUSED_BAR}: {evals}")
-    check(all(r["learn_steps"] > catch_bar.FUSED_MIN_LEARN_STEPS for r in runs),
-          "train_anakin_fused: too few learn steps")
+    _catch_over_seeds("train_anakin_fused", "anakin_fused", FUSED_CATCH_SEEDS, env="jaxgame:catch",
+                      every_run=True)
 
 
 # ------------------------------------------------- multi-game Ape-X (slice 9)
@@ -3982,7 +3921,7 @@ def phase_apex_mt(torch, cfg):
           "learn_share": shares, "replay_occupancy": occupancy,
           "clip_frac": [r.get("clip_frac") for r in learn_rows],
           "device_idle_share": idle if idle is not None else "not measured",
-          **k3_fields(prof_rows),
+          **kernel_fields(prof_rows),
           "profile_ticks": MT_PROFILE_TICKS, "peak_memory_allocated": peak,
           "launches": counts, "launches_per_batch": MT_PER_BATCH, "launches_per_act": MT_PER_ACT,
           "batch_launch_mismatches": rec["batch_launch_bad"][:3],
@@ -4235,18 +4174,21 @@ def phase_train_apex_mt(torch):
     check(reuse_ok, "train_apex_mt: the multi-game reuse run failed its assertions")
 
 
-def k3_fields(rows):
-    """K3's, K3-bwd's, K2's and K2-bwd's device time among profile rows
-    (name, us, calls): each share of the window's device time, and the
-    window's total us.  The kernels are named k3_* (csrc/noisy_linear.cu),
-    k3b_* (its backward), tau_embed_kernel and tau_embed_bwd_kernel (K2g's
-    modes included)."""
+def kernel_fields(rows):
+    """K3's, K3-bwd's, K2's, K2-bwd's, K9's and K9-bwd's device time among
+    profile rows (name, us, calls): each share of the window's device time,
+    and the window's total us.  The kernels are named k3_*
+    (csrc/noisy_linear.cu), k3b_* (its backward), tau_embed_kernel and
+    tau_embed_bwd_kernel (K2g's modes included), lstm_fwd_kernel and
+    lstm_tick_kernel (K9), lstm_bwd_kernel (K9-bwd)."""
     busy = sum(t for _, t, _ in rows)
     fields = {}
     for name, match in (("k3", lambda k: "k3_wide_kernel" in k or "k3_narrow_kernel" in k),
                         ("k3_bwd", lambda k: "k3b_" in k),
                         ("k2", lambda k: "tau_embed_kernel" in k),
-                        ("k2_bwd", lambda k: "tau_embed_bwd_kernel" in k)):
+                        ("k2_bwd", lambda k: "tau_embed_bwd_kernel" in k),
+                        ("k9", lambda k: "lstm_fwd_kernel" in k or "lstm_tick_kernel" in k),
+                        ("k9_bwd", lambda k: "lstm_bwd_kernel" in k)):
         us = sum(t for k, t, _ in rows if match(k))
         fields[f"{name}_device_us"] = us
         fields[f"{name}_share_of_device"] = us / busy if busy else None
@@ -4282,7 +4224,7 @@ def profile_dispatch(torch, engine, obs, dispatches=20):
           "wall_us_per_dispatch": wall_us / dispatches,
           "device_us_per_dispatch": device_us / dispatches if rows else "not measured",
           "device_idle_share": 1.0 - device_us / wall_us if rows else "not measured",
-          **k3_fields(rows),
+          **kernel_fields(rows),
           "top": [{"name": k[:80], "us_per_dispatch": t / dispatches, "calls": c}
                   for k, t, c in rows[:10]]})
 

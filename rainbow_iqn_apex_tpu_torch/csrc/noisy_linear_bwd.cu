@@ -21,7 +21,12 @@
 // dy = hi + lo with hi = bf16(dy), lo = bf16(dy - hi), and each product runs
 // twice: hi @ W + lo @ W.  What is lost is lo's own rounding, ~2^-17 of dy,
 // far below the final bf16 rounding (2^-9), where a single bf16 dy would
-// add an error as large as that final rounding.
+// add an error as large as that final rounding.  In the noisy dx product
+// dys = dy * f_out gets a third plane, lo2 = bf16(dys - hi - lo) (exact to
+// ~2^-25): where dxc's two terms cancel, its second term rounds twice
+// (bf16(dys @ W_sigma), then the product with f_in), and the two-plane
+// error of dys could move that rounding across a bf16 boundary (the R2D2
+// head's 3840 x 512 x 512 card case did, by 0.0156 at |dxc| 0.5).
 //
 // Bound on the H100 (989 TFLOP/s bf16, 3.35 TB/s): a noisy hidden layer of the
 // learner (M 2048, K 3136, N 512) is four products of 2 M N K = 6.6 GFLOP,
@@ -32,8 +37,9 @@
 //
 // Design: four launches, one count.
 //   1. prep: 32 x 32 tiles of g (and y) form the masked dy and dys, write
-//      their bf16 halves both as planes P [M, N8] (depth n along the row, for
-//      dx) and transposed as PT [N8, MP] (depth m along the row, for dW;
+//      their bf16 planes both as P [M, N8] (depth n along the row, for dx:
+//      dy hi, lo, dys hi, lo, lo2) and transposed as PT [N8, MP] (depth m
+//      along the row, for dW: dy hi, lo, dys hi, lo;
 //      N8 = roundup(N, 8), MP = roundup(M, 8), the pads zero), and sum each
 //      tile's 32 rows of dy per column into dbp [MP / 32, N].
 //   2. dx and 3. dW: one warp-specialised wgmma GEMM, both written transposed
@@ -72,13 +78,14 @@ constexpr int NWG = 2;            // consumer warpgroups: 128 rows k per block
 constexpr int BK = 64 * NWG;
 constexpr int THREADS = NWG * 128 + 32;
 constexpr int BOX_BYTES = 64 * ROW_BYTES;  // a 64 x 64 bf16 box
-constexpr int STAGE_CAP = 196608;           // shared bytes of the ring
+constexpr int STAGE_CAP = 221184;           // shared bytes of the ring: three noisy dx stages
 
 template <int MODE, int BN>
 struct Gemm {
     static constexpr int A_SRC = MODE == MODE_DX ? 2 : 1;  // dx: W_mu, W_sigma; dW: xc
     static constexpr int A_BYTES = A_SRC * NWG * BOX_BYTES;
-    static constexpr int B_BYTES = 4 * BN * ROW_BYTES;     // hi, lo, s_hi, s_lo
+    static constexpr int PLANES = MODE == MODE_DX ? 5 : 4;  // hi, lo, s_hi, s_lo (, s_lo2)
+    static constexpr int B_BYTES = PLANES * BN * ROW_BYTES;
     static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
     static constexpr int STAGES = STAGE_CAP / STAGE_BYTES < 4 ? STAGE_CAP / STAGE_BYTES : 4;
     static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
@@ -92,8 +99,8 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
 __global__ void k3b_prep_kernel(const float* __restrict__ g,      // [M, N]
                             const float* __restrict__ y,      // [M, N] or null (no ReLU)
                             const float* __restrict__ f_out,  // [N] or null (greedy)
-                            __nv_bfloat16* __restrict__ P,    // planes x [M, N8]
-                            __nv_bfloat16* __restrict__ PT,   // planes x [N8, MP]
+                            __nv_bfloat16* __restrict__ P,    // 5 (noisy) or 2 planes x [M, N8]
+                            __nv_bfloat16* __restrict__ PT,   // 4 (noisy) or 2 planes x [N8, MP]
                             float* __restrict__ dbp,          // [MP / 32, N]
                             int M, int N, int N8, int MP) {
     __shared__ float t_dy[32][33];
@@ -124,8 +131,11 @@ __global__ void k3b_prep_kernel(const float* __restrict__ g,      // [M, N]
             P[plane + o] = __float2bfloat16(dy - __bfloat162float(hi));
             if (noisy) {
                 const __nv_bfloat16 shi = __float2bfloat16(ds);
+                const float rest = ds - __bfloat162float(shi);
+                const __nv_bfloat16 slo = __float2bfloat16(rest);
                 P[2 * plane + o] = shi;
-                P[3 * plane + o] = __float2bfloat16(ds - __bfloat162float(shi));
+                P[3 * plane + o] = slo;
+                P[4 * plane + o] = __float2bfloat16(rest - __bfloat162float(slo));
             }
         }
         t_dy[r][tx] = dy;
@@ -165,7 +175,7 @@ template <int MODE, int BN>
 __global__ void __launch_bounds__(THREADS, 1) k3b_gemm_kernel(
     const __grid_constant__ CUtensorMap map_a0,  // dx: W_mu [N, K];   dW: xc [M, K]
     const __grid_constant__ CUtensorMap map_a1,  // dx: W_sigma [N, K] (noisy)
-    const __grid_constant__ CUtensorMap map_b,   // dx: P [planes * M, N8]; dW: PT [planes * N8, MP]
+    const __grid_constant__ CUtensorMap map_b,   // dx: P [5 or 2 planes * M, N8]; dW: PT [4 or 2 planes * N8, MP]
     const float* __restrict__ f_in,              // [K] (noisy) or null
     __nv_bfloat16* __restrict__ out0,            // dx: dxc [M, K];  dW: dW_mu [N, K] (S == 1)
     __nv_bfloat16* __restrict__ out1,            // dW: dW_sigma [N, K] (noisy, S == 1)
@@ -197,7 +207,7 @@ __global__ void __launch_bounds__(THREADS, 1) k3b_gemm_kernel(
     if (warp == 4 * NWG) {  // ------------------------------------ producer
         if (lane == 0) {
             const int srcs = MODE == MODE_DX && noisy ? 2 : 1;
-            const int planes = noisy ? 4 : 2;
+            const int planes = noisy ? C::PLANES : 2;
             const uint32_t bytes = srcs * NWG * BOX_BYTES + planes * BN * ROW_BYTES;
             for (int t = 0; t < tiles; ++t) {
                 const int s = t % C::STAGES;
@@ -250,6 +260,7 @@ __global__ void __launch_bounds__(THREADS, 1) k3b_gemm_kernel(
         const uint64_t d_lo = desc_sw128(b + BN * ROW_BYTES);
         const uint64_t d_shi = desc_sw128(b + 2 * BN * ROW_BYTES);
         const uint64_t d_slo = desc_sw128(b + 3 * BN * ROW_BYTES);
+        const uint64_t d_slo2 = desc_sw128(b + 4 * BN * ROW_BYTES);  // dx only
         uint32_t fa[4][4], fs[4][4];
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
@@ -277,6 +288,7 @@ __global__ void __launch_bounds__(THREADS, 1) k3b_gemm_kernel(
             for (int kk = 0; kk < 4; ++kk) {
                 wgmma_rs<BN>(acc_sg, fs[kk], d_shi + 2 * kk);
                 wgmma_rs<BN>(acc_sg, fs[kk], d_slo + 2 * kk);
+                if (MODE == MODE_DX) wgmma_rs<BN>(acc_sg, fs[kk], d_slo2 + 2 * kk);
             }
         }
         wgmma_commit();
@@ -364,9 +376,9 @@ int launch_gemm(const CUtensorMap& a0, const CUtensorMap& a1, const CUtensorMap&
 }  // namespace
 
 // Workspaces, from the wrapper's plan (kernels/noisy_linear.py):
-//   ws_bf16: planes * M * N8 (P) then planes * N8 * MP (PT) bf16 values,
+//   ws_bf16: p_planes * M * N8 (P) then planes * N8 * MP (PT) bf16 values,
 //   ws_f32:  (MP / 32) * N (dbp) then, when S > 1, 2 * S * N * K (partials),
-// with planes = 4 noisy, 2 greedy.  bn_w is dW's tile width over n (8, 24 or
+// with p_planes = 5 noisy, 2 greedy, and planes = 4 noisy, 2 greedy.  bn_w is dW's tile width over n (8, 24 or
 // 64), S (<= the 64-row tiles of M) the chunks of dW's depth.
 PORT_API int port_noisy_linear_bwd(const void* g, const void* y, const void* xc,
                                    const void* w_mu, const void* w_sigma, const void* f_in,
@@ -379,10 +391,11 @@ PORT_API int port_noisy_linear_bwd(const void* g, const void* y, const void* xc,
     const int N8 = (N + 7) / 8 * 8;
     const int MP = (M + 7) / 8 * 8;
     const int planes = noisy ? 4 : 2;
+    const int p_planes = noisy ? 5 : 2;
     const int m_tiles = (M + TILE_K - 1) / TILE_K;
     if (S > m_tiles) return (int)cudaErrorInvalidValue;  // no chunk may be empty
     auto* P = static_cast<__nv_bfloat16*>(ws_bf16);
-    __nv_bfloat16* PT = P + (size_t)planes * M * N8;
+    __nv_bfloat16* PT = P + (size_t)p_planes * M * N8;
     auto* dbp = static_cast<float*>(ws_f32);
     const int db_chunks = (MP + 31) / 32;
     float* part = S > 1 ? dbp + (size_t)db_chunks * N : nullptr;
@@ -397,7 +410,7 @@ PORT_API int port_noisy_linear_bwd(const void* g, const void* y, const void* xc,
     CUtensorMap m_wmu, m_wsg, m_p, m_x, m_pt;
     if (!make_map(&m_wmu, w_mu, N, K, K, 64) ||
         (noisy && !make_map(&m_wsg, w_sigma, N, K, K, 64)) ||
-        !make_map(&m_p, P, (uint64_t)planes * M, N8, N8, 64) ||
+        !make_map(&m_p, P, (uint64_t)p_planes * M, N8, N8, 64) ||
         !make_map(&m_x, xc, M, K, K, 64) ||
         !make_map(&m_pt, PT, (uint64_t)planes * N8, MP, MP, bn_w))
         return (int)cudaErrorInvalidValue;

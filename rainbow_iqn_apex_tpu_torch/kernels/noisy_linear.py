@@ -81,7 +81,7 @@ def forward_plan(m: int, n: int) -> int:
 class BackwardPlan(NamedTuple):
     bn_w: int  # dW's tile width over n: 8, 24 or 64
     splits: int  # S: chunks of dW's depth M; chunk c is depth tiles [c T / S, (c + 1) T / S)
-    ws_bf16: int  # bf16 values of the dy planes: [planes, M, N8] then [planes, N8, MP]
+    ws_bf16: int  # bf16 values of the dy planes: [5 / 2, M, N8] (dx) then [4 / 2, N8, MP] (dW)
     ws_f32: int  # fp32 values of the column sums [MP / 32, N], then dW's partials
 
 
@@ -93,13 +93,14 @@ def backward_plan(m: int, n: int, k: int, noisy: bool) -> BackwardPlan:
     chunks so that tiles x S fills the 132 SMs, and the chunks' fp32 partials
     are summed in order by the finalize pass."""
     n8, mp = _cdiv(n, 8) * 8, _cdiv(m, 8) * 8
-    planes = 4 if noisy else 2
+    planes = 4 if noisy else 2  # dy hi, lo (, dys hi, lo); dx's P adds dys lo2
+    p_planes = 5 if noisy else 2
     bn_w = 8 if n8 <= 8 else 24 if n8 <= 24 else TILE
     m_tiles = _cdiv(m, TILE)
     tiles = _cdiv(k, BK_BWD) * _cdiv(n, bn_w)
     splits = 1 if tiles >= FULL_WAVE else min(m_tiles, _cdiv(SMS, tiles))
     partials = (2 if noisy else 1) * splits * n * k if splits > 1 else 0
-    return BackwardPlan(bn_w, splits, ws_bf16=planes * m * n8 + planes * n8 * mp,
+    return BackwardPlan(bn_w, splits, ws_bf16=p_planes * m * n8 + planes * n8 * mp,
                         ws_f32=_cdiv(mp, 32) * n + partials)
 
 

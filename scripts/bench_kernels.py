@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Per-shape times of K3 (the NoisyLinear GEMM), K3-bwd, K2 (the cosine-tau
-embedding merged with phi) and K2-bwd on the card, K2's multi-game modes
-K2g and K2g-bwd included.
+embedding merged with phi), K2-bwd, K9 (R2D2's LSTM recurrence) and K9-bwd
+on the card, K2's multi-game modes K2g and K2g-bwd included.
 
 Times the port's ``noisy_linear`` and ``noisy_linear_bwd`` at every shape the
 main paths give them (bucket 64's layers and ``chip_smoke.py``'s
@@ -12,7 +12,12 @@ at theirs (the learner's [B 32 x N 64, F 3136], the online pass at s' [32 x
 32] and serving's bucket 64 [64 x 32], the act tick [16 x 32], the jaxgame
 trunk's F 2304 at [32 x 64] and [16 x 32], the multi-game path's K2g /
 K2g-bwd at [32 x 64, F 2304] and serving's at [64 x 32, F 3136] over four
-games, and num_cosines 8), each beside its plain twin's error, with
+games, and num_cosines 8), and ``lstm_forward`` / ``lstm_backward`` at the
+R2D2 learner's [B 32, T, LSTM 512] (the burn-in T 40, the train slice T 80,
+the whole sequence T 120; the backward over T 80) and the act tick [16, 1,
+512], beside the plain twin and cuDNN's LSTM layer over phi [B, T, 3136]
+(``chip_smoke.py``'s yardstick: it does the input product too, which the
+port leaves to one matmul), each beside its plain twin's error, with
 ``chip_smoke.py``'s timers (and, for K3, the host time of one wrapper call).
 The port is imported from ``--root`` (default: this checkout), so two trees,
 e.g. a parent commit unpacked into an ignored directory, are compared on one
@@ -24,8 +29,13 @@ card by running the script once per tree in one call:
 A tree whose K2-bwd recomputes the cos features (no ``save_cos``) is called
 that way; a shape a tree refuses is reported as refused.  Prints one JSON
 object per (kernel, shape, mode); ``--out`` appends them to a file as well;
-``--only fwd`` (or ``bwd``, ``k2``, ``k2bwd``, or layer names) times a
-subset.  Needs a CUDA card: it exits with 2 where there is none.
+``--only fwd`` (or ``bwd``, ``k2``, ``k2bwd``, ``k9``, ``k9bwd``, or layer
+names) times a subset.  K9's unrolls (T > 1) are timed as eager calls
+between CUDA events, their device time being far above the launch's (a
+parent tree's cooperative launch is not captured in a CUDA graph); the act
+tick is timed that way and, where the tree's K9 has launch plans (a plain
+launch at T 1), in a CUDA graph as well (``graph_ms``).  Needs a CUDA card:
+it exits with 2 where there is none.
 """
 
 from __future__ import annotations
@@ -52,6 +62,11 @@ K2_FWD = [("learner", 32, 64, 3136, 64, 0), ("s_prime", 32, 32, 3136, 64, 0),
 K2_BWD = [("learner", 32, 64, 3136, 64, 0), ("jaxgame", 32, 64, 2304, 64, 0),
           ("learner_c8", 32, 64, 3136, 8, 0), ("mt_path", 32, 64, 2304, 64, 4),
           ("mt_serving", 64, 32, 3136, 64, 4)]
+# (name, B, T, saves for a backward): K9 at the R2D2 learner's and actor's shapes
+K9_FWD = [("burn_in", 32, 40, False), ("train", 32, 80, True), ("sequence", 32, 120, True),
+          ("act_tick", 16, 1, False)]
+K9_BWD = [("train", 32, 80)]
+K9_HIDDEN, K9_FEATURES = 512, 3136  # the reference config's LSTM and trunk widths
 
 
 def main() -> int:
@@ -61,7 +76,8 @@ def main() -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--seed", type=int, default=11)
     ap.add_argument("--only", default=None,
-                    help="comma-separated kernels (fwd, bwd, k2, k2bwd) or layer names to time; default all")
+                    help="comma-separated kernels (fwd, bwd, k2, k2bwd, k9, k9bwd) or layer names "
+                         "to time; default all")
     args = ap.parse_args()
     only = set(args.only.split(",")) if args.only else None
 
@@ -73,7 +89,7 @@ def main() -> int:
         print("bench_kernels: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from chip_smoke import K3_EXTRA_SHAPES, host_us, time_ms
+    from chip_smoke import K3_EXTRA_SHAPES, R2D2_RESET_P, _lstm_args, errors, host_us, time_ms
 
     shapes = FWD_SHAPES + list(K3_EXTRA_SHAPES)
     sys.path.insert(0, os.path.abspath(args.root))
@@ -83,6 +99,13 @@ def main() -> int:
         noisy_linear_bwd,
         noisy_linear_bwd_plain,
         noisy_linear_plain,
+    )
+    from rainbow_iqn_apex_tpu_torch.kernels import lstm as lstm_module
+    from rainbow_iqn_apex_tpu_torch.kernels.lstm import (
+        lstm_backward,
+        lstm_backward_plain,
+        lstm_forward,
+        lstm_forward_plain,
     )
     from rainbow_iqn_apex_tpu_torch.kernels.tau_embed import (
         tau_embed,
@@ -185,6 +208,51 @@ def main() -> int:
         err = max(float((u.float() - v.float()).abs().max()) for u, v in zip(got, want))
         emit({**row, "max_abs_err": err,
               "ms": time_ms(torch, lambda: tau_embed_bwd(*a, dh, *extra, **kw), reps=REPS)})
+
+    def cudnn_ms(batch, steps, backward):
+        """cuDNN's LSTM layer at [batch, steps, K9_HIDDEN] over phi [batch,
+        steps, K9_FEATURES], forward or its backward (input and weight
+        gradients), timed as eager calls."""
+        lstm = torch.nn.LSTM(K9_FEATURES, K9_HIDDEN, batch_first=True).to(dev)
+        phi = randn(batch, steps, K9_FEATURES).requires_grad_(backward)
+        if not backward:
+            with torch.no_grad():
+                return time_ms(torch, lambda: lstm(phi), graph=False, reps=REPS)
+        out, _ = lstm(phi)
+        g_out = randn(*out.shape)
+        wrt = [phi, *lstm.parameters()]
+        return time_ms(torch, lambda: torch.autograd.grad(out, wrt, g_out, retain_graph=True),
+                       graph=False, reps=REPS)
+
+    k9_tol = dict(atol=1e-4, rtol=1e-4)
+    for name, batch, steps, save in K9_FWD:
+        if not wanted("k9", name):
+            continue
+        a = _lstm_args(torch, gen, batch, steps, K9_HIDDEN, R2D2_RESET_P)
+        got, want = lstm_forward(*a, save=save), lstm_forward_plain(*a, save=save)
+        pairs = list(zip(got[:3], want[:3])) + (list(zip(got[3], want[3])) if save else [])
+        err = max(errors(torch, u, v, k9_tol)[0] for u, v in pairs)
+        row = {"kernel": "K9_lstm", "at": name, "shape": [batch, steps, K9_HIDDEN],
+               "saves_for_backward": save, "max_abs_err": err,
+               "ms": time_ms(torch, lambda: lstm_forward(*a, save=save), graph=False, reps=REPS),
+               "plain_ms": time_ms(torch, lambda: lstm_forward_plain(*a, save=save), reps=REPS),
+               "cudnn_ms": cudnn_ms(batch, steps, False)}
+        if steps == 1 and hasattr(lstm_module, "forward_plan"):  # a plain launch at T 1
+            row["graph_ms"] = time_ms(torch, lambda: lstm_forward(*a, save=save), reps=REPS)
+        emit(row)
+    for name, batch, steps in K9_BWD:
+        if not wanted("k9bwd", name):
+            continue
+        xw, w_h, b_h, reset, c0, h0 = _lstm_args(torch, gen, batch, steps, K9_HIDDEN,
+                                                 R2D2_RESET_P)
+        _, _, _, (gates, c_seq) = lstm_forward_plain(xw, w_h, b_h, reset, c0, h0, save=True)
+        a = (randn(batch, steps, K9_HIDDEN), None, None, w_h, reset, gates, c_seq, c0)
+        err = errors(torch, lstm_backward(*a), lstm_backward_plain(*a), k9_tol)[0]
+        emit({"kernel": "K9_lstm_bwd", "at": name, "shape": [batch, steps, K9_HIDDEN],
+              "max_abs_err": err,
+              "ms": time_ms(torch, lambda: lstm_backward(*a), graph=False, reps=REPS),
+              "plain_ms": time_ms(torch, lambda: lstm_backward_plain(*a), reps=REPS),
+              "cudnn_ms": cudnn_ms(batch, steps, True)})
     return 0
 
 

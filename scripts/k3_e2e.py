@@ -3,9 +3,10 @@
 each K3 / K3-bwd and K2 / K2-bwd wrapper call inside the learn step and the
 serving dispatch.
 
-Runs the ``learn``, ``anakin``, ``apex`` and ``anakin_fused`` phases of the
-``chip_smoke.py`` at ``--root`` on that checkout's port, as the whole script
-runs them, so that two trees (say the parent commit unpacked with ``git
+Runs the ``learn``, ``anakin``, ``apex`` and ``anakin_fused`` phases (or,
+with ``--phases``, those named, ``learn_r2d2`` and ``anakin_r2d2`` among
+them) of the ``chip_smoke.py`` at ``--root`` on that checkout's port, as the
+whole script runs them, so that two trees (say the parent commit unpacked with ``git
 archive`` into the ignored ``_compare/``) are compared on one card, run after
 run, in the order parent, change, change, parent:
 
@@ -80,6 +81,8 @@ def main() -> int:
               "anakin": (smoke.phase_anakin, "reference_atari_defaults"),
               "apex": (smoke.phase_apex, "reference_atari_defaults"),
               "anakin_fused": (smoke.phase_anakin_fused, "reference_atari_defaults"),
+              "learn_r2d2": (smoke.phase_learn_r2d2, "reference_atari_defaults"),
+              "anakin_r2d2": (smoke.phase_anakin_r2d2, "reference_atari_defaults"),
               "serve": (smoke.phase_serve, "serve_defaults")}
 
     def run(name):

@@ -21,7 +21,8 @@ K3's fp32 output within 2e-3 abs/rel (tensor-core fp32 accumulation over up
 to 3136 terms in another order), K4 within 1e-5.  The learner's kernels on
 the card: K1 1e-5 (fp32, summation order); K2-bwd and K3-bwd 1e-2 abs/rel
 on their bf16 results (fp32 sums in another order move a bf16 rounding by
-one ulp; K3-bwd splits the fp32 dy into two bf16 halves, exact to ~2^-17),
+one ulp; K3-bwd splits the fp32 dy into two bf16 halves, exact to ~2^-17,
+and dys into three planes in the noisy dx product),
 and K3-bwd bit-equal on a repeat (no atomics);
 K4's gather mode and K4-bwd 1e-6 (one fp32 product and subtraction).
 R2D2's kernels on the card: K9 and K9-bwd 1e-4 abs/rel (fp32 products of
@@ -274,6 +275,7 @@ def test_k3_launch_plans_cover_the_shape(m, k, n):
     for noisy in (False, True):
         plan = nl.backward_plan(m, n, k, noisy)
         n8, mp, planes = cd(n, 8) * 8, cd(m, 8) * 8, 4 if noisy else 2  # as the C entry pads
+        p_planes = 5 if noisy else 2  # dx's planes: dys gets a third (its lo2)
         assert plan.bn_w in (8, 24, 64) and (plan.bn_w >= n8 or plan.bn_w == 64)
         m_tiles = cd(m, 64)
         chunks = [range(c * m_tiles // plan.splits, (c + 1) * m_tiles // plan.splits)
@@ -283,7 +285,7 @@ def test_k3_launch_plans_cover_the_shape(m, k, n):
         tiles = cd(k, nl.BK_BWD) * cd(n, plan.bn_w)
         assert tiles * plan.splits >= min(nl.FULL_WAVE, tiles * m_tiles)
         partials = (2 if noisy else 1) * plan.splits * n * k if plan.splits > 1 else 0
-        assert plan.ws_bf16 == planes * m * n8 + planes * n8 * mp
+        assert plan.ws_bf16 == p_planes * m * n8 + planes * n8 * mp
         assert plan.ws_f32 == cd(mp, 32) * n + partials
 
 
@@ -348,6 +350,75 @@ def test_k2_autograd_saves_no_cos_features_on_the_cpu():
     dphi, dw, db = tau_embed_bwd_plain(*args, dh)
     for leaf, want in zip(leaves, (dw, db, dphi)):
         assert torch.equal(leaf.grad, want)
+
+
+# --------------------------------------------------- CPU: K9 / K9-bwd launch plans
+# (B, T, H): the R2D2 learner's burn-in, train slice and whole sequence, the
+# act tick, the catch scenario (LSTM 64, B 16, burn-in 2, 8 trained steps, 8
+# lanes), the card tests' boundaries, one row, and wide batches of lanes
+K9_PLAN_SHAPES = [(32, 40, 512), (32, 80, 512), (32, 120, 512), (16, 1, 512), (16, 2, 64),
+                  (16, 8, 64), (8, 1, 64), *[(b, t, h) for b in (8, 9, 31, 32, 33)
+                                             for t in (1, 2, 40) for h in (40, 512)],
+                  (1, 5, 512), (256, 1, 512), (256, 80, 512), (64, 80, 480)]
+
+
+@pytest.mark.parametrize("clusters", [8, 7, 1])
+@pytest.mark.parametrize("batch,steps,hidden", K9_PLAN_SHAPES)
+def test_k9_plans_cover_every_row_and_unit(batch, steps, hidden, clusters):
+    """As csrc/lstm.cu cuts the launch: groups of R rows cover the batch
+    with none empty, a group's blocks cover the hidden units, a block fits
+    shared memory; T > 1 is clusters of at most 16 blocks and 8 rows, in one
+    wave of the card's ``clusters`` wherever the batch allows it."""
+    from rainbow_iqn_apex_tpu_torch.kernels import lstm
+
+    cd = lstm._cdiv
+    for plan in (lstm.forward_plan(batch, steps, hidden, clusters),
+                 lstm.backward_plan(batch, steps, hidden, clusters)):
+        assert (plan.groups - 1) * plan.rows < batch <= plan.groups * plan.rows
+        assert (plan.unit_blocks - 1) * plan.units < hidden <= plan.unit_blocks * plan.units
+        assert 0 < plan.shared <= lstm.SHARED_LIMIT
+        assert plan.threads % 32 == 0 and plan.threads <= 1024
+        if plan.cluster:
+            assert plan.unit_blocks <= lstm.MAX_BLOCKS and plan.rows <= lstm.MAX_ROWS
+            assert plan.units == lstm.UNITS and plan.threads == lstm.THREADS
+            if batch <= lstm.MAX_ROWS * clusters:
+                assert plan.groups <= clusters  # every group runs at once
+    assert lstm.forward_plan(batch, steps, hidden, clusters).cluster == (steps > 1)
+    assert lstm.backward_plan(batch, steps, hidden, clusters).cluster
+    assert lstm.forward_plan(batch, 1, hidden, clusters).units == lstm.TICK_UNITS
+
+
+def test_k9_plan_gives_the_learner_batch_eight_clusters_of_sixteen_blocks():
+    """At B 32, LSTM 512: 16 blocks of 32 units a cluster, 4 rows a cluster
+    on a card that runs 8 such clusters at once (5 rows on one that runs
+    7); the act tick runs 128 blocks of 4 units over the 16 lanes, no
+    cluster."""
+    from rainbow_iqn_apex_tpu_torch.kernels import lstm
+
+    for plan in (lstm.forward_plan(32, 120, 512, 8), lstm.forward_plan(32, 40, 512, 8),
+                 lstm.backward_plan(32, 80, 512, 8)):
+        assert (plan.units, plan.unit_blocks, plan.groups, plan.rows) == (32, 16, 8, 4)
+    assert (lstm.forward_plan(32, 80, 512, 7).groups, lstm.forward_plan(32, 80, 512, 7).rows) == (7, 5)
+    tick = lstm.forward_plan(16, 1, 512, 0)
+    assert (tick.units, tick.unit_blocks, tick.groups, tick.rows, tick.cluster) == (
+        4, 128, 1, 16, False)
+    many = lstm.forward_plan(256, 1, 512, 0)  # h of 256 lanes overflows one block: more groups
+    assert many.groups > 1 and many.shared <= lstm.SHARED_LIMIT
+    assert lstm.forward_plan(33, 80, 512, 8).rows == 5  # 7 groups: 5 rows each, 3 in the last
+    assert lstm.forward_plan(256, 80, 512, 8).groups == 32  # 8 rows a cluster, four waves
+
+
+def test_k9_plan_refuses_what_the_kernels_do_not_take():
+    from rainbow_iqn_apex_tpu_torch.kernels import lstm
+
+    with pytest.raises(ValueError):
+        lstm.forward_plan(32, 80, 513, 8)  # wider than a cluster of 16 blocks
+    with pytest.raises(ValueError):
+        lstm.backward_plan(32, 1, 1024, 8)
+    with pytest.raises(ValueError):
+        lstm.forward_plan(0, 80, 512, 8)
+    with pytest.raises(RuntimeError):
+        lstm.forward_plan(32, 80, 512, 0)  # the card runs no such cluster
 
 
 # ------------------------------------------- on the card: kernel vs plain twin
@@ -840,6 +911,102 @@ def test_k9_bwd_kernel_matches_plain(cuda, batch, steps, hidden, final_grads):
     args = (dh_seq, dh_last, dc_last, w_h, reset, gates, c_seq, c0)
     got = _counted("K9_lstm_bwd", lambda: lstm_backward(*args))
     torch.testing.assert_close(got, lstm_backward_plain(*args), **K9_TOL)
+
+
+K9_BATCHES, K9_STEPS, K9_HIDDEN = (8, 9, 31, 32, 33), (1, 2, 40, 80, 120), (40, 512)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", K9_HIDDEN)
+@pytest.mark.parametrize("steps", K9_STEPS)
+@pytest.mark.parametrize("batch", K9_BATCHES)
+def test_k9_kernel_matches_plain_at_the_plan_boundaries(cuda, batch, steps, hidden):
+    """Batch sizes on both sides of the groups' edges (on 7 clusters at
+    once, B 8 and 9: 2 rows a group; 31, 32, 33: 5 rows, the last group
+    partial), LSTM 40 (two blocks of 32 units, the second mostly empty) and
+    512 (16 blocks), the act tick's T 1 (a plain grid) and the learner's
+    unrolls; ~5 % resets planted."""
+    from rainbow_iqn_apex_tpu_torch.kernels.lstm import lstm_forward, lstm_forward_plain
+
+    args = [t.to(cuda) for t in _lstm_inputs(batch, steps, hidden, 48)]
+    got = _counted("K9_lstm", lambda: lstm_forward(*args, save=True))
+    want = lstm_forward_plain(*args, save=True)
+    for g, w in zip((*got[:3], *got[3]), (*want[:3], *want[3])):
+        torch.testing.assert_close(g, w, **K9_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", K9_HIDDEN)
+@pytest.mark.parametrize("steps", K9_STEPS)
+@pytest.mark.parametrize("batch", K9_BATCHES)
+@pytest.mark.parametrize("final_grads", [False, True], ids=["seq_only", "with_final_state"])
+def test_k9_bwd_kernel_matches_plain_at_the_plan_boundaries(cuda, batch, steps, hidden,
+                                                            final_grads):
+    from rainbow_iqn_apex_tpu_torch.kernels.lstm import (
+        lstm_backward,
+        lstm_backward_plain,
+        lstm_forward_plain,
+    )
+
+    xw, w_h, b, reset, c0, h0 = [t.to(cuda) for t in _lstm_inputs(batch, steps, hidden, 49)]
+    _, _, _, (gates, c_seq) = lstm_forward_plain(xw, w_h, b, reset, c0, h0, save=True)
+    r = _rng(50)
+    dh_seq = _t(r.standard_normal((batch, steps, hidden))).to(cuda)
+    dh_last = _t(r.standard_normal((batch, hidden))).to(cuda) if final_grads else None
+    dc_last = _t(r.standard_normal((batch, hidden))).to(cuda) if final_grads else None
+    args = (dh_seq, dh_last, dc_last, w_h, reset, gates, c_seq, c0)
+    got = _counted("K9_lstm_bwd", lambda: lstm_backward(*args))
+    torch.testing.assert_close(got, lstm_backward_plain(*args), **K9_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["first_step", "every_step"])
+@pytest.mark.parametrize("batch,steps,hidden", [(32, 80, 512), (9, 40, 40)])
+def test_k9_and_k9_bwd_with_planted_resets(cuda, pattern, batch, steps, hidden):
+    """A reset at t = 0 on every row (the stored state is dropped at once),
+    and a reset on every step (each step starts from zeros), forward and
+    backward with final-state gradients."""
+    from rainbow_iqn_apex_tpu_torch.kernels.lstm import (
+        lstm_backward,
+        lstm_backward_plain,
+        lstm_forward,
+        lstm_forward_plain,
+    )
+
+    xw, w_h, b, reset, c0, h0 = _lstm_inputs(batch, steps, hidden, 51, p_reset=0.0)
+    if pattern == "first_step":
+        reset[:, 0] = True
+    else:
+        reset[:] = True
+    xw, w_h, b, reset, c0, h0 = [t.to(cuda) for t in (xw, w_h, b, reset, c0, h0)]
+    got = lstm_forward(xw, w_h, b, reset, c0, h0, save=True)
+    want = lstm_forward_plain(xw, w_h, b, reset, c0, h0, save=True)
+    for g, w in zip((*got[:3], *got[3]), (*want[:3], *want[3])):
+        torch.testing.assert_close(g, w, **K9_TOL)
+    r = _rng(52)
+    dh_seq, dh_last, dc_last = (_t(r.standard_normal(shape)).to(cuda) for shape in
+                                ((batch, steps, hidden), (batch, hidden), (batch, hidden)))
+    args = (dh_seq, dh_last, dc_last, w_h, reset, *want[3], c0)
+    torch.testing.assert_close(lstm_backward(*args), lstm_backward_plain(*args), **K9_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,steps,hidden", [(32, 120, 512), (32, 80, 512), (16, 1, 512),
+                                                (33, 40, 40)])
+def test_k9_and_k9_bwd_are_bit_equal_on_a_repeat(cuda, batch, steps, hidden):
+    """Fixed summation orders, no atomics on the numbers: a repeat gives the
+    same bits, also with other launches between the two on the stream."""
+    from rainbow_iqn_apex_tpu_torch.kernels.lstm import lstm_backward, lstm_forward
+
+    xw, w_h, b, reset, c0, h0 = [t.to(cuda) for t in _lstm_inputs(batch, steps, hidden, 53)]
+    first = lstm_forward(xw, w_h, b, reset, c0, h0, save=True)
+    lstm_forward(xw[:5].contiguous(), w_h, b, reset[:5].contiguous(), c0[:5], h0[:5])
+    again = lstm_forward(xw, w_h, b, reset, c0, h0, save=True)
+    for g, w in zip((*first[:3], *first[3]), (*again[:3], *again[3])):
+        assert torch.equal(g, w)
+    dh_seq = _t(_rng(54).standard_normal((batch, steps, hidden))).to(cuda)
+    args = (dh_seq, None, None, w_h, reset, *first[3], c0)
+    assert torch.equal(lstm_backward(*args), lstm_backward(*args))
 
 
 @pytest.mark.cuda
