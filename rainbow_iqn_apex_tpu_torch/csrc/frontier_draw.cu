@@ -7,14 +7,16 @@
 //
 // Replaces DeviceSampleFrontier's _draw (rainbow_iqn_apex_tpu/replay/frontier.py:125-143),
 // one XLA-fused graph on the TPU.  The draw itself is K5's entry point
-// (port_replay_draw: chunk sums, the chained prefix, one search block per
-// draw), so a slot with p = 0 is never drawn and a u that rounds up to the
-// total is clipped onto slot N - 1, as in JAX.  This file adds the epilogue:
-// one block per batch row of B draws, each thread gathers its slot's priority
-// and computes prob and w, and a block reduction takes the row maximum.  The
-// maxima propagate NaN, as jnp.maximum and jnp.max do.  total is K5's chained
-// sum, not a separate reduction as in JAX (mirror.sum()), so prob and weight
-// agree with the JAX graph's to about 1e-6 relative, not bit for bit.
+// (port_replay_draw: one block per chunk of 1,024 slots writes the chunk's
+// sum, then one block per draw scans the chunk sums in nested levels and
+// searches its chunk; see replay_draw.cu), so a slot with p = 0 is never drawn
+// and a u that reaches the total is clipped onto slot N - 1, as in JAX.  This
+// file adds the epilogue: one block per batch row of B draws, each thread
+// gathers its slot's priority and computes prob and w, and a block reduction
+// takes the row maximum.  The maxima propagate NaN, as jnp.maximum and jnp.max
+// do.  total is K5's nested sum, not a separate reduction as in JAX
+// (mirror.sum()), so prob and weight agree with the JAX graph's to about 1e-6
+// relative, not bit for bit.
 //
 // Bound on the H100: the one read of the mirror, 4 MB at N = 1,000,000
 // (~1.2 us at 3.35 TB/s), plus 3 * G * B * 4 bytes out.  The epilogue is G
@@ -23,8 +25,8 @@
 
 #include "common.cuh"
 
-PORT_API int port_replay_draw(const void* p, const void* uniforms, void* partial, void* prefix,
-                              void* idx, void* total, int n, int draws, int B, void* stream);
+PORT_API int port_replay_draw(const void* p, const void* uniforms, void* partial, void* idx,
+                              void* total, int n, int draws, int B, void* stream);
 
 namespace {
 
@@ -65,14 +67,14 @@ __global__ void __launch_bounds__(MAX_B) weights_kernel(
 
 }  // namespace
 
-// p [n] f32 (16-byte aligned), uniforms [G * B] f32, partial [nchunks] and
-// prefix [nchunks + 1] f32 scratch (as port_replay_draw), idx [G * B] int32,
-// total [] f32, prob and weight [G * B] f32.
-PORT_API int port_frontier_draw(const void* p, const void* uniforms, void* partial, void* prefix,
-                                void* idx, void* total, void* prob, void* weight, int n, int G,
-                                int B, float beta, float n_items, void* stream) {
+// p [n] f32 (16-byte aligned), uniforms [G * B] f32, partial [nchunks] f32
+// scratch (as port_replay_draw), idx [G * B] int32, total [] f32, prob and
+// weight [G * B] f32.
+PORT_API int port_frontier_draw(const void* p, const void* uniforms, void* partial, void* idx,
+                                void* total, void* prob, void* weight, int n, int G, int B,
+                                float beta, float n_items, void* stream) {
     if (G < 1 || B < 1 || B > MAX_B) return (int)cudaErrorInvalidValue;
-    const int err = port_replay_draw(p, uniforms, partial, prefix, idx, total, n, G * B, B, stream);
+    const int err = port_replay_draw(p, uniforms, partial, idx, total, n, G * B, B, stream);
     if (err != 0) return err;
     const int threads = ((B + 31) / 32) * 32;
     weights_kernel<<<G, threads, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -1,5 +1,6 @@
 // Hopper building blocks shared by K3, K3-bwd (noisy_linear.cu,
-// noisy_linear_bwd.cu), K2 and K2-bwd (tau_embed.cu, tau_embed_bwd.cu): TMA
+// noisy_linear_bwd.cu), K2 and K2-bwd (tau_embed.cu, tau_embed_bwd.cu) and
+// K10g (noisy_linear_q.cu): TMA
 // tile loads into a shared-memory ring guarded by mbarriers, wgmma.mma_async
 // on 128-byte-swizzled tiles, and ldmatrix loads of register A fragments from
 // the same tiles.
@@ -197,6 +198,16 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// D[64 x 128] += A[64 x 16] * B[16 x 128], A in registers, B K-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // D[64 x 16] += A[64 x 16] * B[16 x 16], A in registers, B K-major in shared memory
 __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b) {
     asm volatile(
@@ -211,6 +222,7 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b) {
     if constexpr (N == 8) wgmma_rs_n8(d, a, desc_b);
     else if constexpr (N == 24) wgmma_rs_n24(d, a, desc_b);
+    else if constexpr (N == 128) wgmma_rs_n128(d, a, desc_b);
     else wgmma_rs_n64(d, a, desc_b);
 }
 
@@ -258,25 +270,47 @@ inline EncodeTiledFn encode_tiled() {
 // as boxes of 64 columns x `box_rows` rows, 128-byte swizzled; false on error.
 // Encoded on every call: the learner casts its weights afresh each step, and
 // an encode is host work only (its cost: scripts/tmap_encode_cost.cu).
-inline bool make_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
-                     uint64_t ld, uint32_t box_rows) {
-    EncodeTiledFn fn = encode_tiled();
-    if (fn == nullptr) return false;
-    // The encode needs the device's context current on this thread, which a
-    // thread whose first CUDA call this is (an autograd worker running K2-bwd
-    // first) does not have yet: cudaSetDevice makes it current.
+// The encode needs the device's context current on this thread, which a
+// thread whose first CUDA call this is (an autograd worker running K2-bwd
+// first) does not have yet: cudaSetDevice makes it current.
+inline bool bind_device() {
     static thread_local bool bound = false;
     if (!bound) {
         int dev = 0;
         if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess) return false;
         bound = true;
     }
+    return true;
+}
+
+inline bool make_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                     uint64_t ld, uint32_t box_rows) {
+    EncodeTiledFn fn = encode_tiled();
+    if (fn == nullptr || !bind_device()) return false;
     const cuuint64_t dims[2] = {cols, rows};
     const cuuint64_t strides[1] = {ld * sizeof(__nv_bfloat16)};
     const cuuint32_t box[2] = {(cuuint32_t)TILE_K, box_rows};
     const cuuint32_t elem[2] = {1, 1};
     return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
               box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+           CUDA_SUCCESS;
+}
+
+// A row-major byte matrix [rows, cols] (row stride ld bytes, ld % 16 == 0) as
+// boxes of 128 bytes x `box_rows` rows, 128-byte swizzled like the bf16
+// boxes: row r of a box at r * 128 bytes, its 16-byte chunk c at c ^ (r % 8).
+// Zeros outside the matrix; false on error.
+inline bool make_map_u8(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                        uint64_t ld, uint32_t box_rows) {
+    EncodeTiledFn fn = encode_tiled();
+    if (fn == nullptr || !bind_device()) return false;
+    const cuuint64_t dims[2] = {cols, rows};
+    const cuuint64_t strides[1] = {ld};
+    const cuuint32_t box[2] = {(cuuint32_t)ROW_BYTES, box_rows};
+    const cuuint32_t elem[2] = {1, 1};
+    return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box,
+              elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
            CUDA_SUCCESS;
 }

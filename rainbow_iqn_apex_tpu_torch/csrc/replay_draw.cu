@@ -8,27 +8,44 @@
 // Replaces DeviceReplay.draw (rainbow_iqn_apex_tpu/replay/device.py:207-220)
 // and the G vmapped draws of sample_grouped (:309-310), XLA-fused on the TPU.
 // As there, a slot with p = 0 has the cdf of its left neighbour, so a right
-// search never lands on it, and a u that rounds up to the total is clipped
-// onto slot N - 1.  The total stays on the device (K8 reads it).
+// search never lands on it, and a u that reaches the last cdf value is
+// clipped onto slot N - 1.  The total stays on the device (K8 and K5f read
+// it).
 //
 // Bound on the H100: the one read of p, 4 MB at N = 1,000,000 (~1.2 us at
-// 3.35 TB/s); the G*B searches are a few hundred.  Design, three launches on
-// one stream, no atomics:
-//   1. chunk sums: one block per CHUNK = 1024 priorities computes the chunk's
-//      local cdf and writes its last value;
-//   2. one block chains the chunk sums into prefix[0..nchunks] (prefix[nchunks]
-//      is the total) and writes the total;
-//   3. one block per uniform counts the chunks whose whole prefix is <= u
-//      (parallel over the prefix array), then rebuilds that one chunk's local
-//      cdf and counts the slots in it with prefix + local cdf <= u.
-// The cdf that passes 1 and 3 agree on is cdf[i] = prefix[c] + local[i], with
-// prefix[c + 1] = prefix[c] + local[last of chunk c] and, inside a chunk,
-// local[i] = off[t] + (the thread's own running sum), off[t + 1] = off[t] +
-// (thread t's sum).  Every link of that chain is one rounded addition of a
-// non-negative value to the previous link, so the cdf is monotone in fp32 as
-// it is in exact arithmetic, and both passes compute it with the same code.
-// The serial links (256 in a chunk, nchunks in pass 2) cost a few us; a
-// faster scan is later work.
+// 3.35 TB/s); the G*B searches read a few KB each.
+//
+// The cdf is a nest of levels, each value an offset plus the value within
+// its group, each next offset the previous offset plus the group's last
+// value (so exactly the group's last value at that level):
+//   - a tile of 1024 values, four consecutive values a thread of 256: r, the
+//     thread's running sum; a = L + r, L chained over the lanes of the warp;
+//     b = W + a, W chained over the 8 warps (tile_scan);
+//   - the chunks of 1024 slots are one such level each (b, the chunk-local
+//     cdf), and their last values, the chunk sums, are scanned by tile_scan
+//     again, in tiles of 1024 chunks chained by T;
+//   - cdf[i] = T + (W' + (L' + (R' + b[i]))), where R', L' and W' are the
+//     chunk's offsets in the chunk-level scan (R' the thread's running sum
+//     before the chunk).
+// Every level adds a non-negative value to the offset it starts from, and
+// rounding is monotone, so the cdf is non-decreasing in fp32 as in exact
+// arithmetic, and a slot with p = 0 repeats its left neighbour's value
+// exactly, at every level's boundary too.  On dyadic priorities every sum is
+// exact.  Each chain is a fold from 0 that every thread of the group repeats
+// over the values before its own (31 adds at most, from shared memory): no
+// single thread walks a long chain, and no sum depends on which block
+// finishes first.  A path from a slot to the total is at most ~90 rounded
+// adds, which bounds the cdf's error against an fp64 one.
+//
+// Two launches on one stream, no atomics:
+//   1. one block per chunk writes the chunk's sum;
+//   2. one block per draw scans the chunk sums (every block the same way),
+//      takes the total and u, counts the chunks whose last cdf value is <= u
+//      (monotone: that count is the chunk holding u), rebuilds that chunk's
+//      cdf and counts its slots <= u.  Block 0 writes the total; with no
+//      draws one block computes the total only.
+// What holds it back: two launches and the latency of each block's chain of
+// L2 reads and barriers, not bandwidth.
 #include "common.cuh"
 
 namespace {
@@ -36,127 +53,172 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int PER_THREAD = 4;
 constexpr int CHUNK = THREADS * PER_THREAD;
+constexpr int WARPS = THREADS / 32;
 
-// The local cdf of chunk `c` (0 past N) into v[], PER_THREAD consecutive
-// values per thread; `sums` is [THREADS + 1] floats of shared memory, and
-// sums[THREADS] holds the chunk's last cdf value on return.
-__device__ __forceinline__ void chunk_cdf(const float* __restrict__ p, int n, int c,
-                                          float v[PER_THREAD], float* sums) {
-    const long base = (long)c * CHUNK + (long)threadIdx.x * PER_THREAD;
+struct Shared {
+    float lane_last[WARPS][32];  // each thread's running sum r[3]
+    float warp_last[WARPS];      // each warp's last lane-level value
+    float bcast[4];
+    int count[WARPS];
+};
+
+// The four values of thread t of tile `tile` of x [n] (0 past n); x is
+// 16-byte aligned (the wrappers check p; the chunk sums are torch's).
+__device__ __forceinline__ void load4(const float* __restrict__ x, long n, long tile,
+                                      float (&v)[PER_THREAD]) {
+    const long base = tile * CHUNK + (long)threadIdx.x * PER_THREAD;
     if (base + PER_THREAD <= n) {
-        const float4 q = *reinterpret_cast<const float4*>(p + base);
+        const float4 q = *reinterpret_cast<const float4*>(x + base);
         v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
     } else {
-        for (int i = 0; i < PER_THREAD; ++i) v[i] = base + i < n ? p[base + i] : 0.f;
+#pragma unroll
+        for (int i = 0; i < PER_THREAD; ++i) v[i] = base + i < n ? x[base + i] : 0.f;
     }
-    for (int i = 1; i < PER_THREAD; ++i) v[i] += v[i - 1];
-    sums[threadIdx.x] = v[PER_THREAD - 1];
+}
+
+// The levels of one tile.  In: v, the thread's four values.  Out: v[i] =
+// r[i], the thread's running sums, and L, W, so that the tile-local value of
+// slot i is W + (L + r[i]).  Ends with a block barrier.
+__device__ __forceinline__ void tile_scan(float (&v)[PER_THREAD], float& L, float& W,
+                                          Shared& sh) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int i = 1; i < PER_THREAD; ++i) v[i] = v[i - 1] + v[i];
+    sh.lane_last[warp][lane] = v[PER_THREAD - 1];
+    __syncwarp();
+    float off = 0.f;  // the lanes before this one, chained in lane order
+#pragma unroll
+    for (int j = 0; j < 31; ++j) {
+        const float s = sh.lane_last[warp][j];
+        off = j < lane ? off + s : off;
+    }
+    L = off;
+    if (lane == 31) sh.warp_last[warp] = off + v[PER_THREAD - 1];
     __syncthreads();
-    if (threadIdx.x == 0) {  // off[t] chained in thread order: the monotone links
-        float run = 0.f;
-        for (int t = 0; t < THREADS; ++t) {
-            const float s = sums[t];
-            sums[t] = run;
-            run += s;
-        }
-        sums[THREADS] = run;
+    float woff = 0.f;  // the warps before this one, chained in warp order
+#pragma unroll
+    for (int j = 0; j < WARPS - 1; ++j) {
+        const float s = sh.warp_last[j];
+        woff = j < warp ? woff + s : woff;
     }
-    __syncthreads();
-    const float off = sums[threadIdx.x];
-    for (int i = 0; i < PER_THREAD; ++i) v[i] = off + v[i];
+    W = woff;
+    __syncthreads();  // lane_last and warp_last may be written again
 }
 
-__global__ void __launch_bounds__(THREADS) chunk_sums_kernel(const float* __restrict__ p, int n,
-                                                             float* __restrict__ partial) {
-    __shared__ float sums[THREADS + 1];
-    float v[PER_THREAD];
-    chunk_cdf(p, n, blockIdx.x, v, sums);
-    if (threadIdx.x == THREADS - 1) partial[blockIdx.x] = v[PER_THREAD - 1];
-}
-
-__global__ void __launch_bounds__(THREADS) chain_kernel(const float* __restrict__ partial, int nchunks,
-                                                        float* __restrict__ prefix,
-                                                        float* __restrict__ total) {
-    constexpr int TILE = 4096;
-    __shared__ float tile[TILE];
-    float run = 0.f;  // thread 0's running prefix
-    for (int t0 = 0; t0 < nchunks; t0 += TILE) {
-        const int m = min(TILE, nchunks - t0);
-        for (int i = threadIdx.x; i < m; i += THREADS) tile[i] = partial[t0 + i];
-        __syncthreads();
-        if (threadIdx.x == 0) {
-            for (int i = 0; i < m; ++i) {
-                prefix[t0 + i] = run;
-                run += tile[i];
-            }
-        }
-        __syncthreads();
-    }
-    if (threadIdx.x == 0) {
-        prefix[nchunks] = run;
-        *total = run;
-    }
-}
-
-__device__ __forceinline__ int block_sum(int x, int* red) {
+__device__ __forceinline__ int block_count(int x, Shared& sh) {
     for (int d = 16; d > 0; d >>= 1) x += __shfl_down_sync(0xffffffffu, x, d);
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
+    if ((threadIdx.x & 31) == 0) sh.count[threadIdx.x >> 5] = x;
     __syncthreads();
     int s = 0;
-    for (int w = 0; w < THREADS / 32; ++w) s += red[w];
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) s += sh.count[w];
     __syncthreads();
     return s;
 }
 
-__global__ void __launch_bounds__(THREADS) search_kernel(const float* __restrict__ p, int n,
-                                                         const float* __restrict__ prefix, int nchunks,
-                                                         const float* __restrict__ uniforms, int B,
-                                                         int* __restrict__ idx) {
-    __shared__ float sums[THREADS + 1];
-    __shared__ int red[THREADS / 32];
+__global__ void __launch_bounds__(THREADS) chunk_sum_kernel(const float* __restrict__ p, int n,
+                                                            float* __restrict__ partial) {
+    __shared__ Shared sh;
+    float v[PER_THREAD], L, W;
+    load4(p, n, blockIdx.x, v);
+    tile_scan(v, L, W, sh);
+    if (threadIdx.x == THREADS - 1) partial[blockIdx.x] = W + (L + v[PER_THREAD - 1]);
+}
+
+__global__ void __launch_bounds__(THREADS) search_kernel(
+    const float* __restrict__ p, int n, const float* __restrict__ partial, int nchunks,
+    const float* __restrict__ uniforms, int draws, int B, int* __restrict__ idx,
+    float* __restrict__ total_out) {
+    __shared__ Shared sh;
+    const int tiles = (nchunks + CHUNK - 1) / CHUNK;
+    // The chunk-level scan, tile by tile of chunk sums, T chained over tiles.
+    // r[j], L and W of the last tile stay in registers for the search.
+    float r[PER_THREAD], L = 0.f, W = 0.f, T = 0.f, T_next = 0.f;
+    for (int t = 0; t < tiles; ++t) {
+        T = T_next;
+        load4(partial, nchunks, t, r);
+        tile_scan(r, L, W, sh);
+        if (threadIdx.x == THREADS - 1) sh.bcast[0] = T + (W + (L + r[PER_THREAD - 1]));
+        __syncthreads();
+        T_next = sh.bcast[0];
+        __syncthreads();
+    }
+    const float total = T_next;  // the last chunk's last cdf value
+    if (blockIdx.x == 0 && threadIdx.x == 0) *total_out = total;
     const int b = blockIdx.x;
-    const float total = prefix[nchunks];
+    if (b >= draws) return;
     const float u = ((float)(b % B) + uniforms[b]) / (float)B * total;
-    // whole chunks before u: #{c : prefix[c + 1] <= u}, prefix is monotone
-    int below = 0;
-    for (int c = threadIdx.x; c < nchunks; c += THREADS) below += prefix[c + 1] <= u ? 1 : 0;
-    const int c = block_sum(below, red);
+
+    // the chunk holding u: #{chunks whose last cdf value is <= u}
+    int c = nchunks;
+    T_next = 0.f;
+    for (int t = 0; t < tiles; ++t) {
+        if (tiles > 1) {  // one tile is still in registers
+            T = T_next;
+            load4(partial, nchunks, t, r);
+            tile_scan(r, L, W, sh);
+        }
+        int below = 0;
+#pragma unroll
+        for (int i = 0; i < PER_THREAD; ++i) below += T + (W + (L + r[i])) <= u ? 1 : 0;
+        const int k = block_count(below, sh);
+        const int in_tile = min(CHUNK, nchunks - t * CHUNK);
+        if (k < in_tile) {  // chunk t * CHUNK + k: its thread hands over its offsets
+            if (threadIdx.x == k / PER_THREAD) {
+                const int j = k % PER_THREAD;
+                float prev = 0.f;  // the thread's running sum before chunk k
+#pragma unroll
+                for (int i = 0; i < PER_THREAD - 1; ++i) prev = i < j ? r[i] : prev;
+                sh.bcast[0] = T;
+                sh.bcast[1] = W;
+                sh.bcast[2] = L;
+                sh.bcast[3] = prev;
+            }
+            c = t * CHUNK + k;
+            break;
+        }
+        if (threadIdx.x == THREADS - 1) sh.bcast[0] = T + (W + (L + r[PER_THREAD - 1]));
+        __syncthreads();
+        T_next = sh.bcast[0];
+        __syncthreads();
+    }
     if (c >= nchunks) {  // u >= the last cdf value: searchsorted gives N, clipped
         if (threadIdx.x == 0) idx[b] = n - 1;
         return;
     }
-    float v[PER_THREAD];
-    chunk_cdf(p, n, c, v, sums);
-    const float start = prefix[c];
-    const long base = (long)c * CHUNK + (long)threadIdx.x * PER_THREAD;
+    __syncthreads();
+    const float cT = sh.bcast[0], cW = sh.bcast[1], cL = sh.bcast[2], cR = sh.bcast[3];
+    // the chunk's own levels, then its offsets in the chunk-level scan
+    float v[PER_THREAD], lL, lW;
+    load4(p, n, c, v);
+    tile_scan(v, lL, lW, sh);
     int count = 0;
-    for (int i = 0; i < PER_THREAD; ++i) count += (base + i < n && start + v[i] <= u) ? 1 : 0;
-    const int k = block_sum(count, red);
+#pragma unroll
+    for (int i = 0; i < PER_THREAD; ++i) {
+        const float local = lW + (lL + v[i]);
+        count += cT + (cW + (cL + (cR + local))) <= u ? 1 : 0;
+    }
+    const int k = block_count(count, sh);
     if (threadIdx.x == 0) idx[b] = min(c * CHUNK + k, n - 1);
 }
 
 }  // namespace
 
-PORT_API int port_replay_draw_scratch(int n) { return (n + CHUNK - 1) / CHUNK; }
-
 // p [n] f32, uniforms [draws] f32 (draws = G * B, B = batch), partial
-// [nchunks] and prefix [nchunks + 1] f32 scratch, idx [draws] int32, total []
-// f32.  draws == 0 computes the total only.
-PORT_API int port_replay_draw(const void* p, const void* uniforms, void* partial, void* prefix,
-                              void* idx, void* total, int n, int draws, int B, void* stream) {
+// [nchunks] f32 scratch (the chunk sums), idx [draws] int32, total [] f32.
+// draws == 0 computes the total only.
+PORT_API int port_replay_draw(const void* p, const void* uniforms, void* partial, void* idx,
+                              void* total, int n, int draws, int B, void* stream) {
+    if (n <= 0 || draws < 0 || (draws > 0 && B < 1)) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int nchunks = (n + CHUNK - 1) / CHUNK;
-    chunk_sums_kernel<<<nchunks, THREADS, 0, s>>>(static_cast<const float*>(p), n,
-                                                  static_cast<float*>(partial));
-    cudaError_t err = cudaGetLastError();
+    chunk_sum_kernel<<<nchunks, THREADS, 0, s>>>(static_cast<const float*>(p), n,
+                                                 static_cast<float*>(partial));
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    chain_kernel<<<1, THREADS, 0, s>>>(static_cast<const float*>(partial), nchunks,
-                                       static_cast<float*>(prefix), static_cast<float*>(total));
-    err = cudaGetLastError();
-    if (err != cudaSuccess || draws == 0) return (int)err;
-    search_kernel<<<draws, THREADS, 0, s>>>(static_cast<const float*>(p), n,
-                                            static_cast<const float*>(prefix), nchunks,
-                                            static_cast<const float*>(uniforms), B,
-                                            static_cast<int*>(idx));
+    search_kernel<<<draws > 0 ? draws : 1, THREADS, 0, s>>>(
+        static_cast<const float*>(p), n, static_cast<const float*>(partial), nchunks,
+        static_cast<const float*>(uniforms), draws, B, static_cast<int*>(idx),
+        static_cast<float*>(total));
     return (int)cudaGetLastError();
 }

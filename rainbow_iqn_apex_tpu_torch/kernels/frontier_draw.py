@@ -9,15 +9,15 @@ Replaces ``DeviceSampleFrontier``'s ``_draw``
     weight = w / (max of w over each row of B)                       f32 [G, B]
 
 Each of the G rows is one learner batch with its own max-normalised IS
-weights.  The kernel's total is K5's chained sum, the twin's ``sum``, JAX's
+weights.  The kernel's total is K5's nested sum, the twin's ``sum``, JAX's
 ``mirror.sum()``: prob and weight agree to about 1e-6 relative, and the ids
 exactly only where the cdf is exact (dyadic priorities); elsewhere an id may
 differ where u lies within rounding of a cdf boundary, as for K5.  beta and
 n_items are rounded to fp32 first, as JAX's jit takes them.
 
 Bound on the H100: one read of the mirror, 4 MB at N = 1,000,000.  The
-kernel (``csrc/frontier_draw.cu``) runs K5's three launches and one epilogue
-block per row.
+kernel (``csrc/frontier_draw.cu``) runs K5's two launches (``replay_draw.py``)
+and one epilogue block per row.
 
 ``frontier_draw`` runs the kernel for CUDA tensors and
 ``frontier_draw_plain`` for CPU tensors.
@@ -58,7 +58,7 @@ def frontier_draw_plain(mirror: torch.Tensor, uniforms: torch.Tensor, beta: floa
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = build.library().port_frontier_draw
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -86,16 +86,16 @@ def frontier_draw(mirror: torch.Tensor, uniforms: torch.Tensor, beta: float, n_i
         raise ValueError("K5f reads the mirror as 16-byte vectors: align it")
     chunks = -(-n // CHUNK)
     dev = mirror.device
-    scratch = torch.empty((2 * chunks + 1,), dtype=torch.float32, device=dev)
+    chunk_sums = torch.empty((chunks,), dtype=torch.float32, device=dev)
     idx = torch.empty((groups, batch), dtype=torch.int32, device=dev)
     total = torch.empty((), dtype=torch.float32, device=dev)
     prob = torch.empty((groups, batch), dtype=torch.float32, device=dev)
     weight = torch.empty((groups, batch), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         code = _entry()(
-            build.ptr(mirror), build.ptr(uniforms), build.ptr(scratch[:chunks]),
-            build.ptr(scratch[chunks:]), build.ptr(idx), build.ptr(total), build.ptr(prob),
-            build.ptr(weight), n, groups, batch, _f32(beta), _f32(max(n_items, 1.0)),
+            build.ptr(mirror), build.ptr(uniforms), build.ptr(chunk_sums), build.ptr(idx),
+            build.ptr(total), build.ptr(prob), build.ptr(weight), n, groups, batch, _f32(beta),
+            _f32(max(n_items, 1.0)),
             build.stream_of(dev))
     build.check_launch(NAME, code)
     return idx, prob, weight

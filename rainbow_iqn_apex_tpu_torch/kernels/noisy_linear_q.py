@@ -15,10 +15,19 @@ weight before the product, not to the product's sum ((x @ q) * s rounds
 differently from the JAX graph); the activations are not quantized.
 
 Bound on the H100: the products of K3 (6.6 GFLOP per serving hidden layer
-at M = 2048, K = 3136, N = 512, ~7 us of bf16 tensor-core time), with one
-byte per weight read: compute-bound; the *_out layers are launch-bound.
-The kernel (``csrc/noisy_linear_q.cu``) is K3's tiled GEMM with the weight
-tiles streamed raw and converted to bf16 in shared memory.
+at M = 2048, K = 3136, N = 512, ~6.7 us of bf16 tensor-core time), with one
+byte per weight read: operation-bound; the *_out layers are bound by x's
+bytes and the launch.  The kernel (``csrc/noisy_linear_q.cu``), one launch a
+layer either way: N > 32 runs a TMA-fed wgmma GEMM with the operands swapped
+(y^T = W x^T): each consumer warpgroup turns its 64 weight rows' raw bytes
+into bf16 register fragments (the A operand) and x is the shared-memory B
+operand, so converted weights never go through shared memory (a tile is
+128 weight rows by 128 tokens greedy, 64 noisy); its k range is split in
+order over a thread-block cluster where the tiles alone would leave the
+card idle (``forward_plan``); N <= 32 runs K3's mma.sync kernel with the B
+fragments built in registers from the bytes.  What holds it back:
+converting the weights on the consumers' issue slots, again for each tile
+of tokens (the tensor cores wait on it).
 
 ``noisy_linear_q`` runs the kernel for CUDA tensors and
 ``noisy_linear_q_plain`` for CPU tensors.
@@ -28,17 +37,59 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from rainbow_iqn_apex_tpu_torch.kernels import build
-from rainbow_iqn_apex_tpu_torch.kernels.noisy_linear import noisy_linear_plain
+from rainbow_iqn_apex_tpu_torch.kernels.noisy_linear import (
+    FULL_WAVE,
+    NARROW_N,
+    SMS,
+    noisy_linear_plain,
+)
 from rainbow_iqn_apex_tpu_torch.utils.quantize import dequantize_plain
 
 NAME = "K10g_noisy_linear_q"
 SOURCE = "rainbow_iqn_apex_tpu_torch/csrc/noisy_linear_q.cu"
 REPLACES = "rainbow_iqn_apex_tpu/utils/quantize.py:239"
+TILE_W, TILE_K = 128, 128  # a wide block's weight rows and k step
+TILE_T = {False: 128, True: 64}  # its tokens, greedy and noisy
+MAX_SPLITS = 8  # blocks of a portable cluster
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=256)
+def forward_plan(m: int, n: int, k: int, noisy: bool, clusters: Tuple[int, ...]) -> int:
+    """K10g's path for an [m, k] x [n, k]^T product: 0 is the narrow mma.sync
+    kernel (N <= 32), else the blocks of one cluster that split each wide
+    tile's (128 weight rows x ``TILE_T[noisy]`` tokens) k range in order: 1
+    where the tiles fill a wave, else the most (up to 8, and one a k step)
+    whose clusters all fit on the card at once (``clusters[s - 1]``: how many
+    clusters of s blocks it holds, the occupancy query) within its SMs."""
+    if n <= NARROW_N:
+        return 0
+    tiles = _cdiv(m, TILE_T[noisy]) * _cdiv(n, TILE_W)
+    splits = 1
+    if tiles < FULL_WAVE:
+        for s in range(2, min(MAX_SPLITS, _cdiv(k, TILE_K)) + 1):
+            if tiles * s <= SMS and tiles <= clusters[s - 1]:
+                splits = s
+    return splits
+
+
+@functools.lru_cache(maxsize=None)
+def max_clusters(index: int, noisy: bool) -> Tuple[int, ...]:
+    """How many clusters of 1 .. 8 wide K10g blocks the card ``index`` runs
+    at once (the occupancy query; 0 where it cannot say)."""
+    fn = build.library().port_noisy_linear_q_max_clusters
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(index):
+        return tuple(int(fn(s, int(noisy))) for s in range(1, MAX_SPLITS + 1))
 
 
 def noisy_linear_q_plain(x: torch.Tensor, qw_mu: torch.Tensor, sw_mu: torch.Tensor,
@@ -65,7 +116,7 @@ def noisy_linear_q_plain(x: torch.Tensor, qw_mu: torch.Tensor, sw_mu: torch.Tens
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = build.library().port_noisy_linear_q
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -112,12 +163,14 @@ def noisy_linear_q(x: torch.Tensor, qw_mu: torch.Tensor, sw_mu: torch.Tensor,
             raise ValueError("K10g inputs must be contiguous on one device")
     if any(t.data_ptr() % 16 for t in (x, qw_mu, qw_sigma) if t is not None):
         raise ValueError("K10g x and weights must be 16-byte aligned")
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    splits = forward_plan(m, n, k, noisy, max_clusters(index, noisy))
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     p = build.ptr
     with torch.cuda.device(x.device):
         code = _entry()(
             p(x), p(qw_mu), p(sw_mu), p(qb_mu), p(sb_mu), p(qw_sigma), p(sw_sigma),
             p(qb_sigma), p(sb_sigma), p(f_in), p(f_out), p(y), m, n, k, int(relu),
-            int(per_row), int(qdt == torch.float8_e4m3fn), build.stream_of(x.device))
+            int(per_row), int(qdt == torch.float8_e4m3fn), splits, build.stream_of(x.device))
     build.check_launch(NAME, code)
     return y

@@ -8,15 +8,21 @@ and the G vmapped draws of ``sample_grouped`` (:309-310):
     idx[g, k] = clip(searchsorted(cumsum p, u, right), 0, N - 1)    int32
 
 A slot with p = 0 is never drawn (its cdf equals its left neighbour's), and a
-u that rounds up to the total lands on slot N - 1, as in JAX.  ``total``
-stays on the device: K8 reads it.  fp32 sums in another order give another
+u that reaches the total lands on slot N - 1, as in JAX.  ``total`` stays on
+the device: K8 and K5f read it.  fp32 sums in another order give another
 cdf, so the kernel and the twin draw the same slots exactly only where the
 cdf is exact (dyadic priorities) and elsewhere may differ where u lies within
 rounding of a cdf boundary.
 
-Bound on the H100: one read of p, 4 MB at N = 1,000,000.  The kernel
-(``csrc/replay_draw.cu``) runs chunk sums, one chained prefix over the
-chunks, then one block per uniform that rebuilds its chunk's cdf.
+Bound on the H100: one read of p, 4 MB at N = 1,000,000 (~1.2 us).  The
+kernel (``csrc/replay_draw.cu``) builds the cdf in nested levels (a thread's
+four slots, the lanes of a warp, the warps of a 1,024-slot chunk, then the
+same levels over the chunk sums), each chained in order so that the cdf is
+non-decreasing in fp32 and a zero slot keeps its left neighbour's value, in
+two launches: one block per chunk writes the chunk's sum, then one block per
+draw scans the chunk sums, finds the chunk holding u and counts within it.
+Its launches and the latency of each block's reads and barriers hold it
+back, not bandwidth.
 
 ``replay_draw`` runs the kernel for CUDA tensors and ``replay_draw_plain``
 for CPU tensors.
@@ -35,7 +41,7 @@ from rainbow_iqn_apex_tpu_torch.kernels import build
 NAME = "K5_replay_draw"
 SOURCE = "rainbow_iqn_apex_tpu_torch/csrc/replay_draw.cu"
 REPLACES = "rainbow_iqn_apex_tpu/replay/device.py:207"
-CHUNK = 1024  # priorities per block of the kernel's scan (csrc/replay_draw.cu)
+CHUNK = 1024  # slots per chunk of the kernel's scan: its scratch is one f32 a chunk
 
 
 def replay_draw_plain(priority: torch.Tensor, uniforms: torch.Tensor
@@ -54,7 +60,7 @@ def replay_draw_plain(priority: torch.Tensor, uniforms: torch.Tensor
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = build.library().port_replay_draw
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -80,13 +86,12 @@ def replay_draw(priority: torch.Tensor, uniforms: torch.Tensor
     if priority.data_ptr() % 16:
         raise ValueError("K5 reads the priorities as 16-byte vectors: align them")
     chunks = -(-n // CHUNK)
-    scratch = torch.empty((2 * chunks + 1,), dtype=torch.float32, device=priority.device)
+    chunk_sums = torch.empty((chunks,), dtype=torch.float32, device=priority.device)
     idx = torch.empty((groups, batch), dtype=torch.int32, device=priority.device)
     total = torch.empty((), dtype=torch.float32, device=priority.device)
     with torch.cuda.device(priority.device):
         code = _entry()(
-            build.ptr(priority), build.ptr(uniforms), build.ptr(scratch[:chunks]),
-            build.ptr(scratch[chunks:]), build.ptr(idx), build.ptr(total), n, groups * batch,
-            max(batch, 1), build.stream_of(priority.device))
+            build.ptr(priority), build.ptr(uniforms), build.ptr(chunk_sums), build.ptr(idx),
+            build.ptr(total), n, groups * batch, max(batch, 1), build.stream_of(priority.device))
     build.check_launch(NAME, code)
     return idx, total

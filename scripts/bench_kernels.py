@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Per-shape times of K3 (the NoisyLinear GEMM), K3-bwd, K2 (the cosine-tau
-embedding merged with phi), K2-bwd, K9 (R2D2's LSTM recurrence) and K9-bwd
-on the card, K2's multi-game modes K2g and K2g-bwd included.
+embedding merged with phi), K2-bwd, K9 (R2D2's LSTM recurrence), K9-bwd,
+K10g (the weight-only int8 / e4m3 NoisyLinear GEMM), K5 (the PER draw) and
+K5f (the frontier's draw with IS weights) on the card, K2's multi-game modes
+K2g and K2g-bwd included.
 
 Times the port's ``noisy_linear`` and ``noisy_linear_bwd`` at every shape the
 main paths give them (bucket 64's layers and ``chip_smoke.py``'s
@@ -17,8 +19,17 @@ R2D2 learner's [B 32, T, LSTM 512] (the burn-in T 40, the train slice T 80,
 the whole sequence T 120; the backward over T 80) and the act tick [16, 1,
 512], beside the plain twin and cuDNN's LSTM layer over phi [B, T, 3136]
 (``chip_smoke.py``'s yardstick: it does the input product too, which the
-port leaves to one matmul), each beside its plain twin's error, with
-``chip_smoke.py``'s timers (and, for K3, the host time of one wrapper call).
+port leaves to one matmul), ``noisy_linear_q`` at ``chip_smoke.py``'s
+``kernels_quant`` layers (value_hidden [M, 3136 -> 512], advantage_out
+[M, 512 -> 18], value_out [M, 512 -> 1]; greedy at serving's M 2048, noisy
+at the act tick's M 512; int8 and e4m3 weights), ``replay_draw`` at
+[1,000,000 slots, G 1 and 4, B 32] and ``frontier_draw`` at [1,000,000, G
+8, B 32] (half the mirror dead, as one live shard of two), each beside its
+plain twin's error, with ``chip_smoke.py``'s timers (and, for K3, the host
+time of one wrapper call), and K10g, K5 and K5f with the plain twin's time,
+``chip_smoke.py``'s library yardstick (K10g greedy: the dequantize into bf16
+then ``F.linear``; K5: ``cumsum`` + ``searchsorted``; K5f: those, the gather,
+``pow`` and ``amax``) and the bound.
 The port is imported from ``--root`` (default: this checkout), so two trees,
 e.g. a parent commit unpacked into an ignored directory, are compared on one
 card by running the script once per tree in one call:
@@ -29,8 +40,8 @@ card by running the script once per tree in one call:
 A tree whose K2-bwd recomputes the cos features (no ``save_cos``) is called
 that way; a shape a tree refuses is reported as refused.  Prints one JSON
 object per (kernel, shape, mode); ``--out`` appends them to a file as well;
-``--only fwd`` (or ``bwd``, ``k2``, ``k2bwd``, ``k9``, ``k9bwd``, or layer
-names) times a subset.  K9's unrolls (T > 1) are timed as eager calls
+``--only fwd`` (or ``bwd``, ``k2``, ``k2bwd``, ``k9``, ``k9bwd``, ``k10g``,
+``k5``, ``k5f``, or layer names) times a subset.  K9's unrolls (T > 1) are timed as eager calls
 between CUDA events, their device time being far above the launch's (a
 parent tree's cooperative launch is not captured in a CUDA graph); the act
 tick is timed that way and, where the tree's K9 has launch plans (a plain
@@ -67,6 +78,12 @@ K9_FWD = [("burn_in", 32, 40, False), ("train", 32, 80, True), ("sequence", 32, 
           ("act_tick", 16, 1, False)]
 K9_BWD = [("train", 32, 80)]
 K9_HIDDEN, K9_FEATURES = 512, 3136  # the reference config's LSTM and trunk widths
+# K10g at chip_smoke.py's kernels_quant shapes: (M, noisy) rows, (layer, K, N, relu)
+K10G_ROWS = [(2048, False), (512, True)]
+K10G_SWEEP_ROWS = [(2048, False), (2048, True), (512, False), (512, True)]  # --k10g-splits
+K10G_LAYERS = [("value_hidden", 3136, 512, True), ("advantage_out", 512, 18, False),
+               ("value_out", 512, 1, False)]
+K5_SLOTS, K5_BATCH = 1_000_000, 32  # the reference config's replay and learner batch
 
 
 def main() -> int:
@@ -75,9 +92,12 @@ def main() -> int:
     ap.add_argument("--label", default="change")
     ap.add_argument("--out", default=None)
     ap.add_argument("--seed", type=int, default=11)
+    ap.add_argument("--k10g-splits", default=None,
+                    help="comma-separated k splits to time K10g's wide layers at, in place of "
+                         "forward_plan's (a tree whose K10g has forward_plan(m, n, k, noisy, clusters))")
     ap.add_argument("--only", default=None,
-                    help="comma-separated kernels (fwd, bwd, k2, k2bwd, k9, k9bwd) or layer names "
-                         "to time; default all")
+                    help="comma-separated kernels (fwd, bwd, k2, k2bwd, k9, k9bwd, k10g, k5, k5f) "
+                         "or layer names to time; default all")
     args = ap.parse_args()
     only = set(args.only.split(",")) if args.only else None
 
@@ -89,7 +109,18 @@ def main() -> int:
         print("bench_kernels: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from chip_smoke import K3_EXTRA_SHAPES, R2D2_RESET_P, _lstm_args, errors, host_us, time_ms
+    from chip_smoke import (
+        BF16_FLOPS,
+        FP32_FLOPS,
+        K3_EXTRA_SHAPES,
+        K3_TOL,
+        R2D2_RESET_P,
+        _lstm_args,
+        bound_ms,
+        errors,
+        host_us,
+        time_ms,
+    )
 
     shapes = FWD_SHAPES + list(K3_EXTRA_SHAPES)
     sys.path.insert(0, os.path.abspath(args.root))
@@ -253,6 +284,115 @@ def main() -> int:
               "ms": time_ms(torch, lambda: lstm_backward(*a), graph=False, reps=REPS),
               "plain_ms": time_ms(torch, lambda: lstm_backward_plain(*a), reps=REPS),
               "cudnn_ms": cudnn_ms(batch, steps, True)})
+
+    if wanted("k10g", None):
+        from rainbow_iqn_apex_tpu_torch.kernels.dequantize import dequantize_plain
+        from rainbow_iqn_apex_tpu_torch.kernels.noisy_linear_q import (
+            noisy_linear_q,
+            noisy_linear_q_plain,
+        )
+        from rainbow_iqn_apex_tpu_torch.kernels.quantize import quantize_plain
+
+        import rainbow_iqn_apex_tpu_torch.kernels.noisy_linear_q as k10g_module
+
+        planned = getattr(k10g_module, "forward_plan", None)
+        sweep = [int(s) for s in args.k10g_splits.split(",")] if args.k10g_splits else [None]
+        for mode, split in ((mode, split) for mode in ("int8", "fp8") for split in sweep):
+            if split is not None:  # every wide layer at this split
+                k10g_module.forward_plan = lambda m, n, k, noisy, clusters, s=split: planned(
+                    m, n, k, noisy, clusters) and min(s, -(-k // 128))
+            for m, noisy in K10G_ROWS if split is None else K10G_SWEEP_ROWS:
+                for name, k, n, relu in K10G_LAYERS:
+                    if split is not None and n <= 32:
+                        continue
+                    w = layer(m, k, n)
+                    x = randn(m, k).relu().to(bf)
+                    rows = n if mode == "int8" else 1
+                    q = {key: quantize_plain(w[key].float(), mode, rows if w[key].dim() == 2 else 1)
+                         for key in ("w_mu", "b_mu", "w_sigma", "b_sigma")}
+                    a = [x, *q["w_mu"], *q["b_mu"]]
+                    if noisy:
+                        a += [*q["w_sigma"], *q["b_sigma"], w["f_in"], w["f_out"]]
+                    err, _, _ = errors(torch, noisy_linear_q(*a, relu=relu),
+                                       noisy_linear_q_plain(*a, relu=relu), K3_TOL)
+                    products = 2 if noisy else 1
+                    nbytes = (m * k * 2 + products * (n * k + n + 4 * q["w_mu"][1].numel() + 4)
+                              + m * n * 4 + (4 * (k + n) if noisy else 0))
+                    bms, by = bound_ms(nbytes, products * 2 * m * n * k, BF16_FLOPS)
+                    lib_ms = None
+                    if not noisy:  # chip_smoke.py's two calls: the dequantize, then F.linear
+                        q_w, s_w = q["w_mu"][0], q["w_mu"][1].view(-1, 1)
+                        b_bf = dequantize_plain(*q["b_mu"], bf)
+                        w_buf = torch.empty((n, k), dtype=bf, device=dev)
+
+                        def lib():
+                            if mode == "int8":
+                                torch.mul(q_w, s_w, out=w_buf)
+                                return torch.nn.functional.linear(x, w_buf, b_bf)
+                            return torch.nn.functional.linear(x, q_w.to(bf), b_bf)
+                        lib_ms = time_ms(torch, lib, reps=REPS)
+                    emit({"kernel": "K10g_noisy_linear_q", "layer": name, "mode": mode,
+                          "shape": [m, k, n], "noisy": noisy, "relu": relu, "max_abs_err": err,
+                          "splits": split if split is not None else planned(
+                              m, n, k, noisy, k10g_module.max_clusters(dev.index or 0, noisy))
+                          if hasattr(k10g_module, "max_clusters") else None,
+                          "ms": time_ms(torch, lambda: noisy_linear_q(*a, relu=relu), reps=REPS),
+                          "plain_ms": time_ms(torch, lambda: noisy_linear_q_plain(*a, relu=relu),
+                                              reps=REPS),
+                          "library_ms": lib_ms, "bound_ms": bms, "bound_by": by})
+        if planned is not None:
+            k10g_module.forward_plan = planned
+
+    if wanted("k5", None):
+        from rainbow_iqn_apex_tpu_torch.kernels.replay_draw import replay_draw, replay_draw_plain
+
+        p = torch.rand((K5_SLOTS,), generator=gen, device=dev)
+        p[torch.rand((K5_SLOTS,), generator=gen, device=dev) < 0.3] = 0.0
+        for groups in (1, 4):
+            u = torch.rand((groups, K5_BATCH), generator=gen, device=dev)
+            idx, total = replay_draw(p, u)
+            twin, _ = replay_draw_plain(p, u)
+            kb = torch.arange(K5_BATCH, device=dev, dtype=torch.float32)
+            u_abs = (kb + u) / K5_BATCH * total
+            bms, by = bound_ms(K5_SLOTS * 4 + 2 * groups * K5_BATCH * 4 + 4, K5_SLOTS, FP32_FLOPS)
+            emit({"kernel": "K5_replay_draw", "shape": [K5_SLOTS, groups, K5_BATCH],
+                  "twin_mismatches": int((idx != twin).sum()),
+                  "ms": time_ms(torch, lambda: replay_draw(p, u), reps=REPS),
+                  "plain_ms": time_ms(torch, lambda: replay_draw_plain(p, u), reps=REPS),
+                  "library_ms": time_ms(torch, lambda: torch.searchsorted(
+                      torch.cumsum(p, 0), u_abs, right=True), reps=REPS),
+                  "bound_ms": bms, "bound_by": by})
+
+    if wanted("k5f", None):
+        from rainbow_iqn_apex_tpu_torch.kernels.frontier_draw import (
+            frontier_draw,
+            frontier_draw_plain,
+        )
+
+        groups, beta, n_items = 8, 0.4, float(K5_SLOTS // 2)
+        p = torch.rand((K5_SLOTS,), generator=gen, device=dev)
+        p[torch.rand((K5_SLOTS,), generator=gen, device=dev) < 0.3] = 0.0
+        p[K5_SLOTS // 2:] = 0.0  # one live shard of two
+        u = torch.rand((groups, K5_BATCH), generator=gen, device=dev)
+        got, want = frontier_draw(p, u, beta, n_items), frontier_draw_plain(p, u, beta, n_items)
+        same = got[0] == want[0]
+        kb = torch.arange(K5_BATCH, device=dev, dtype=torch.float32)
+
+        def library():
+            cdf = torch.cumsum(p, 0)
+            ids = torch.searchsorted(cdf, (kb + u) / K5_BATCH * cdf[-1], right=True).clamp_(
+                max=K5_SLOTS - 1)
+            w = torch.pow(n_items * (p[ids] / cdf[-1]), -beta)
+            return w / w.amax(dim=1, keepdim=True)
+        nbytes = K5_SLOTS * 4 + groups * K5_BATCH * 4 + 3 * groups * K5_BATCH * 4
+        bms, by = bound_ms(nbytes, K5_SLOTS, FP32_FLOPS)
+        emit({"kernel": "K5f_frontier_draw", "shape": [K5_SLOTS, groups, K5_BATCH],
+              "twin_mismatches": int((~same).sum()),
+              "max_abs_err": float((got[2] - want[2]).abs()[same].max()),
+              "ms": time_ms(torch, lambda: frontier_draw(p, u, beta, n_items), reps=REPS),
+              "plain_ms": time_ms(torch, lambda: frontier_draw_plain(p, u, beta, n_items),
+                                  reps=REPS),
+              "library_ms": time_ms(torch, library, reps=REPS), "bound_ms": bms, "bound_by": by})
     return 0
 
 

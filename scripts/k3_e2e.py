@@ -4,9 +4,11 @@ each K3 / K3-bwd and K2 / K2-bwd wrapper call inside the learn step and the
 serving dispatch.
 
 Runs the ``learn``, ``anakin``, ``apex`` and ``anakin_fused`` phases (or,
-with ``--phases``, those named, ``learn_r2d2`` and ``anakin_r2d2`` among
-them) of the ``chip_smoke.py`` at ``--root`` on that checkout's port, as the
-whole script runs them, so that two trees (say the parent commit unpacked with ``git
+with ``--phases``, those named, ``learn_r2d2``, ``anakin_r2d2``, ``serve``,
+``serve_quant`` and ``apex_quant`` among them; ``apex_quant`` runs over the
+filled replay of the ``apex`` phase, which runs first if the list does not
+name it earlier) of the ``chip_smoke.py`` at ``--root`` on that checkout's
+port, as the whole script runs them, so that two trees (say the parent commit unpacked with ``git
 archive`` into the ignored ``_compare/``) are compared on one card, run after
 run, in the order parent, change, change, parent:
 
@@ -83,18 +85,32 @@ def main() -> int:
               "anakin_fused": (smoke.phase_anakin_fused, "reference_atari_defaults"),
               "learn_r2d2": (smoke.phase_learn_r2d2, "reference_atari_defaults"),
               "anakin_r2d2": (smoke.phase_anakin_r2d2, "reference_atari_defaults"),
-              "serve": (smoke.phase_serve, "serve_defaults")}
+              "serve": (smoke.phase_serve, "serve_defaults"),
+              "serve_quant": (smoke.phase_serve_quant, "serve_defaults"),
+              "apex_quant": (smoke.phase_apex_quant, "reference_atari_defaults")}
+    apex_ctx = []  # the apex phase's filled replay, which apex_quant runs over
 
     def run(name):
         fn, cfg = phases[name]
+        extra = ()
+        if name == "apex_quant":
+            if not apex_ctx:
+                seconds["apex"] = run("apex")
+            extra = (apex_ctx.pop(),)
         t = time.perf_counter()
-        fn(torch, cfgs[cfg])
-        seconds = time.perf_counter() - t
+        out = fn(torch, cfgs[cfg], *extra)
+        elapsed = time.perf_counter() - t
+        if name == "apex":
+            apex_ctx[:] = [out[1]]
+        del out, extra
         gc.collect()
         torch.cuda.empty_cache()
-        return seconds
+        return elapsed
 
-    seconds = {name: run(name) for name in args.phases.split(",") if name}
+    seconds = {}
+    for name in filter(None, args.phases.split(",")):
+        seconds[name] = run(name)
+    apex_ctx.clear()
 
     calls = {"fwd": [], "bwd": [], "k2": [], "k2_bwd": []}
     fwd, bwd = nl.noisy_linear, nl.noisy_linear_bwd

@@ -289,6 +289,44 @@ def test_k3_launch_plans_cover_the_shape(m, k, n):
         assert plan.ws_f32 == cd(mp, 32) * n + partials
 
 
+
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES)
+@pytest.mark.parametrize("noisy", [False, True], ids=["greedy", "noisy"])
+@pytest.mark.parametrize("clusters", [tuple(132 // s for s in range(1, 9)),
+                                      (132, 66, 30, 16, 12, 10, 8, 7)],
+                         ids=["every_sm", "gpc_bound"])
+def test_k10g_launch_plan_splits_k_in_order_only_where_tiles_leave_the_card_idle(m, k, n, noisy,
+                                                                                 clusters):
+    from rainbow_iqn_apex_tpu_torch.kernels import noisy_linear_q as q
+
+    splits = q.forward_plan(m, n, k, noisy, clusters)
+    if n <= noisy_linear_module.NARROW_N:
+        assert splits == 0  # K3's mma.sync path, bytes converted in registers
+        return
+    tiles = q._cdiv(m, q.TILE_T[noisy]) * q._cdiv(n, q.TILE_W)
+    k_steps = q._cdiv(k, q.TILE_K)
+    assert 1 <= splits <= min(q.MAX_SPLITS, k_steps)  # a portable cluster, no empty rank
+    if tiles >= noisy_linear_module.FULL_WAVE:
+        assert splits == 1
+    elif splits > 1:  # every cluster on the card at once, one wave
+        assert tiles * splits <= noisy_linear_module.SMS and tiles <= clusters[splits - 1]
+    ranks = [range(r * k_steps // splits, (r + 1) * k_steps // splits) for r in range(splits)]
+    assert [t for r in ranks for t in r] == list(range(k_steps))  # each k step once, in order
+
+
+def test_k10g_plan_at_the_serving_and_act_tick_shapes():
+    from rainbow_iqn_apex_tpu_torch.kernels.noisy_linear_q import forward_plan
+
+    every_sm = tuple(132 // s for s in range(1, 9))
+    # (M, N, K, noisy): serving's buckets 64, 32 and 8, greedy (128-token tiles)
+    assert [forward_plan(m, 512, 3136, False, every_sm) for m in (2048, 1024, 256)] == [2, 4, 8]
+    # the act tick, noisy (64-token tiles), and the *_out layers
+    assert forward_plan(512, 512, 3136, True, every_sm) == 4
+    assert forward_plan(2048, 18, 512, False, every_sm) == 0
+    assert forward_plan(512, 1, 512, True, every_sm) == 0
+    # where 32 clusters of four do not fit at once, the act tick splits in three
+    assert forward_plan(512, 512, 3136, True, (132, 66, 40, 30, 24, 20, 16, 14)) == 3
+
 def test_k3_bwd_plan_splits_the_narrow_layers_and_not_the_hidden_ones():
     nl = noisy_linear_module
     hidden = nl.backward_plan(2048, 512, 3136, True)  # (M, N, K)
@@ -780,6 +818,8 @@ def _q_layer(mode, n, k, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(2048, 3136, 512), (2048, 512, 18), (2048, 512, 1),
                                    (512, 3136, 512), (33, 48, 70),
+                                   # serving's other bucket rows (8 and 32 requests x 32 taus)
+                                   (256, 3136, 512), (1024, 3136, 512),
                                    # the catch scenario's act tick: 8 lanes x 8 taus, F 2304
                                    # (80x80x2), hidden 128, 3 actions
                                    (64, 2304, 128), (64, 128, 3), (64, 128, 1)])
@@ -804,6 +844,47 @@ def test_k10g_kernel_matches_plain(cuda, m, k, n, use_noise, mode):
         torch.testing.assert_close(got, noisy_linear_q_plain(*args, relu=relu),
                                    atol=2e-3, rtol=2e-3)
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(2048, 3136, 512), (512, 3136, 512), (256, 3136, 512),
+                                   (2048, 512, 18)])
+@pytest.mark.parametrize("use_noise", [False, True], ids=["greedy", "noisy"])
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_k10g_kernel_keeps_zero_rows_and_nan_weights_and_repeats_bit_equal(cuda, m, k, n,
+                                                                            use_noise, mode):
+    """int8: a row of zero bytes with scale 0 gives that column's bias alone;
+    fp8: NaN bytes (K10q's overflow above 464) make their column NaN, through
+    the ReLU as in the twin (jax.nn.relu keeps NaN); and a second call gives
+    the same bits (in-order sums, no atomics)."""
+    from rainbow_iqn_apex_tpu_torch.kernels.noisy_linear_q import (
+        noisy_linear_q,
+        noisy_linear_q_plain,
+    )
+
+    qw_mu, sw_mu, qb_mu, sb_mu, qw_sg, sw_sg, qb_sg, sb_sg = _q_layer(mode, n, k, 35)
+    row = n // 2
+    if mode == "int8":
+        qw_mu[row], sw_mu[row] = 0, 0.0
+        qw_sg[row], sw_sg[row] = 0, 0.0
+    else:  # e4m3fn's NaN is 0x7f / 0xff
+        qw_mu.view(torch.uint8)[row, 3:9] = 0x7F
+        qw_sg.view(torch.uint8)[row, k - 5] = 0xFF
+    x = _t(np.maximum(_rng(36).standard_normal((m, k)), 0), torch.bfloat16).to(cuda)
+    args = [x] + [t.to(cuda) for t in (qw_mu, sw_mu, qb_mu, sb_mu)]
+    if use_noise:
+        r = _rng(37)
+        args += [t.to(cuda) for t in (qw_sg, sw_sg, qb_sg, sb_sg)]
+        args += [_f(_t(r.standard_normal(k))).to(cuda), _f(_t(r.standard_normal(n))).to(cuda)]
+    for relu in (False, True):
+        got = _counted("K10g_noisy_linear_q", lambda: noisy_linear_q(*args, relu=relu))
+        want = noisy_linear_q_plain(*args, relu=relu)
+        torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3, equal_nan=True)
+        nan_col = got[:, row].isnan()
+        assert bool(nan_col.all()) if mode == "fp8" else not bool(nan_col.any())
+        assert int(got.isnan().sum()) == (m if mode == "fp8" else 0)
+        again = noisy_linear_q(*args, relu=relu)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["int8", "fp8"])

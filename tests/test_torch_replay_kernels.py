@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from rainbow_iqn_apex_tpu_torch.kernels import launches
+from rainbow_iqn_apex_tpu_torch.kernels.frontier_draw import frontier_draw
 from rainbow_iqn_apex_tpu_torch.kernels.replay_append import replay_append, replay_append_plain
 from rainbow_iqn_apex_tpu_torch.kernels.replay_assemble import (
     replay_assemble,
@@ -143,6 +144,114 @@ def test_append_twin_max_priority_insertion_and_actor_maximum():
     assert float(state.max_priority) == pytest.approx((8.0 + 1e-6) ** 0.5, rel=1e-6)
 
 
+# ------------------------------------------ K5's cdf, modelled in numpy
+F32 = np.float32
+
+
+def _k5_levels(x):
+    """csrc/replay_draw.cu's tile_scan over tiles x [t, 1024] f32: each
+    thread's running sum r [t, 256, 4] over its four values, and the offsets
+    L (the lanes before it in its warp) and W (the warps before it), each a
+    fold from 0 in order, so that a value within the tile is W + (L + r)."""
+    t = x.shape[0]
+    r = np.cumsum(x.reshape(t, 256, 4), axis=2, dtype=F32)  # add.accumulate: in order
+    lane_last = r[:, :, 3].reshape(t, 8, 32)
+    lanes = np.cumsum(lane_last, axis=2, dtype=F32)
+    L = np.concatenate([np.zeros((t, 8, 1), F32), lanes[:, :, :-1]], axis=2)
+    warp_last = L[:, :, 31] + lane_last[:, :, 31]
+    W = np.concatenate([np.zeros((t, 1), F32), np.cumsum(warp_last, axis=1, dtype=F32)[:, :-1]],
+                       axis=1)
+    return r, L.reshape(t, 256), np.repeat(W, 32, axis=1)
+
+
+def _k5_cdf(p):
+    """The kernel's fp32 cdf of p [N] and its total: the chunk-local levels,
+    then the same levels over the chunk sums in tiles of 1,024 chunks chained
+    by T, cdf = T + (W' + (L' + (R' + local)))."""
+    n = p.size
+    chunks = -(-n // 1024)
+    x = np.zeros(chunks * 1024, F32)
+    x[:n] = p
+    r, L, W = _k5_levels(x.reshape(chunks, 1024))
+    local = (W[:, :, None] + (L[:, :, None] + r)).reshape(chunks, 1024)
+    tiles = -(-chunks // 1024)
+    sums = np.zeros(tiles * 1024, F32)
+    sums[:chunks] = local[:, -1]
+    cr, cL, cW = _k5_levels(sums.reshape(tiles, 1024))
+    cR = np.concatenate([np.zeros((tiles, 256, 1), F32), cr[:, :, :3]], axis=2)
+    ends = cW[:, :, None] + (cL[:, :, None] + cr)
+    T = np.zeros(tiles + 1, F32)
+    for t in range(tiles):
+        T[t + 1] = T[t] + ends[t, -1, -1]
+    per_chunk = [np.broadcast_to(a, (tiles, 256, 4)).reshape(-1)[:chunks, None] for a in
+                 (T[:tiles, None, None], cW[:, :, None], cL[:, :, None], cR)]
+    cT, cW, cL, cR = per_chunk
+    cdf = cT + (cW + (cL + (cR + local)))
+    return cdf.reshape(-1)[:n], T[tiles]
+
+
+def _k5_draw(p, u):
+    """The kernel's ids for uniforms u [G, B] under the modelled cdf."""
+    cdf, total = _k5_cdf(p)
+    batch = u.shape[1]
+    ua = (np.arange(batch, dtype=F32) + u) / F32(batch) * total
+    return np.minimum(np.searchsorted(cdf, ua, side="right"), p.size - 1), total, ua
+
+
+def _adversarial(n, seed, dyadic=False):
+    """Priorities that press on the cdf: log-uniform over 2^-60 .. 2^20 (or
+    dyadic eighths), one huge slot followed by tiny ones, and runs of zeros
+    across a thread's four slots, a warp's 128, a chunk's 1,024 and the chunk
+    level's thread (four chunks) and warp (128 chunks) boundaries, at both
+    ends too."""
+    rng = np.random.default_rng(seed)
+    if dyadic:
+        p = rng.integers(0, 9, n).astype(F32) / 8
+    else:
+        p = np.exp2(rng.uniform(-60, 20, n)).astype(F32)
+        big = n // 3
+        p[big] = 2.0 ** 20
+        p[big + 1:big + 3000] = np.exp2(rng.uniform(-60, -30, 2999)).astype(F32)
+    for start, length in ((4 * 37 - 2, 5), (128 * 11 - 3, 7), (1024 * 5 - 9, 20),
+                          (1024 * 4 * 3 - 700, 1400), (1024 * 128 - 1500, 2600),
+                          (1024 * 9, 1024)):
+        p[start % n:start % n + length] = 0.0
+    p[:3] = 0.0
+    p[-5:] = 0.0
+    return p
+
+
+@pytest.mark.parametrize("n", [5000, 1_000_000, 1_100_000])
+@pytest.mark.parametrize("dyadic", [False, True], ids=["log_uniform", "dyadic"])
+def test_k5_scan_model_is_monotone_keeps_zero_slots_and_is_exact_on_dyadic(n, dyadic):
+    """The kernel's summation order, in numpy on the adversarial priorities:
+    the cdf never decreases, a zero slot repeats its left neighbour's value
+    (so a right search never lands on it), and on dyadic priorities the cdf
+    is the exact cumsum and the searches are replay_draw_plain's.  1,100,000
+    slots take two tiles of chunk sums (the T chain)."""
+    p = _adversarial(n, n + int(dyadic), dyadic)
+    cdf, total = _k5_cdf(p)
+    assert cdf.dtype == F32 and total == cdf[-1]
+    assert bool(np.all(np.diff(cdf) >= 0))
+    zero = np.flatnonzero(p == 0)
+    assert cdf[0] == 0.0 and bool(np.all(cdf[zero[zero > 0]] == cdf[zero[zero > 0] - 1]))
+    u = np.random.default_rng(n).random((4, 32), dtype=F32)
+    u[-1, -1] = 1.0 - 2.0 ** -24  # rounds u up to the total: clipped onto N - 1
+    ids, _, ua = _k5_draw(p, u)
+    assert ids[-1, -1] == n - 1 and bool((p[ids[:, :-1]] > 0).all())
+    exact = np.cumsum(p.astype(np.float64))
+    if dyadic:
+        assert np.array_equal(cdf.astype(np.float64), exact)
+        want, want_total = replay_draw_plain(torch.from_numpy(p), torch.from_numpy(u))
+        assert float(want_total) == float(total)
+        assert np.array_equal(ids, want.numpy())
+    else:  # against an fp64 cdf: ids differ only within K5_BOUNDARY * total of a boundary
+        ref = np.minimum(np.searchsorted(exact, ua.astype(np.float64), side="right"), n - 1)
+        differ = ids != ref
+        lo = np.minimum(ids, ref)[differ]
+        assert bool(np.all(np.abs(ua[differ] - exact[lo]) <= 1e-6 * float(total)))
+
+
 # ------------------------------------------------- on the card: kernel vs twin
 @pytest.fixture
 def cuda():
@@ -195,6 +304,39 @@ def test_k5_kernel_matches_an_fp64_cdf_on_random_priorities(cuda, n):
     near = (u_abs[differ] - cdf[lo]).abs() <= 1e-6 * float(total)
     assert bool(near.all()), "an id differs away from a cdf boundary"
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1_000_000, 1_100_000])
+def test_k5_and_k5f_kernels_on_adversarial_priorities(cuda, n):
+    """Log-uniform priorities over 2^-60 .. 2^20, a huge slot followed by tiny
+    ones and runs of zeros across lane, warp and chunk boundaries, through K5
+    and K5f's wrapper: no zero slot drawn, the clip onto N - 1, ids against an
+    fp64 cdf only within 1e-6 * total of a boundary, the numpy model's ids
+    and total exactly, and bit-equal repeats; K5f draws K5's ids."""
+    p_np = _adversarial(n, 5 + n)
+    u_np = np.random.default_rng(6).random((4, 32), dtype=F32)
+    u_np[-1, -1] = 1.0 - 2.0 ** -24
+    p, u = torch.from_numpy(p_np).to(cuda), torch.from_numpy(u_np).to(cuda)
+    idx, total = _counted("K5_replay_draw", lambda: replay_draw(p, u))
+    again, total_again = replay_draw(p, u)
+    f_idx, prob, weight = _counted("K5f_frontier_draw", lambda: frontier_draw(p, u, 0.4, n))
+    f_again = frontier_draw(p, u, 0.4, n)
+    torch.cuda.synchronize()
+    got = idx.long().cpu().numpy()
+    assert torch.equal(idx, again) and torch.equal(total.view(torch.int32),
+                                                   total_again.view(torch.int32))
+    assert torch.equal(f_idx, idx)
+    for a, b in zip((f_idx, prob, weight), f_again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert got[-1, -1] == n - 1 and bool((p_np[got[:, :-1]] > 0).all()), "a zero slot was drawn"
+    model, model_total, ua = _k5_draw(p_np, u_np)
+    assert float(total) == float(model_total) and np.array_equal(got, model)
+    exact = np.cumsum(p_np.astype(np.float64))
+    ref = np.minimum(np.searchsorted(exact, ua.astype(np.float64), side="right"), n - 1)
+    differ = got != ref
+    lo = np.minimum(got, ref)[differ]
+    assert bool(np.all(np.abs(ua[differ] - exact[lo]) <= 1e-6 * float(total))), \
+        "an id differs away from a cdf boundary"
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("omega", [0.5, 0.6])
