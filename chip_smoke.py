@@ -21,8 +21,10 @@ and runs every phase, in this order:
   profile, the kernel path against the plain path (greedy and noisy), a
   weight hot-swap and a draining stop;
 - ``kernels_learn``: the learner's kernels (K1, K2-bwd, K3-bwd, K4 gather,
-  K4-bwd) against their twins at the learner's full-width shapes (B 32,
-  N 64), timed the same way; K3-bwd also at ``K3_EXTRA_SHAPES`` with M >= 512,
+  K4-bwd, and K4's heads mode: a learn step's one K4 launch, beside the
+  three launches and two elementwise ops it replaces) against their twins
+  at the learner's full-width shapes (B 32, N 64), timed the same way;
+  K3-bwd also at ``K3_EXTRA_SHAPES`` with M >= 512,
   held bit-equal on a repeat of the same call, beside the floor of its hi / lo
   split, and the host time of one K3-bwd call;
 - ``learn``: 200 full-width learn steps from
@@ -120,7 +122,8 @@ and runs every phase, in this order:
   the same bar.
 - ``kernels_games``: K12, the device games' tick, bit-equal to its plain
   twins on the card for all ten games (the five games and their seeded-level
-  variants) at 16 and 4,096 lanes over 100 auto-reset ticks, each timed
+  variants) at 16 and 4,096 lanes over 100 auto-reset ticks, and at one
+  lane over 100 steps of the host adapter's reset-free step, each timed
   beside its twin and its byte bound;
 - ``anakin_fused``: the fully fused ``--role anakin`` of the reference config
   on ``jaxgame:breakout`` (80x80 frames) through ``init_fused_carry`` and
@@ -140,7 +143,8 @@ and runs every phase, in this order:
   K2g-bwd with dE), K4m (the per-game action mask) and K4l (the log-softmax
   at the taken action, masked and not), against their twins at the
   multi-game path's shapes (B 32, N 64, K 32, F 2304, A 5, G 4) and at
-  serving's (B 64, F 3136, A 18), timed the same way (dE's yardstick
+  serving's (B 64, F 3136, A 18), and the masked heads mode at the
+  multi-game learn pass's, timed the same way (dE's yardstick
   ``index_add_``, K4l's ``log_softmax`` + ``gather``);
 - ``apex_mt``: ``train_apex`` with ``games`` = four jaxgame games (3, 5, 4
   and 3 actions, 80x80, 4 lanes each) and ``replay_ratio`` 2 over the
@@ -219,8 +223,11 @@ K4B_TOL = dict(atol=1e-6, rtol=1e-6)  # fp32, one product and one subtraction pe
 # the Dense product, which an elementwise 1e-2 misses where the sum cancels
 GRAD_BF16_REL = 2.0 ** -6
 SERVE_KERNELS = ("K2_tau_embed", "K3_noisy_linear", "K4_dueling_head")  # the serving path's
-LEARN_KERNELS = ("K1_quantile_huber", "K2_tau_embed", "K2_tau_embed_bwd", "K3_noisy_linear",
-                 "K3_noisy_linear_bwd", "K4_dueling_head", "K4_dueling_head_bwd")  # a learn step's
+# per learn step: three forwards (K2, K3 x4 each), one heads launch (K4: a*,
+# both gathers and td_target), K1, and the backward (K4-bwd, K3-bwd x4, K2-bwd)
+LEARN_PER_STEP = {"K1_quantile_huber": 1, "K2_tau_embed": 3, "K2_tau_embed_bwd": 1,
+                  "K3_noisy_linear": 12, "K3_noisy_linear_bwd": 4, "K4_dueling_head": 1,
+                  "K4_dueling_head_bwd": 1}
 LEARN_STEPS = 200  # steady-state learn steps of the `learn` phase
 LEARN_WARMUP = 10  # steps before it (first-call costs, pinned buffers)
 LEARN_LANES = 16  # replay lanes, as configs/reference_atari_defaults.json
@@ -241,7 +248,7 @@ ANAKIN_FILL = 2000  # append ticks of 16 lanes before it (32,000 transitions)
 ANAKIN_FRAME_POOL = 64  # distinct synthetic ticks cycled through the fill
 # per fused step at sample_groups 1: one K5, K8 and K6 plus the learn step's kernels
 ANAKIN_PER_STEP = {"K1_quantile_huber": 1, "K2_tau_embed": 3, "K2_tau_embed_bwd": 1,
-                   "K3_noisy_linear": 12, "K3_noisy_linear_bwd": 4, "K4_dueling_head": 3,
+                   "K3_noisy_linear": 12, "K3_noisy_linear_bwd": 4, "K4_dueling_head": 1,
                    "K4_dueling_head_bwd": 1, "K5_replay_draw": 1, "K6_replay_writeback": 1,
                    "K7_replay_append": 0, "K8_replay_assemble": 1, "K5f_frontier_draw": 0,
                    "K6f_frontier_writeback": 0, "K10q_quantize": 0, "K10g_noisy_linear_q": 0,
@@ -333,11 +340,12 @@ MT_WINDOW_TICKS = 40  # apex_mt: env ticks after the learn_start backlog's tick
 MT_PROFILE_FROM = 24  # apex_mt: the profiler spans window ticks 24 .. 24 + MT_PROFILE_TICKS
 MT_PROFILE_TICKS = 8
 # per sampled batch at K = 2: two logp forwards (K2g, K3 x4, K4l) and two
-# learn passes (select: K2g, K3 x4, K4m; target and online: K2g, K3 x4, K4
-# gather; K1; backward: K4-bwd, K3-bwd x4, K2g-bwd); nothing else
+# learn passes (select, target and online: K2g, K3 x4 each; one heads launch,
+# counted as K4m since its select head is masked; K1; backward: K4-bwd,
+# K3-bwd x4, K2g-bwd); nothing else (no unmasked K4)
 MT_PER_BATCH = {"K2g_tau_embed_game": 8, "K3_noisy_linear": 32, "K4m_dueling_head_mask": 2,
-                "K4l_dueling_head_logp": 2, "K1_quantile_huber": 2, "K4_dueling_head": 4,
-                "K4_dueling_head_bwd": 2, "K3_noisy_linear_bwd": 8, "K2g_tau_embed_game_bwd": 2}
+                "K4l_dueling_head_logp": 2, "K1_quantile_huber": 2, "K4_dueling_head_bwd": 2,
+                "K3_noisy_linear_bwd": 8, "K2g_tau_embed_game_bwd": 2}
 # per act tick: K2g, K3 x4, K4m (the env's K12 launches are per lane step and reset)
 MT_PER_ACT = {"K2g_tau_embed_game": 1, "K3_noisy_linear": 4, "K4m_dueling_head_mask": 1}
 
@@ -591,6 +599,81 @@ def phase_kernels(torch, cfg):
     return results
 
 
+def check_heads(torch, where, batch, taus, actions, gen, counts=None, gamma_n=0.99 ** 3):
+    """K4's heads mode against its twin on the learn step's three heads
+    (``taus`` = (K, N', N)): a* equal where the select q's top two are apart
+    (and on a planted tie, to its first index), inside each row's game when
+    masked (``counts``: the games' action counts), z_online, on_q, z_next
+    and td_target within K4_TOL; an out-of-range action gathers NaN.  Emits
+    and returns its row: the heads launch beside its twin, the three K4
+    launches and two elementwise ops it replaces, and the bound."""
+    from rainbow_iqn_apex_tpu_torch.kernels.dueling_head import (
+        dueling_gather,
+        dueling_head,
+        dueling_head_plain,
+        dueling_learn,
+        dueling_learn_plain,
+    )
+
+    dev = torch.device("cuda", 0)
+    k, n_prime, n = taus
+
+    def head(t):
+        return (torch.randn((batch * t, 1), generator=gen, device=dev),
+                torch.randn((batch * t, actions), generator=gen, device=dev), t)
+
+    select, target, online = head(k), head(n_prime), head(n)
+    select[1].view(batch, k, actions)[0, :, 1] = 7.0  # row 0: actions 1 and 2 tie
+    select[1].view(batch, k, actions)[0, :, 2] = 7.0
+    take = torch.randint(0, actions, (batch,), generator=gen, device=dev, dtype=torch.int32)
+    reward = torch.randn((batch,), generator=gen, device=dev)
+    discount = torch.full((batch,), gamma_n, device=dev)
+    discount[1] = 0.0  # a terminal row
+    margs = (None, None)
+    if counts is not None:
+        game = (torch.arange(batch, device=dev, dtype=torch.int32) % len(counts)).contiguous()
+        margs = (game, _mt_mask(torch, counts, actions, dev))
+        take = (take % torch.tensor(counts, device=dev)[game.long()]).to(torch.int32)
+    args = (select, target, online, take, reward, discount, *margs)
+    got, want = dueling_learn(*args), dueling_learn_plain(*args)
+    torch.cuda.synchronize()
+    q_sel = dueling_head_plain(*select, *[x for x in margs if x is not None])[1]
+    top2 = torch.sort(q_sel, dim=-1).values[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > K4_TOL["atol"]
+    clear[0] = True
+    a_ok = bool(torch.equal(got[2][clear], want[2][clear])) and int(got[2][0]) == 1
+    if counts is not None:
+        a_ok = a_ok and bool(margs[1][margs[0].long(), got[2].long()].all())
+    max_abs, ok = 0.0, True
+    for g, w in [(got[0], want[0]), (got[1], want[1])] + [(g[clear], w[clear])
+                                                         for g, w in zip(got[3:], want[3:])]:
+        a_err, _, good = errors(torch, g, w, K4_TOL)
+        max_abs, ok = max(max_abs, a_err), ok and good
+    bad = take.clone()
+    bad[0] = actions  # out of range: NaN, as jnp's take_along_axis fill mode gives
+    nan_row = bool(torch.isnan(dueling_learn(select, target, online, bad, *args[4:])[0][0]).all())
+
+    def three_launches():  # the parent's route: a*, both gathers, td_target's two ops
+        a_star = dueling_head(*select, *[x for x in margs if x is not None])[2]
+        z_next, _ = dueling_gather(*target, a_star)
+        return dueling_gather(*online, take), reward[:, None] + discount[:, None] * z_next
+
+    rows = batch * (k + n_prime + n)
+    nbytes = (rows * 4 * (1 + actions) + 3 * batch * 4 + (batch * 4 + 4 * actions if counts else 0)
+              + 2 * batch * n_prime * 4 + batch * n * 4 + batch * actions * 4 + batch * 4)
+    bms, by = bound_ms(nbytes, 4 * rows * actions, FP32_FLOPS)
+    row = dict(max_abs_err=max_abs, ms=time_ms(torch, lambda: dueling_learn(*args)),
+               plain_ms=time_ms(torch, lambda: dueling_learn_plain(*args)),
+               three_launch_ms=time_ms(torch, three_launches), bound_ms=bms, bound_by=by,
+               library_ms=None, shape=[batch, k, n_prime, n, actions])
+    emit({"phase": where, "kernel": "K4m_dueling_head_mask" if counts else "K4_dueling_head",
+          "mode": "heads", "a_star_equal": a_ok, "out_of_range_gives_nan": nan_row, "tol": K4_TOL,
+          "ok": ok, **row})
+    check(ok and a_ok and nan_row, f"K4's heads mode disagrees with its twin at {where} (max abs "
+          f"{max_abs}, a* equal {a_ok}) or an out-of-range action did not give NaN")
+    return row
+
+
 def phase_kernels_learn(torch, cfg):
     """Each learner kernel (K1, K2-bwd, K3-bwd, K4 gather + K4-bwd) against its
     plain twin at the full-width learner shapes: B = 32, N = N' = 64, F = 3136,
@@ -780,6 +863,10 @@ def phase_kernels_learn(torch, cfg):
         lambda: dueling_gather_bwd(*k4), lambda: dueling_gather_bwd_plain(*k4), None,
         nbytes=batch * n * 4 + batch * 4 + m * 4 + m * actions * 4,
         ops=2 * m * actions, peak=FP32_FLOPS)
+    # K4's heads mode: the learn step's one K4 launch (timed in K4's row)
+    results["K4_dueling_head_heads"] = check_heads(
+        torch, "kernels_learn", batch, (cfg.num_quantile_samples, n_t, n), actions, gen,
+        gamma_n=cfg.gamma ** cfg.multi_step)
     return results
 
 
@@ -886,8 +973,10 @@ def phase_learn(torch, cfg):
               "losses_finite": bool(all(np.isfinite(losses)) and all(finite)),
               "retired": len(losses), "target_copies": copies, "target_moved": target_moved,
               "rollbacks": sup.rollbacks, "replay_fill_s": fill_s, "cuts": cuts})
-        for name in LEARN_KERNELS:
-            check(counts[name] > 0, f"{name} was never launched on the learn path")
+        for name, n in LEARN_PER_STEP.items():
+            check(counts[name] == n * LEARN_STEPS,
+                  f"{name} launched {counts[name]} times in {LEARN_STEPS} learn steps, want "
+                  f"{n} a step")
         check(all(np.isfinite(losses)) and all(finite) and len(losses) >= LEARN_STEPS,
               "a non-finite loss in the learn phase")
         check(copies >= 1 and target_moved, "no target copy happened in the learn phase")
@@ -1761,8 +1850,8 @@ def phase_apex(torch, cfg):
             for name, n in want.items():
                 check(counts[name] == n, f"apex ({mode}): {name} launched {counts[name]} times, "
                                          f"want {n}")
-            for name in (*LEARN_KERNELS, *REPLAY_KERNELS):
-                check((counts[name] > 0) == (name in LEARN_KERNELS),
+            for name in (*LEARN_PER_STEP, *REPLAY_KERNELS):
+                check((counts[name] > 0) == (name in LEARN_PER_STEP),
                       f"apex ({mode}): {name} launched {counts[name]} times")
             if driver.quant_mode == "off":  # full-precision actors: no K10
                 for name in QUANT_KERNELS:
@@ -1838,7 +1927,7 @@ def phase_apex_quant(torch, cfg, ctx):
             "K10g_noisy_linear_q": 4 * (ticks + gated),
             "K3_noisy_linear": 12 * steps + 4 * gated,
             "K2_tau_embed": 3 * steps + ticks + 2 * gated,
-            "K4_dueling_head": 3 * steps + ticks + 2 * gated}
+            "K4_dueling_head": steps + ticks + 2 * gated}
     bf16 = ctx["bf16_row"]
     emit({"phase": "apex_quant_summary", "mode": "int8", "gated_publishes": gated,
           "publish_modes": [f["mode"] for f in publishes],
@@ -3293,19 +3382,24 @@ def phase_kernels_games(torch):
     """K12 against its plain twins on the card, bit for bit, for all ten
     games at 16 and 4,096 lanes: init, then GAME_CHECK_TICKS auto-reset
     ticks with random actions; each game's tick timed beside its twin and
-    its byte bound.  The kernel line's K12 row is breakout at 16 lanes, the
-    `anakin_fused` phase's shape."""
+    its byte bound.  Then the host adapter's one-lane step (STEP mode, the
+    key itself, a direct init on a cut) for GAME_CHECK_TICKS steps, bit for
+    bit, timed as the adapter's reset and a step less the reset alone (a
+    reset-free step run on and on walks catch's ball off its grid).  The
+    kernel line's K12 row is breakout at 16 lanes, the `anakin_fused`
+    phase's shape, with breakout's one-lane step beside it."""
     from rainbow_iqn_apex_tpu_torch.envs import prng
     from rainbow_iqn_apex_tpu_torch.envs.device_games import make_device_game
     from rainbow_iqn_apex_tpu_torch.kernels.device_games import (
         game_init,
         game_init_plain,
+        game_step,
         game_tick,
         game_tick_plain,
     )
 
     dev = torch.device("cuda", 0)
-    rows, failures, main_row = [], [], None
+    rows, failures, main_row, step_row = [], [], None, None
     for name in GAME_NAMES:
         game = make_device_game(name)
         for lanes in GAME_LANES:
@@ -3336,12 +3430,52 @@ def phase_kernels_games(torch):
             rows.append(row)
             if name == "breakout" and lanes == GAME_LANES[0]:
                 main_row = row
+        keys = prng.split(prng.prng_key(SEED + 1), GAME_CHECK_TICKS + 1)
+        state, _ = game_init(game, keys[0], 1, dev, direct=True)
+        want = game.init(keys[0].to(dev)[None])
+        equal, cuts = _states_equal(torch, state, want), 0
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for t in range(1, GAME_CHECK_TICKS + 1):
+            a = torch.randint(0, game.num_actions, (1,), generator=gen, device=dev,
+                              dtype=torch.int32)
+            got = game_step(game, state, a, keys[t])
+            want, *outs = game.step(want, a, keys[t].to(dev)[None])
+            equal = (equal and _states_equal(torch, state, want)
+                     and torch.equal(got[0], game.render(want))
+                     and all(torch.equal(g, w) for g, w in zip(got[1:], outs)))
+            if bool(got[2] | got[3]):  # the adapter's reset: a direct init from the key
+                cuts += 1
+                state, _ = game_init(game, keys[t], 1, dev, direct=True)
+                want = game.init(keys[t].to(dev)[None])
+                equal = equal and _states_equal(torch, state, want)
+        if not equal:
+            failures.append(f"{name} at one lane (step)")
+        k1 = keys[1].to(dev)[None]
+
+        def reset_and_step():
+            fresh, _ = game_init(game, keys[2], 1, dev, direct=True)
+            return game_step(game, fresh, a, keys[3])
+
+        reset_ms = time_ms(torch, lambda: game_init(game, keys[2], 1, dev, direct=True))
+        both_ms = time_ms(torch, reset_and_step)
+        plain_ms = time_ms(torch, lambda: game.render(game.step(want, a, k1)[0]), graph=False,
+                           reps=GAME_PLAIN_REPS)
+        b_ms, b_by = bound_ms(_game_bytes(torch, game, 1), 0.0, FP32_FLOPS)
+        row = {"game": name, "lanes": 1, "mode": "step", "bit_equal": equal, "cuts": cuts,
+               "ms": both_ms - reset_ms, "reset_and_step_ms": both_ms, "reset_ms": reset_ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+        rows.append(row)
+        if name == "breakout":
+            step_row = row
     emit({"phase": "kernels_games", "ticks": GAME_CHECK_TICKS, "rows": rows})
     check(not failures, f"K12 differs from its twin: {failures}")
     return {"K12_device_games": {"max_abs_err": 0.0, "ms": main_row["ms"],
                                  "plain_ms": main_row["plain_ms"],
                                  "bound_ms": main_row["bound_ms"],
-                                 "bound_by": main_row["bound_by"], "library_ms": None}}
+                                 "bound_by": main_row["bound_by"], "library_ms": None,
+                                 "one_lane_step": {k: step_row[k] for k in (
+                                     "ms", "reset_and_step_ms", "reset_ms", "plain_ms",
+                                     "bound_ms")}}}
 
 
 def _fused_expected(per_tick_kernels, ticks, learns):
@@ -3768,6 +3902,10 @@ def phase_kernels_mt(torch, cfg):
             check(ok and q_ok and repeat, f"K4l (masked={masked}) disagrees at {where}")
         if where == "path":
             results["K4l_dueling_head_logp"] = row[True]
+            # the multi-game learn pass's one heads launch (K4m: its select head is masked)
+            results["K4m_dueling_head_mask"]["heads"] = check_heads(
+                torch, "kernels_mt", batch, (k, cfg.num_tau_prime_samples, n), actions, gen,
+                counts, cfg.gamma ** cfg.multi_step)
     return results
 
 
@@ -4457,6 +4595,7 @@ def main() -> int:
         results.update(timed("kernels", phase_kernels, torch, serve_cfg))
         counts["serve"] = timed("serve", phase_serve, torch, serve_cfg)
         results.update(timed("kernels_learn", phase_kernels_learn, torch, learn_cfg))
+        results["K4_dueling_head"]["heads"] = results.pop("K4_dueling_head_heads")
         counts["learn"] = timed("learn", phase_learn, torch, learn_cfg)
         timed("learn_parity", phase_learn_parity, torch, learn_cfg)
         timed("train", phase_train, torch)
@@ -4515,7 +4654,8 @@ def main() -> int:
                      "launches_by_path": by_path,
                      "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                      "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-                     "bound_by": res["bound_by"], "library_ms": res["library_ms"]})
+                     "bound_by": res["bound_by"], "library_ms": res["library_ms"],
+                     **{key: res[key] for key in ("heads", "one_lane_step") if key in res}})
     emit({"phase": "total", "seconds": time.perf_counter() - t_script,
           "seconds_by_phase": by_phase})
     emit({"kernels": line})

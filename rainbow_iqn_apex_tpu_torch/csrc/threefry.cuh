@@ -54,25 +54,38 @@ __device__ __forceinline__ uint32_t bits(Key k, uint32_t i) {
     return x0 ^ x1;
 }
 
-// element i of uniform(k, shape) in [0, 1)
-__device__ __forceinline__ float uniform(Key k, uint32_t i) {
-    return __uint_as_float((bits(k, i) >> 9) | 0x3F800000u) - 1.0f;
+// a uniform in [0, 1) from its 32 random bits
+__device__ __forceinline__ float uniform_bits(uint32_t b) {
+    return __uint_as_float((b >> 9) | 0x3F800000u) - 1.0f;
 }
+
+// a uniform in [lo, hi) from its 32 random bits
+__device__ __forceinline__ float uniform_bits(uint32_t b, float lo, float hi) {
+    return fmaxf(lo, __fmaf_rn(uniform_bits(b), hi - lo, lo));
+}
+
+// a randint in [lo, hi) from the bits of its two keys' draws (higher, lower):
+// combined modulo the span
+__device__ __forceinline__ int randint_bits(uint32_t higher, uint32_t lower, int lo, int hi) {
+    const uint32_t span = hi > lo ? (uint32_t)(hi - lo) : 1u;
+    uint32_t mult = 65536u % span;
+    mult = (mult * mult) % span;
+    const uint32_t offset = ((higher % span) * mult + lower % span) % span;
+    return lo + (int)offset;
+}
+
+// element i of uniform(k, shape) in [0, 1)
+__device__ __forceinline__ float uniform(Key k, uint32_t i) { return uniform_bits(bits(k, i)); }
 
 // element i of uniform(k, shape, minval=lo, maxval=hi)
 __device__ __forceinline__ float uniform(Key k, uint32_t i, float lo, float hi) {
-    return fmaxf(lo, __fmaf_rn(uniform(k, i), hi - lo, lo));
+    return uniform_bits(bits(k, i), lo, hi);
 }
 
 // element i of randint(k, shape, lo, hi) in int32: two 32-bit draws from
 // split(k), combined modulo the span
 __device__ __forceinline__ int randint(Key k, uint32_t i, int lo, int hi) {
-    const uint32_t span = hi > lo ? (uint32_t)(hi - lo) : 1u;
-    uint32_t mult = 65536u % span;
-    mult = (mult * mult) % span;
-    const uint32_t higher = bits(split(k, 0), i), lower = bits(split(k, 1), i);
-    const uint32_t offset = ((higher % span) * mult + lower % span) % span;
-    return lo + (int)offset;
+    return randint_bits(bits(split(k, 0), i), bits(split(k, 1), i), lo, hi);
 }
 
 // element i of bernoulli(k, p, shape)

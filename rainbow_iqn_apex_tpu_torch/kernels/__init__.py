@@ -13,6 +13,8 @@ and which tests and ``chip_smoke.py`` hold the kernel against.
     K4  dueling_head.dueling_head              dueling combine, tau-mean, greedy argmax
         dueling_head.dueling_gather            the combine gathered at given actions
         dueling_head.dueling_gather_bwd        its backward
+        dueling_head.dueling_learn             a learn step's three heads in one launch (a*,
+                                               the gathers, td_target)
     K2g tau_embed.tau_embed(game=, emb=)       K2 with the multi-game embedding phi + E[game]
         tau_embed.tau_embed_bwd(game=, emb=)   its backward, with dE
     K4m dueling_head.dueling_head(game=, mask=)  K4 with the per-game action mask
@@ -39,7 +41,8 @@ and which tests and ``chip_smoke.py`` hold the kernel against.
 
 Each backward has a ``torch.autograd.Function`` beside it in the same
 module (``TauEmbedFn``, ``NoisyLinearFn``, ``DuelingGatherFn``,
-``QuantileHuberFn``, ``LSTMFn``, ``R2D2TDFn``), which the models and the
+``DuelingLearnFn``, ``QuantileHuberFn``, ``LSTMFn``, ``R2D2TDFn``), which
+the models and the
 learners call.
 
 ``launches`` counts kernel launches by name; ``reset_launches`` zeroes it.

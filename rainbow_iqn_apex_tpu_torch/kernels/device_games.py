@@ -17,8 +17,9 @@ host (an int64 [2] tensor or pair) and goes to the kernel by value.
 
 Bound on the H100: the frames written once, L x 6,400 B, plus the state:
 launch-bound at training widths.  The kernel (``csrc/device_games.cu``) is
-one block per lane, the game's logic on one thread, the frame in 16-byte
-stores.
+a warp per lane, four lanes a block: the state in the warp's registers, the
+step's and the reset's Threefry hashes spread over its threads depth by
+depth, grid-wide logic by ballots, the frame in 16-byte stores.
 
 Each function runs the kernel for CUDA states and the plain twin
 (``*_plain``) for CPU states.

@@ -10,7 +10,8 @@ fuses on the TPU:
 
 Bound on the H100: a few hundred KB at bucket 64, far under a microsecond of
 memory time, so the launch is the cost.  The kernel
-(``csrc/dueling_head.cu``) does all three steps in one block per batch row.
+(``csrc/dueling_head.cu``) does all three steps with a warp per batch row,
+``row_plan`` rows a block.
 
 ``dueling_head`` runs the kernel for CUDA tensors and ``dueling_head_plain``
 for CPU tensors.
@@ -36,6 +37,15 @@ counted under its own name:
   masked, ``multitask/ops.py:180-193``).  Detached: no backward.
 
 Both launch-bound like K4.
+
+The learner's heads mode (``dueling_learn``, kernel ``port_dueling_learn``):
+one launch takes the select, target and online heads of a learn step and
+gives a* (masked as K4m when a mask is given), z_next at a*, td_target =
+reward + discount * z_next, z_online at the taken action and the online q:
+``rainbow_iqn_apex_tpu/ops/learn.py:125-152`` after the three forwards.  It
+counts as K4m when the select head is masked, else as K4.
+``DuelingLearnFn`` is its ``torch.autograd.Function``: only z_online carries
+a gradient, through K4-bwd.
 """
 
 from __future__ import annotations
@@ -58,7 +68,36 @@ NAME_MASK = "K4m_dueling_head_mask"
 REPLACES_MASK = "rainbow_iqn_apex_tpu/multitask/model.py:134"
 NAME_LOGP = "K4l_dueling_head_logp"
 REPLACES_LOGP = "rainbow_iqn_apex_tpu/ops/learn.py:191"
+REPLACES_LEARN = "rainbow_iqn_apex_tpu/ops/learn.py:125"
 MASK_FILL = -1e9  # multitask/model.py:43: large-negative, not -inf
+MAX_ROWS = 4  # rows (warps) a block in the row modes, csrc/dueling_head.cu
+SMEM_LIMIT = 48 * 1024  # the kernels' dynamic shared memory, without an opt-in
+
+
+def _tile_floats(num_taus: int, actions: int) -> int:
+    return (num_taus * actions + 3) // 4 * 4
+
+
+def row_plan(num_taus: int, actions: int) -> int:
+    """Rows (warps) a block of the row modes: MAX_ROWS, fewer where their
+    tiles would pass the shared memory limit; raises where one row does."""
+    per_row = (_tile_floats(num_taus, actions) + _tile_floats(1, actions)) * 4
+    if per_row > SMEM_LIMIT:
+        raise ValueError(f"K4 keeps one row's [{num_taus}, {actions}] quantiles in "
+                         f"{SMEM_LIMIT // 1024} KB of shared memory")
+    return min(MAX_ROWS, SMEM_LIMIT // per_row)
+
+
+def learn_smem(num_select: int, num_target: int, num_online: int, actions: int) -> int:
+    """Shared memory bytes of one heads-mode block (one batch row's three
+    tiles and two q rows); raises where they pass the limit."""
+    floats = (_tile_floats(num_select, actions) + _tile_floats(num_target, actions)
+              + _tile_floats(num_online, actions) + 2 * _tile_floats(1, actions))
+    if floats * 4 > SMEM_LIMIT:
+        raise ValueError(f"K4's heads mode keeps a row's three tiles ({num_select}, "
+                         f"{num_target}, {num_online} taus x {actions}) in "
+                         f"{SMEM_LIMIT // 1024} KB of shared memory")
+    return floats * 4
 
 
 def mask_q(q: torch.Tensor, game: Optional[torch.Tensor],
@@ -85,7 +124,7 @@ def dueling_head_plain(value: Optional[torch.Tensor], adv: torch.Tensor, num_tau
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = build.library().port_dueling_head
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -117,8 +156,7 @@ def _check(value: Optional[torch.Tensor], adv: torch.Tensor, num_taus: int) -> N
         raise ValueError(f"K4 value must be [{rows}, 1], got {tuple(value.shape)}")
     if any(t.device != adv.device or not t.is_contiguous() for t in tensors):
         raise ValueError("K4 inputs must be contiguous on one device")
-    if (num_taus + 1) * actions > 12288:
-        raise ValueError("K4 keeps one row's [N, A] quantiles in 48 KB of shared memory")
+    row_plan(num_taus, actions)
 
 
 def dueling_head(value: Optional[torch.Tensor], adv: torch.Tensor, num_taus: int,
@@ -140,7 +178,7 @@ def dueling_head(value: Optional[torch.Tensor], adv: torch.Tensor, num_taus: int
             build.ptr(value), build.ptr(adv), build.ptr(quantiles), build.ptr(q),
             build.ptr(action), build.ptr(None), build.ptr(None),
             build.ptr(None if mask8 is None else game), build.ptr(mask8), build.ptr(None),
-            batch, num_taus, actions, build.stream_of(adv.device))
+            batch, num_taus, actions, row_plan(num_taus, actions), build.stream_of(adv.device))
     build.check_launch(NAME if mask8 is None else NAME_MASK, code)
     return quantiles, q, action
 
@@ -178,7 +216,7 @@ def dueling_logp(value: Optional[torch.Tensor], adv: torch.Tensor, num_taus: int
             build.ptr(value), build.ptr(adv), build.ptr(None), build.ptr(q), build.ptr(None),
             build.ptr(take), build.ptr(None), build.ptr(None if mask8 is None else game),
             build.ptr(mask8), build.ptr(logp), batch, num_taus, actions,
-            build.stream_of(adv.device))
+            row_plan(num_taus, actions), build.stream_of(adv.device))
     build.check_launch(NAME_LOGP, code)
     return logp, q
 
@@ -212,7 +250,7 @@ def dueling_gather(value: Optional[torch.Tensor], adv: torch.Tensor, num_taus: i
         code = _entry()(
             build.ptr(value), build.ptr(adv), build.ptr(None), build.ptr(q), build.ptr(None),
             build.ptr(take), build.ptr(z), build.ptr(None), build.ptr(None), build.ptr(None),
-            batch, num_taus, actions, build.stream_of(adv.device))
+            batch, num_taus, actions, row_plan(num_taus, actions), build.stream_of(adv.device))
     build.check_launch(NAME, code)
     return z, q
 
@@ -280,3 +318,100 @@ class DuelingGatherFn(torch.autograd.Function):
         (take,) = ctx.saved_tensors
         dvalue, dadv = dueling_gather_bwd(dz.contiguous(), take, ctx.num_actions, ctx.dueling)
         return dvalue, dadv, None, None
+
+
+# ------------------------------------------------------ the learner's heads
+Head = Tuple[Optional[torch.Tensor], torch.Tensor, int]  # (value [B*T, 1] or None, adv [B*T, A], T)
+
+
+def dueling_learn_plain(select: Head, target: Head, online: Head, take: torch.Tensor,
+                        reward: torch.Tensor, discount: torch.Tensor,
+                        game: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None,
+                        ) -> Tuple[torch.Tensor, ...]:
+    """The learn step's three heads -> (z_online [B, N], on_q [B, A],
+    a_star [B] int32, z_next [B, N'], td_target [B, N']): a* the (masked)
+    greedy action of ``select``, z_next ``target``'s quantiles at a*,
+    td_target = reward + discount * z_next, z_online and on_q ``online``'s
+    quantiles at ``take`` and its tau-mean."""
+    _, _, a_star = dueling_head_plain(*select, game, mask)
+    z_next, _ = dueling_gather_plain(*target, a_star)
+    td_target = reward[:, None] + discount[:, None] * z_next
+    z_online, on_q = dueling_gather_plain(*online, take)
+    return z_online, on_q, a_star, z_next, td_target
+
+
+@functools.lru_cache(maxsize=None)
+def _learn_entry():
+    fn = build.library().port_dueling_learn
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def dueling_learn(select: Head, target: Head, online: Head, take: torch.Tensor,
+                  reward: torch.Tensor, discount: torch.Tensor,
+                  game: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None,
+                  ) -> Tuple[torch.Tensor, ...]:
+    """K4's heads mode on the heads' device: one launch on CUDA, the plain
+    twin on the CPU.  An out-of-range ``take`` gathers NaN on CUDA."""
+    adv = online[1]
+    if adv.device.type == "cpu":
+        return dueling_learn_plain(select, target, online, take, reward, discount, game, mask)
+    heads = (select, target, online)
+    for value_, adv_, taus_ in heads:
+        _check(value_, adv_, taus_)
+    if len({h[0] is None for h in heads}) != 1:
+        raise ValueError("K4's heads mode takes the value head of all three heads or of none")
+    actions = adv.shape[1]
+    batch = adv.shape[0] // online[2]
+    if any(h[1].shape != (batch * h[2], actions) or h[1].device != adv.device for h in heads):
+        raise ValueError(f"K4's heads mode takes [{batch} x taus, {actions}] heads on one device")
+    for name, t, dtype in (("take", take, torch.int32), ("reward", reward, torch.float32),
+                           ("discount", discount, torch.float32)):
+        if t.dtype != dtype or tuple(t.shape) != (batch,) or t.device != adv.device or (
+                not t.is_contiguous()):
+            raise ValueError(f"K4's heads mode takes {name} as contiguous {dtype} [{batch}] "
+                             f"on {adv.device}")
+    mask8 = _check_mask(game, mask, batch, actions, adv.device)
+    (sel_v, sel_a, k), (tgt_v, tgt_a, n_prime), (on_v, on_a, n) = heads
+    learn_smem(k, n_prime, n, actions)
+    dev = adv.device
+    a_star = torch.empty((batch,), dtype=torch.int32, device=dev)
+    z_next = torch.empty((batch, n_prime), dtype=torch.float32, device=dev)
+    td_target = torch.empty((batch, n_prime), dtype=torch.float32, device=dev)
+    z_online = torch.empty((batch, n), dtype=torch.float32, device=dev)
+    on_q = torch.empty((batch, actions), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        code = _learn_entry()(
+            build.ptr(sel_v), build.ptr(sel_a), build.ptr(tgt_v), build.ptr(tgt_a),
+            build.ptr(on_v), build.ptr(on_a), build.ptr(reward), build.ptr(discount),
+            build.ptr(take), build.ptr(None if mask8 is None else game), build.ptr(mask8),
+            build.ptr(a_star), build.ptr(z_next), build.ptr(td_target), build.ptr(z_online),
+            build.ptr(on_q), batch, k, n_prime, n, actions, build.stream_of(dev))
+    build.check_launch(NAME if mask8 is None else NAME_MASK, code)
+    return z_online, on_q, a_star, z_next, td_target
+
+
+class DuelingLearnFn(torch.autograd.Function):
+    """K4's heads mode forward, K4-bwd backward: (on_value, on_adv, take,
+    num_online, select, target, reward, discount, game, mask) -> (z_online,
+    on_q, a_star, z_next, td_target), differentiable in on_value and on_adv
+    through z_online alone; ``select`` and ``target`` are (value, adv, taus)
+    heads that carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, on_value, on_adv, take, num_online, select, target, reward, discount,
+                game, mask):
+        out = dueling_learn(select, target, (on_value, on_adv, num_online), take, reward,
+                            discount, game, mask)
+        ctx.save_for_backward(take)
+        ctx.dueling = on_value is not None
+        ctx.num_actions = on_adv.shape[1]
+        ctx.mark_non_differentiable(*out[1:])
+        return out
+
+    @staticmethod
+    def backward(ctx, dz, *unused):
+        (take,) = ctx.saved_tensors
+        dvalue, dadv = dueling_gather_bwd(dz.contiguous(), take, ctx.num_actions, ctx.dueling)
+        return dvalue, dadv, None, None, None, None, None, None, None, None

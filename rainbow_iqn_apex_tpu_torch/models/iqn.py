@@ -6,8 +6,9 @@ Hadamard phi * psi folded to [B*N, F]; dueling NoisyLinear value/advantage
 heads; Z_tau(s, a) per sampled tau.  The forward runs through the port's
 kernels: K2 (embedding + merge), K3 (the four NoisyLinear GEMMs) and K4 (the
 dueling combine with the tau-mean and the greedy argmax).  The learner's
-``gather`` runs the same network to the quantiles at given actions (K4's
-gather mode), differentiably: K2-bwd, K3-bwd and K4-bwd are the backward.
+``heads`` runs the same network up to K4, differentiably, and hands its
+three heads to one launch of K4's heads mode (ops/learn.py): K2-bwd, K3-bwd
+and K4-bwd are the backward.
 
 The bf16 rounding points are the JAX model's: obs * (1/255), the conv
 outputs, the cos features, the embedding and its bias add and phi * psi
@@ -22,11 +23,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from rainbow_iqn_apex_tpu_torch.kernels.dueling_head import (
-    DuelingGatherFn,
-    dueling_head,
-    dueling_logp,
-)
+from rainbow_iqn_apex_tpu_torch.kernels.dueling_head import dueling_head, dueling_logp
 from rainbow_iqn_apex_tpu_torch.models.layers import (
     ConvTrunk,
     CosineTauEmbedding,
@@ -145,18 +142,15 @@ class RainbowIQN(nn.Module):
         quantiles, q, action = self._combine(value, adv, num_taus, game)  # K4 (K4m)
         return IQNOutput(quantiles, taus, q, action)
 
-    def gather(self, obs: torch.Tensor, num_taus: int, actions: torch.Tensor,
-               taus: Optional[torch.Tensor] = None,
-               generator: Optional[torch.Generator] = None,
-               noise: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
-               game: Optional[torch.Tensor] = None,
-               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """The quantiles at ``actions`` [B] int32: (z [B, N], q [B, A], taus
-        [B, N]); z is differentiable in the parameters (K4 gather + K4-bwd),
-        q is not.  The learner's ``take_along_axis`` (ops/learn.py)."""
-        value, adv, taus = self._heads(obs, num_taus, taus, generator, noise, None, game)
-        z, q = DuelingGatherFn.apply(value, adv, actions, num_taus)
-        return z, q, taus
+    def heads(self, obs: torch.Tensor, num_taus: int, taus: Optional[torch.Tensor] = None,
+              generator: Optional[torch.Generator] = None,
+              noise: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
+              game: Optional[torch.Tensor] = None) -> Tuple[Optional[torch.Tensor], torch.Tensor,
+                                                            torch.Tensor]:
+        """The forward up to K4: (value [B*N, 1] or None, adv [B*N, A], taus
+        [B, N]), differentiable in the parameters.  The learner hands its
+        three heads to K4's heads mode (ops/learn.py)."""
+        return self._heads(obs, num_taus, taus, generator, noise, None, game)
 
     def logp(self, obs: torch.Tensor, num_taus: int, actions: torch.Tensor,
              taus: Optional[torch.Tensor] = None,
@@ -168,9 +162,9 @@ class RainbowIQN(nn.Module):
         ``make_policy_logp`` of ``rainbow_iqn_apex_tpu/ops/learn.py``."""
         with torch.no_grad():
             value, adv, _ = self._heads(obs, num_taus, taus, generator, noise, None, game)
-            return dueling_logp(value, adv, num_taus, actions, *self._mask_args(game))[0]
+            return dueling_logp(value, adv, num_taus, actions, *self.mask_args(game))[0]
 
-    def _mask_args(self, game: Optional[torch.Tensor]) -> tuple:
+    def mask_args(self, game: Optional[torch.Tensor]) -> tuple:
         """(game, mask) for the K4 modes that mask, () without a mask."""
         return ()
 

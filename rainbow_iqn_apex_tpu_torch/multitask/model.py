@@ -17,7 +17,8 @@ The mask runs inside K4 (K4m: q set to ``MASK_FILL`` outside a row's game
 before the argmax) for the act step and the double-Q a*, and inside K4l for
 replay reuse's log-probs.  The quantiles themselves are never masked, so
 the Q estimates of real actions are untouched; the learner's gathers (at a*
-and at the taken action) are K4's gather mode, as JAX's ``take_along_axis``.
+and at the taken action) are K4's heads mode, as JAX's ``take_along_axis``,
+with the mask on the select head alone.
 
 Call signature: ``net(obs, num_taus, taus=None, generator=None, noise=None,
 noisy=None, game=game)`` with ``game`` [B] int32 game ids; the output's q is
@@ -64,9 +65,9 @@ class MultiGameIQN(RainbowIQN):
         return self.tau_embed(taus, phi, game, self.game_embed)  # K2g
 
     def _combine(self, value, adv, num_taus, game):
-        return dueling_head(value, adv, num_taus, *self._mask_args(game))  # K4m
+        return dueling_head(value, adv, num_taus, *self.mask_args(game))  # K4m
 
-    def _mask_args(self, game: Optional[torch.Tensor]) -> tuple:
+    def mask_args(self, game: Optional[torch.Tensor]) -> tuple:
         return (game.to(torch.int32).contiguous(), self.mask_table)
 
 

@@ -8,10 +8,12 @@ the online pass only, optax-style global-norm clipping, Adam, and the hard
 target copy every ``target_update_period`` steps.
 
 On CUDA every step after the convolutions is one of the port's kernels:
-K2/K3/K4 forward, K1, and the backward K4-bwd, K3-bwd, K2-bwd; the
-convolutions' backward is cuDNN's, Adam is ``torch.optim.Adam(fused=True)``.
-A multi-game batch (``Batch.game``, on a ``multitask.MultiGameIQN`` state)
-runs K2g and K2g-bwd in place of K2 and K2-bwd, and K4m for the a* pass.
+K2/K3 forward for each of the three heads, then one launch of K4's heads
+mode for all three (a*, the gathers and td_target), K1, and the backward
+K4-bwd, K3-bwd, K2-bwd; the convolutions' backward is cuDNN's, Adam is
+``torch.optim.Adam(fused=True)``.  A multi-game batch (``Batch.game``, on a
+``multitask.MultiGameIQN`` state) runs K2g and K2g-bwd in place of K2 and
+K2-bwd, and the heads launch masks the a* head (counted as K4m).
 
 ``replay_ratio`` K > 1 (``make_reuse_learn_step``, IMPACT-style clipped
 reuse): one sampled batch drives K passes of the step; passes 2..K scale the
@@ -44,6 +46,7 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 import torch
 
 from rainbow_iqn_apex_tpu_torch.config import Config
+from rainbow_iqn_apex_tpu_torch.kernels.dueling_head import DuelingLearnFn
 from rainbow_iqn_apex_tpu_torch.models.init import init_network_, make_network
 from rainbow_iqn_apex_tpu_torch.models.iqn import RainbowIQN
 from rainbow_iqn_apex_tpu_torch.ops.act import DeviceLike, resolve_device
@@ -176,20 +179,25 @@ def loss_and_priorities(cfg: Config, state: TrainState, batch: Batch,
     tgt_taus, tgt_noise = draws.get("target", (None, None))
     on_taus, on_noise = draws.get("online", (None, None))
     game = batch.game
+    net = state.net
     with torch.no_grad():
-        # double-Q action selection: the online net picks a* on s' (K taus),
+        # double-Q action selection: the online net on s' (K taus) picks a*,
         # masked to each row's own game in a multi-game run
-        a_star = state.net(batch.next_obs, cfg.num_quantile_samples, taus=sel_taus,
-                           generator=generator, noise=sel_noise, game=game).action
+        select = (*net.heads(batch.next_obs, cfg.num_quantile_samples, taus=sel_taus,
+                             generator=generator, noise=sel_noise, game=game)[:2],
+                  cfg.num_quantile_samples)
         # target distribution: the target net on s' at a*, N' taus
-        z_next, _, _ = state.target.gather(batch.next_obs, cfg.num_tau_prime_samples, a_star,
-                                           taus=tgt_taus, generator=generator, noise=tgt_noise,
-                                           game=game)
-        td_target = batch.reward[:, None] + batch.discount[:, None] * z_next
+        target = (*state.target.heads(batch.next_obs, cfg.num_tau_prime_samples, taus=tgt_taus,
+                                      generator=generator, noise=tgt_noise, game=game)[:2],
+                  cfg.num_tau_prime_samples)
     # online distribution at the taken action, N taus
-    z_online, on_q, taus = state.net.gather(batch.obs, cfg.num_tau_samples, batch.action,
-                                            taus=on_taus, generator=generator, noise=on_noise,
-                                            game=game)
+    on_value, on_adv, taus = net.heads(batch.obs, cfg.num_tau_samples, taus=on_taus,
+                                       generator=generator, noise=on_noise, game=game)
+    # K4's heads mode: a*, z_next, td_target, z_online and on_q in one launch
+    z_online, on_q, _, z_next, td_target = DuelingLearnFn.apply(
+        on_value, on_adv, batch.action, cfg.num_tau_samples, select, target,
+        batch.reward.contiguous(), batch.discount.contiguous(),
+        *(net.mask_args(game) if game is not None else (None, None)))
     per_sample, td_abs = quantile_huber_loss(z_online, taus, td_target, cfg.kappa)
     weight = batch.weight if weight_scale is None else batch.weight * weight_scale
     loss = torch.mean(weight * per_sample)

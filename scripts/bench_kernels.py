@@ -2,7 +2,8 @@
 """Per-shape times of K3 (the NoisyLinear GEMM), K3-bwd, K2 (the cosine-tau
 embedding merged with phi), K2-bwd, K9 (R2D2's LSTM recurrence), K9-bwd,
 K10g (the weight-only int8 / e4m3 NoisyLinear GEMM), K5 (the PER draw) and
-K5f (the frontier's draw with IS weights) on the card, K2's multi-game modes
+K5f (the frontier's draw with IS weights), K4 (the dueling head, in every
+mode) and K12 (the device games' tick) on the card, K2's multi-game modes
 K2g and K2g-bwd included.
 
 Times the port's ``noisy_linear`` and ``noisy_linear_bwd`` at every shape the
@@ -29,7 +30,18 @@ plain twin's error, with ``chip_smoke.py``'s timers (and, for K3, the host
 time of one wrapper call), and K10g, K5 and K5f with the plain twin's time,
 ``chip_smoke.py``'s library yardstick (K10g greedy: the dequantize into bf16
 then ``F.linear``; K5: ``cumsum`` + ``searchsorted``; K5f: those, the gather,
-``pow`` and ``amax``) and the bound.
+``pow`` and ``amax``) and the bound.  K4 (``--only k4``): greedy at bucket
+64 [64, 32, 18] and at R2D2's one tau a row [2560, 1, 18], the gather at the
+learner's [32, 64, 18], K4m at the multi-game path's [32, 32, 5] over four
+games and serving's [64, 32, 18], K4l there masked and not, and a learn
+step's heads (B 32, K 32, N' 64, N 64, A 18; and the multi-game path's A 5,
+masked): ``ms`` the tree's own route (one heads-mode launch where the tree
+has ``dueling_learn``, else the three launches and td_target's two
+elementwise ops it replaces), ``three_launch_ms`` the latter on every tree.
+K12 (``--only k12``): every game's auto-reset tick at 16 and 4,096 lanes and
+the host adapter's one-lane step (timed as the adapter's reset and a step,
+beside the reset alone: a reset-free step run on and on walks catch's ball
+off its grid), each beside its byte bound.
 The port is imported from ``--root`` (default: this checkout), so two trees,
 e.g. a parent commit unpacked into an ignored directory, are compared on one
 card by running the script once per tree in one call:
@@ -41,7 +53,7 @@ A tree whose K2-bwd recomputes the cos features (no ``save_cos``) is called
 that way; a shape a tree refuses is reported as refused.  Prints one JSON
 object per (kernel, shape, mode); ``--out`` appends them to a file as well;
 ``--only fwd`` (or ``bwd``, ``k2``, ``k2bwd``, ``k9``, ``k9bwd``, ``k10g``,
-``k5``, ``k5f``, or layer names) times a subset.  K9's unrolls (T > 1) are timed as eager calls
+``k5``, ``k5f``, ``k4``, ``k12``, or layer names) times a subset.  K9's unrolls (T > 1) are timed as eager calls
 between CUDA events, their device time being far above the launch's (a
 parent tree's cooperative launch is not captured in a CUDA graph); the act
 tick is timed that way and, where the tree's K9 has launch plans (a plain
@@ -96,8 +108,8 @@ def main() -> int:
                     help="comma-separated k splits to time K10g's wide layers at, in place of "
                          "forward_plan's (a tree whose K10g has forward_plan(m, n, k, noisy, clusters))")
     ap.add_argument("--only", default=None,
-                    help="comma-separated kernels (fwd, bwd, k2, k2bwd, k9, k9bwd, k10g, k5, k5f) "
-                         "or layer names to time; default all")
+                    help="comma-separated kernels (fwd, bwd, k2, k2bwd, k9, k9bwd, k10g, k5, k5f, "
+                         "k4, k12) or layer names to time; default all")
     args = ap.parse_args()
     only = set(args.only.split(",")) if args.only else None
 
@@ -112,10 +124,13 @@ def main() -> int:
     from chip_smoke import (
         BF16_FLOPS,
         FP32_FLOPS,
+        GAME_NAMES,
         K3_EXTRA_SHAPES,
         K3_TOL,
         R2D2_RESET_P,
+        _game_bytes,
         _lstm_args,
+        _mt_mask,
         bound_ms,
         errors,
         host_us,
@@ -393,7 +408,122 @@ def main() -> int:
               "plain_ms": time_ms(torch, lambda: frontier_draw_plain(p, u, beta, n_items),
                                   reps=REPS),
               "library_ms": time_ms(torch, library, reps=REPS), "bound_ms": bms, "bound_by": by})
+    if wanted("k4", None):
+        bench_k4(torch, dev, gen, emit, bound_ms, time_ms, _mt_mask, FP32_FLOPS)
+    if wanted("k12", None):
+        bench_k12(torch, dev, emit, bound_ms, time_ms, _game_bytes, GAME_NAMES, FP32_FLOPS)
     return 0
+
+
+def bench_k4(torch, dev, gen, emit, bound_ms, time_ms, mt_mask, fp32_flops):
+    from rainbow_iqn_apex_tpu_torch.kernels import dueling_head as k4
+
+    def head(batch, taus, actions):
+        return (torch.randn((batch * taus, 1), generator=gen, device=dev),
+                torch.randn((batch * taus, actions), generator=gen, device=dev), taus)
+
+    def mode_bound(m, batch, actions, extra_bytes=0):
+        return bound_ms(m * 4 + 2 * m * actions * 4 + batch * actions * 4 + batch * 4 + extra_bytes,
+                        4 * m * actions, fp32_flops)
+
+    for name, batch, taus, actions in (("bucket64", 64, 32, 18), ("r2d2", 2560, 1, 18)):
+        value, adv, _ = head(batch, taus, actions)
+        bms, by = mode_bound(batch * taus, batch, actions)
+        emit({"kernel": "K4_dueling_head", "mode": "greedy", "at": name,
+              "shape": [batch, taus, actions],
+              "ms": time_ms(torch, lambda: k4.dueling_head(value, adv, taus), reps=REPS),
+              "bound_ms": bms, "bound_by": by})
+    for name, batch, taus, actions in (("learn", 32, 64, 18), ("r2d2", 2560, 1, 18)):
+        value, adv, _ = head(batch, taus, actions)
+        take = torch.randint(0, actions, (batch,), generator=gen, device=dev, dtype=torch.int32)
+        bms, by = bound_ms(batch * taus * 4 * (1 + actions) + batch * 4 + batch * taus * 4
+                           + batch * actions * 4, 4 * batch * taus * actions, fp32_flops)
+        emit({"kernel": "K4_dueling_head", "mode": "gather", "at": name,
+              "shape": [batch, taus, actions],
+              "ms": time_ms(torch, lambda: k4.dueling_gather(value, adv, taus, take), reps=REPS),
+              "bound_ms": bms, "bound_by": by})
+    for name, batch, taus, actions, counts in (("path", 32, 32, 5, (3, 5, 4, 3)),
+                                               ("serving", 64, 32, 18, (18, 9, 6, 4))):
+        value, adv, _ = head(batch, taus, actions)
+        game = (torch.arange(batch, device=dev, dtype=torch.int32) % 4).contiguous()
+        mask = mt_mask(torch, counts, actions, dev)
+        bms, by = mode_bound(batch * taus, batch, actions, batch * 4 + 4 * actions)
+        emit({"kernel": "K4m_dueling_head_mask", "at": name, "shape": [batch, taus, actions],
+              "ms": time_ms(torch, lambda: k4.dueling_head(value, adv, taus, game, mask),
+                            reps=REPS), "bound_ms": bms, "bound_by": by})
+        limit = torch.tensor(counts, device=dev)[game.long()]
+        take = (torch.arange(batch, device=dev) % limit).to(torch.int32)
+        for masked in (True, False):
+            margs = (game, mask) if masked else ()
+            emit({"kernel": "K4l_dueling_head_logp", "at": name, "masked": masked,
+                  "shape": [batch, taus, actions],
+                  "ms": time_ms(torch, lambda: k4.dueling_logp(value, adv, taus, take, *margs),
+                                reps=REPS), "bound_ms": bms, "bound_by": by})
+    # a learn step's heads: the select head at K taus, the target at N', the online at N
+    for name, (batch, k, n_prime, n, actions), counts in (
+            ("learn", (32, 32, 64, 64, 18), None), ("path", (32, 32, 64, 64, 5), (3, 5, 4, 3))):
+        select, target, online = head(batch, k, actions), head(batch, n_prime, actions), \
+            head(batch, n, actions)
+        take = torch.randint(0, actions, (batch,), generator=gen, device=dev, dtype=torch.int32)
+        reward = torch.randn((batch,), generator=gen, device=dev)
+        discount = torch.full((batch,), 0.99 ** 3, device=dev)
+        margs = (None, None)
+        if counts is not None:
+            margs = ((torch.arange(batch, device=dev, dtype=torch.int32) % 4).contiguous(),
+                     mt_mask(torch, counts, actions, dev))
+
+        def three_launches():
+            a_star = k4.dueling_head(*select, *[x for x in margs if x is not None])[2]
+            z_next, _ = k4.dueling_gather(*target, a_star)
+            td = reward[:, None] + discount[:, None] * z_next
+            return k4.dueling_gather(*online, take), td
+
+        def route():
+            if hasattr(k4, "dueling_learn"):
+                return k4.dueling_learn(select, target, online, take, reward, discount, *margs)
+            return three_launches()
+
+        rows = batch * (k + n_prime + n)
+        bms, by = bound_ms(rows * 4 * (1 + actions) + 4 * batch * 4 + 2 * batch * n_prime * 4
+                           + batch * n * 4 + batch * actions * 4, 4 * rows * actions, fp32_flops)
+        emit({"kernel": "K4m_dueling_head_mask" if counts else "K4_dueling_head", "mode": "heads",
+              "at": name, "shape": [batch, k, n_prime, n, actions],
+              "launches": 1 if hasattr(k4, "dueling_learn") else 3,
+              "ms": time_ms(torch, route, reps=REPS),
+              "three_launch_ms": time_ms(torch, three_launches, reps=REPS),
+              "bound_ms": bms, "bound_by": by})
+
+
+def bench_k12(torch, dev, emit, bound_ms, time_ms, game_bytes, game_names, fp32_flops):
+    from rainbow_iqn_apex_tpu_torch.envs import prng
+    from rainbow_iqn_apex_tpu_torch.envs.device_games import make_device_game
+    from rainbow_iqn_apex_tpu_torch.kernels.device_games import game_init, game_step, game_tick
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for name in game_names:
+        game = make_device_game(name)
+        keys = prng.split(prng.prng_key(3), 8)
+        for lanes in (16, 4096):
+            state, _ = game_init(game, keys[0], lanes, dev)
+            ep = torch.zeros(lanes, device=dev)
+            a = torch.randint(0, game.num_actions, (lanes,), generator=gen, device=dev,
+                              dtype=torch.int32)
+            bms, by = bound_ms(game_bytes(torch, game, lanes), 0.0, fp32_flops)
+            emit({"kernel": "K12_device_games", "game": name, "lanes": lanes, "mode": "tick",
+                  "ms": time_ms(torch, lambda: game_tick(game, state, ep, a, keys[1]), reps=REPS),
+                  "bound_ms": bms, "bound_by": by})
+        a = torch.randint(0, game.num_actions, (1,), generator=gen, device=dev, dtype=torch.int32)
+
+        def reset_and_step():
+            state, _ = game_init(game, keys[2], 1, dev, direct=True)
+            return game_step(game, state, a, keys[3])
+
+        reset_ms = time_ms(torch, lambda: game_init(game, keys[2], 1, dev, direct=True), reps=REPS)
+        both_ms = time_ms(torch, reset_and_step, reps=REPS)
+        bms, by = bound_ms(game_bytes(torch, game, 1), 0.0, fp32_flops)
+        emit({"kernel": "K12_device_games", "game": name, "lanes": 1, "mode": "step",
+              "ms": both_ms - reset_ms, "reset_and_step_ms": both_ms, "reset_ms": reset_ms,
+              "bound_ms": bms, "bound_by": by})
 
 
 if __name__ == "__main__":

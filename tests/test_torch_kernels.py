@@ -63,8 +63,12 @@ from rainbow_iqn_apex_tpu_torch.kernels.dueling_head import (
     dueling_gather_plain,
     dueling_head,
     dueling_head_plain,
+    dueling_learn,
+    dueling_learn_plain,
     dueling_logp,
     dueling_logp_plain,
+    learn_smem,
+    row_plan,
 )
 from rainbow_iqn_apex_tpu_torch.kernels import noisy_linear as noisy_linear_module
 from rainbow_iqn_apex_tpu_torch.kernels.noisy_linear import (
@@ -763,6 +767,109 @@ def test_k4_gather_and_bwd_kernels_match_plain(cuda, dueling):
             torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
 
 
+def _k4_heads(device, dueling, masked, batch=32, k=32, n_prime=64, n=64, actions=18):
+    """The learn step's three heads at the learn shapes, with planted cases:
+    row 0 ties actions 3 and A - 1 in the select head, row 1 holds a NaN at
+    action 2 of its select head, row 2 takes action A - 1 (row 2's game
+    masks it in the masked case: the gathers do not mask)."""
+    r = _rng(29)
+
+    def head(taus):
+        v = _t(r.standard_normal((batch * taus, 1))).to(device) if dueling else None
+        return v, _t(r.standard_normal((batch * taus, actions))).to(device), taus
+
+    select, target, online = head(k), head(n_prime), head(n)
+    sel_adv = select[1].view(batch, k, actions)
+    sel_adv[0, :, 3] = sel_adv[0, :, actions - 1] = 9.0
+    sel_adv[1, k // 2, 2] = float("nan")
+    take = torch.from_numpy(r.integers(0, actions, batch).astype(np.int32)).to(device)
+    take[2] = actions - 1
+    reward = _t(r.standard_normal(batch)).to(device)
+    discount = _t(r.choice([0.0, 0.9, 0.99 ** 3], batch).astype(np.float32)).to(device)
+    game = mask = None
+    if masked:
+        game = torch.from_numpy((np.arange(batch) % 3).astype(np.int32)).to(device)
+        mask = torch.ones((3, actions), dtype=torch.bool, device=device)
+        mask[1, actions // 3:] = False
+        mask[2, actions // 2:] = False
+    return select, target, online, take, reward, discount, game, mask
+
+
+def test_k4_row_plan_fits_shared_memory():
+    assert row_plan(32, 18) == 4 and row_plan(64, 18) == 4 and row_plan(1, 18) == 4
+    assert row_plan(200, 18) == 3 and row_plan(600, 18) == 1  # 14.5 KB and 43 KB a row
+    with pytest.raises(ValueError):
+        row_plan(700, 18)
+    assert learn_smem(32, 64, 64, 18) == (576 + 1152 + 1152 + 2 * 20) * 4
+    with pytest.raises(ValueError):
+        learn_smem(200, 200, 300, 18)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_k4_heads_wrapper_runs_its_twin_on_cpu_without_counting(masked):
+    before = dict(launches)
+    args = _k4_heads(torch.device("cpu"), True, masked, batch=6, k=4, n_prime=8, n=8, actions=5)
+    got = dueling_learn(*args[:3], *args[3:6], *args[6:])
+    want = dueling_learn_plain(*args[:3], *args[3:6], *args[6:])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[2][0].item() == 3 and got[2][1].item() == 0  # the tie, then NaN's row (all NaN)
+    assert dict(launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dueling", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+def test_k4_heads_mode_matches_plain(cuda, dueling, masked):
+    """One launch of K4's heads mode against its twin at the learn shapes:
+    a* equal (the planted tie to the first index, NaN as maximal, inside
+    each row's game when masked), z_next, td_target, z_online and on_q
+    within 1e-5; an out-of-range action gathers NaN in z_online's row."""
+    select, target, online, take, reward, discount, game, mask = _k4_heads(cuda, dueling, masked)
+    name = "K4m_dueling_head_mask" if masked else "K4_dueling_head"
+    got = _counted(name, lambda: dueling_learn(select, target, online, take, reward, discount,
+                                               game, mask))
+    want = dueling_learn_plain(select, target, online, take, reward, discount, game, mask)
+    _, q_sel, _ = dueling_head_plain(*select, game, mask)
+    top2 = torch.sort(q_sel.nan_to_num(nan=1e30), dim=-1).values[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 1e-5
+    clear[0] = True  # the exact tie
+    assert torch.equal(got[2][clear], want[2][clear])
+    assert got[2][0].item() == 3
+    assert got[2][1].item() == (0 if dueling else 2)  # dueling: the NaN spreads over the tau row
+    if masked:
+        assert bool(mask[game.long(), got[2].long()].all())
+    for g, w in zip((got[0], got[1]), (want[0], want[1])):
+        torch.testing.assert_close(g, w, **FP32)
+    for g, w in zip(got[3:], want[3:]):
+        torch.testing.assert_close(g[clear], w[clear], **FP32)
+    bad = take.clone()
+    bad[5] = 18
+    z_bad = dueling_learn(select, target, online, bad, reward, discount, game, mask)[0]
+    assert bool(z_bad[5].isnan().all()) and torch.equal(z_bad[:5], got[0][:5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_k4l_twice_on_one_input_is_bit_equal(cuda, masked):
+    """K4l at bucket 64's shape: two calls give the same bits (a zero-drift
+    reuse pass's ratio is exactly 1)."""
+    r = _rng(31)
+    value = _t(r.standard_normal((64 * 32, 1))).to(cuda)
+    adv = _t(r.standard_normal((64 * 32, 18))).to(cuda)
+    take = torch.from_numpy(r.integers(0, 18, 64).astype(np.int32)).to(cuda)
+    margs = ()
+    if masked:
+        margs = (torch.from_numpy((np.arange(64) % 4).astype(np.int32)).to(cuda),
+                 torch.from_numpy(np.arange(18)[None, :] < np.array([[18], [3], [5], [9]])).to(cuda))
+        take = take % 3
+    first = _counted("K4l_dueling_head_logp", lambda: dueling_logp(value, adv, 32, take, *margs))
+    second = dueling_logp(value, adv, 32, take, *margs)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    want = dueling_logp_plain(value, adv, 32, take, *margs)
+    torch.testing.assert_close(first[0], want[0], **FP32)
+
+
 # ------------------------------------- the quantized act path (K10) on the card
 def _quant_tree(seed=30):
     """Full-width shapes of every kind K10q meets (a hidden layer, an *_out
@@ -1362,6 +1469,44 @@ def test_k12_kernel_matches_twin_bit_for_bit(cuda, name, lanes):
         cuts += int((got[2] | got[3]).sum())
     torch.cuda.synchronize()
     assert launches["K12_device_games"] - before == 502  # init, render, 500 ticks
+    assert cuts > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GAME_NAMES)
+def test_k12_one_lane_step_matches_twin_bit_for_bit(cuda, name):
+    """K12's reset-free step mode at one lane (the host adapter's shape), 500
+    steps with a fresh key each: states, frames, rewards and flags equal to
+    the twin's step on the same card; a cut re-initialises both from the key
+    itself (the adapter's reset, K12's direct init mode)."""
+    from rainbow_iqn_apex_tpu_torch.envs import prng
+    from rainbow_iqn_apex_tpu_torch.envs.device_games import make_device_game
+    from rainbow_iqn_apex_tpu_torch.kernels.device_games import game_init, game_step
+
+    game = make_device_game(name)
+    keys = prng.split(prng.prng_key(7 + len(name)), 501)
+    before = launches["K12_device_games"]
+    state, _ = game_init(game, keys[0], 1, cuda, direct=True)
+    want = game.init(keys[0].to(cuda)[None])
+    _game_states_equal(state, want, "init")
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    cuts, inits = 0, 1
+    for t in range(1, 501):
+        a = torch.randint(0, game.num_actions, (1,), generator=gen, device=cuda, dtype=torch.int32)
+        got = game_step(game, state, a, keys[t])
+        want, *want_out = game.step(want, a, keys[t].to(cuda)[None])
+        _game_states_equal(state, want, f"step {t}")
+        assert torch.equal(got[0], game.render(want)), f"step {t}: frame"
+        for field, g, w in zip(("reward", "term", "trunc"), got[1:], want_out):
+            assert torch.equal(g, w), f"step {t}: {field}"
+        if bool(got[2] | got[3]):
+            cuts += 1
+            inits += 1
+            state, _ = game_init(game, keys[t], 1, cuda, direct=True)
+            want = game.init(keys[t].to(cuda)[None])
+            _game_states_equal(state, want, f"reset {t}")
+    torch.cuda.synchronize()
+    assert launches["K12_device_games"] - before == 500 + inits
     assert cuts > 0
 
 
