@@ -20,9 +20,12 @@ and runs every phase, in this order:
   counters that prove the path went through every serving kernel, a
   profile, the kernel path against the plain path (greedy and noisy), a
   weight hot-swap and a draining stop;
-- ``kernels_learn``: the learner's kernels (K1, K2-bwd, K3-bwd, K4 gather,
-  K4-bwd, and K4's heads mode: a learn step's one K4 launch, beside the
-  three launches and two elementwise ops it replaces) against their twins
+- ``kernels_learn``: the learner's kernels (K1 per-sample and weighted,
+  held bit-equal on a repeat, K2-bwd, K3-bwd, K4 gather, K4-bwd in its dz
+  and loss modes, and K4's heads mode: a learn step's one K4 launch, beside
+  the three launches and two elementwise ops it replaces; K1 weighted and
+  K4-bwd's loss mode beside the torch ops they absorbed, and the loss
+  chain, three launches, beside the parent's eight) against their twins
   at the learner's full-width shapes (B 32, N 64), timed the same way;
   K3-bwd also at ``K3_EXTRA_SHAPES`` with M >= 512,
   held bit-equal on a repeat of the same call, beside the floor of its hi / lo
@@ -675,14 +678,18 @@ def check_heads(torch, where, batch, taus, actions, gen, counts=None, gamma_n=0.
 
 
 def phase_kernels_learn(torch, cfg):
-    """Each learner kernel (K1, K2-bwd, K3-bwd, K4 gather + K4-bwd) against its
-    plain twin at the full-width learner shapes: B = 32, N = N' = 64, F = 3136,
-    C = 64, hidden 512, 18 actions, M = B * N = 2048."""
+    """Each learner kernel (K1 in both modes, K2-bwd, K3-bwd, K4 gather, K4-bwd
+    in both modes) against its plain twin at the full-width learner shapes:
+    B = 32, N = N' = 64, F = 3136, C = 64, hidden 512, 18 actions, M = B * N
+    = 2048; the loss chain (K1 weighted, the seed, K4-bwd's loss mode) beside
+    the parent's eight ops."""
     from rainbow_iqn_apex_tpu_torch.kernels.dueling_head import (
         dueling_gather,
         dueling_gather_bwd,
         dueling_gather_bwd_plain,
         dueling_gather_plain,
+        dueling_loss_bwd,
+        dueling_loss_bwd_plain,
     )
     from rainbow_iqn_apex_tpu_torch.kernels.noisy_linear import (
         backward_plan,
@@ -693,6 +700,8 @@ def phase_kernels_learn(torch, cfg):
     from rainbow_iqn_apex_tpu_torch.kernels.quantile_huber import (
         quantile_huber,
         quantile_huber_plain,
+        quantile_huber_weighted,
+        quantile_huber_weighted_plain,
     )
     from rainbow_iqn_apex_tpu_torch.kernels.tau_embed import (
         _cos_features,
@@ -757,11 +766,37 @@ def phase_kernels_learn(torch, cfg):
     target[0, :8] = online[0, :8]  # u == 0 pairs
     target[1, :8] = online[1, :8] + cfg.kappa  # |u| == kappa pairs (the quadratic branch)
     k1 = (online, taus_o, target, cfg.kappa)
-    results["K1_quantile_huber"] = report(
+    k1_bytes = (2 * batch * n + batch * n_t) * 4 + (2 * batch + batch * n) * 4
+    per_sample_row = report(
         "K1_quantile_huber", [batch, n, n_t], K1_TOL,
         lambda: quantile_huber(*k1), lambda: quantile_huber_plain(*k1), None,
-        nbytes=(2 * batch * n + batch * n_t) * 4 + (2 * batch + batch * n) * 4,
-        ops=K1_OPS_PER_PAIR * batch * n * n_t, peak=FP32_FLOPS)
+        nbytes=k1_bytes, ops=K1_OPS_PER_PAIR * batch * n * n_t, peak=FP32_FLOPS,
+        extra={"mode": "per_sample"})
+    # the weighted mode, the learn step's: pass 1 (no scale), then a reuse pass's
+    weight = torch.rand((batch,), generator=gen, device=dev) + 0.1
+    scale = torch.rand((batch,), generator=gen, device=dev) + 0.5
+    k1w = {}
+    for name, sc in (("weighted", None), ("weighted_scaled", scale)):
+        args_w = (online, taus_o, target, weight, sc, cfg.kappa)
+        first, second = quantile_huber_weighted(*args_w), quantile_huber_weighted(*args_w)
+        torch.cuda.synchronize()
+        repeat_equal = all(torch.equal(u, v) for u, v in zip(first, second))
+        check(repeat_equal, f"K1's {name} mode differs on a repeat of one input")
+
+        def parent(sc=sc):  # the parent's route: K1 per-sample, (w * scale,) w * loss, mean
+            loss_b, td, grad = quantile_huber(*k1)
+            w = weight if sc is None else weight * sc
+            return torch.mean(w * loss_b), loss_b, td, grad
+        k1w[name] = report(
+            "K1_quantile_huber", [batch, n, n_t], K1_TOL,
+            lambda args_w=args_w: quantile_huber_weighted(*args_w),
+            lambda args_w=args_w: quantile_huber_weighted_plain(*args_w), None,
+            nbytes=k1_bytes + batch * 4 * (1 if sc is None else 2) + 4,
+            ops=K1_OPS_PER_PAIR * batch * n * n_t, peak=FP32_FLOPS,
+            extra={"mode": name, "repeat_bit_equal": repeat_equal,
+                   "parent_route_ms": time_ms(torch, parent)})
+    results["K1_quantile_huber"] = dict(k1w["weighted"], per_sample=per_sample_row,
+                                        scaled=k1w["weighted_scaled"])
 
     # K2-bwd: the learner's shape at the config's num_cosines and at 8 --------
     for c_ in (cos_n, 8):
@@ -858,11 +893,48 @@ def phase_kernels_learn(torch, cfg):
           "or an out-of-range action did not give NaN")
     dz = randn(batch, n)
     k4 = (dz, take, actions, True)
-    results["K4_dueling_head_bwd"] = report(
+    dz_row = report(
         "K4_dueling_head_bwd", [batch, n, actions], K4B_TOL,
         lambda: dueling_gather_bwd(*k4), lambda: dueling_gather_bwd_plain(*k4), None,
         nbytes=batch * n * 4 + batch * 4 + m * 4 + m * actions * 4,
-        ops=2 * m * actions, peak=FP32_FLOPS)
+        ops=2 * m * actions, peak=FP32_FLOPS, extra={"mode": "dz"})
+    # the loss mode, the learn step's: dz from the loss's cotangent (a reuse
+    # pass's 2.5, say), the IS weights and K1's saved gradient
+    d_loss = torch.full((), 2.5, device=dev)
+    grad_k1 = quantile_huber_weighted(online, taus_o, target, weight, None, cfg.kappa)[3]
+    k4l = (d_loss, weight, None, grad_k1, take, actions, True)
+
+    def parent_bwd():  # MeanBackward, MulBackward, QuantileHuberFn's scale, K4-bwd
+        d_ps = d_loss.expand(batch) / batch * weight
+        return dueling_gather_bwd(d_ps[:, None] * grad_k1, take, actions, True)
+    results["K4_dueling_head_bwd"] = dict(report(
+        "K4_dueling_head_bwd", [batch, n, actions], K4B_TOL,
+        lambda: dueling_loss_bwd(*k4l), lambda: dueling_loss_bwd_plain(*k4l), None,
+        nbytes=4 + 2 * batch * 4 + batch * n * 4 + m * 4 + m * actions * 4,
+        ops=2 * m * actions + 3 * m, peak=FP32_FLOPS,
+        extra={"mode": "loss", "parent_route_ms": time_ms(torch, parent_bwd)}), dz=dz_row)
+
+    # the chain between the heads launch and K3-bwd, forward and backward,
+    # as the learn step runs it (the seed: autograd's ones_like of the loss)
+    def chain():
+        loss, _, _, grad = quantile_huber_weighted(online, taus_o, target, weight, None,
+                                                   cfg.kappa)
+        return dueling_loss_bwd(torch.ones_like(loss), weight, None, grad, take, actions, True)
+
+    def parent_chain():
+        loss_b, _, grad = quantile_huber(*k1)
+        loss = torch.mean(weight * loss_b)
+        d_ps = torch.ones_like(loss).expand(batch) / batch * weight
+        return dueling_gather_bwd(d_ps[:, None] * grad, take, actions, True)
+    got_c, want_c = chain(), parent_chain()
+    torch.cuda.synchronize()
+    c_abs, _, c_ok = check_all(zip(got_c, want_c), K4B_TOL)
+    row = {"ms": time_ms(torch, chain), "parent_ms": time_ms(torch, parent_chain),
+           "launches": 3, "parent_launches": 8, "max_abs_err": c_abs}
+    emit({"phase": "kernels_learn", "kernel": "loss_chain", "shape": [batch, n, n_t, actions],
+          "tol": K4B_TOL, "ok": c_ok, **row})
+    check(c_ok, f"the loss chain's gradient differs from the parent route's: max abs {c_abs}")
+    results["K1_quantile_huber"]["chain"] = row
     # K4's heads mode: the learn step's one K4 launch (timed in K4's row)
     results["K4_dueling_head_heads"] = check_heads(
         torch, "kernels_learn", batch, (cfg.num_quantile_samples, n_t, n), actions, gen,
@@ -989,8 +1061,8 @@ def phase_learn(torch, cfg):
 
 def profile_learn(torch, agent, prefetcher, ring, committer):
     """Where the time of a full-width learn step goes: device time by kernel
-    name from torch.profiler over PROFILE_STEPS steps, and the device's idle
-    share of the window."""
+    name from torch.profiler over PROFILE_STEPS steps, the device ops a step
+    (kernels, copies and fills), and the device's idle share of the window."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1008,6 +1080,8 @@ def profile_learn(torch, agent, prefetcher, ring, committer):
     rows.sort(key=lambda r: -r[1])
     emit({"phase": "profile_learn", "steps": PROFILE_STEPS,
           "wall_us_per_step": wall_us / PROFILE_STEPS,
+          "device_ops_per_step": sum(r[2] for r in rows) / PROFILE_STEPS if rows
+          else "not measured",
           "device_us_per_step": device_us / PROFILE_STEPS if rows else "not measured",
           "device_idle_share": 1.0 - device_us / wall_us if rows else "not measured",
           **kernel_fields(rows),
@@ -4655,7 +4729,8 @@ def main() -> int:
                      "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                      "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                      "bound_by": res["bound_by"], "library_ms": res["library_ms"],
-                     **{key: res[key] for key in ("heads", "one_lane_step") if key in res}})
+                     **{key: res[key] for key in ("heads", "one_lane_step", "per_sample",
+                                                  "scaled", "chain", "dz") if key in res}})
     emit({"phase": "total", "seconds": time.perf_counter() - t_script,
           "seconds_by_phase": by_phase})
     emit({"kernels": line})

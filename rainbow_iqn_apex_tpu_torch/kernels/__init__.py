@@ -6,6 +6,7 @@ PyTorch twin of the same function, which the wrapper runs for CPU tensors
 and which tests and ``chip_smoke.py`` hold the kernel against.
 
     K1  quantile_huber.quantile_huber          quantile-Huber loss and its gradient
+        quantile_huber.quantile_huber_weighted   the same with the learn step's IS-weighted mean
     K2  tau_embed.tau_embed                    cos-tau embedding, ReLU, Hadamard with phi
         tau_embed.tau_embed_bwd                its backward
     K3  noisy_linear.noisy_linear              factorised NoisyLinear GEMM (+ReLU)
@@ -13,6 +14,7 @@ and which tests and ``chip_smoke.py`` hold the kernel against.
     K4  dueling_head.dueling_head              dueling combine, tau-mean, greedy argmax
         dueling_head.dueling_gather            the combine gathered at given actions
         dueling_head.dueling_gather_bwd        its backward
+        dueling_head.dueling_loss_bwd          its backward from the weighted mean loss's cotangent
         dueling_head.dueling_learn             a learn step's three heads in one launch (a*,
                                                the gathers, td_target)
     K2g tau_embed.tau_embed(game=, emb=)       K2 with the multi-game embedding phi + E[game]
@@ -41,9 +43,9 @@ and which tests and ``chip_smoke.py`` hold the kernel against.
 
 Each backward has a ``torch.autograd.Function`` beside it in the same
 module (``TauEmbedFn``, ``NoisyLinearFn``, ``DuelingGatherFn``,
-``DuelingLearnFn``, ``QuantileHuberFn``, ``LSTMFn``, ``R2D2TDFn``), which
-the models and the
-learners call.
+``QuantileHuberFn``, ``LSTMFn``, ``R2D2TDFn``), which the models and the
+learners call; ``learn_loss.LearnLossFn`` chains K4's heads mode, K1's
+weighted mode and K4-bwd's loss mode for the IQN learn step.
 
 ``launches`` counts kernel launches by name; ``reset_launches`` zeroes it.
 """

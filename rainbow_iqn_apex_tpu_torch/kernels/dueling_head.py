@@ -21,7 +21,10 @@ runs the same kernel in gather mode, returning z [B, N] = quantiles at given
 actions and q [B, A], and K4-bwd (``dueling_gather_bwd``, kernel
 ``csrc/dueling_head_bwd.cu``) is its backward: dvalue = dz, dadv = dz *
 (1{a = a_b} - 1/A).  Both launch-bound.  ``DuelingGatherFn`` is the
-``torch.autograd.Function`` over them.
+``torch.autograd.Function`` over them (R2D2's).  K4-bwd's loss mode
+(``dueling_loss_bwd``) is the IQN learn step's: it forms dz itself from
+the cotangent of the weighted mean loss, the IS weights and K1's saved
+gradient (``kernels/learn_loss.py``).
 
 Multi-game runs (``multitask/``) add two modes of the same kernel, each
 counted under its own name:
@@ -44,8 +47,8 @@ gives a* (masked as K4m when a mask is given), z_next at a*, td_target =
 reward + discount * z_next, z_online at the taken action and the online q:
 ``rainbow_iqn_apex_tpu/ops/learn.py:125-152`` after the three forwards.  It
 counts as K4m when the select head is masked, else as K4.
-``DuelingLearnFn`` is its ``torch.autograd.Function``: only z_online carries
-a gradient, through K4-bwd.
+``kernels/learn_loss.py`` chains it with K1's weighted mode; only z_online
+carries a gradient, through K4-bwd's loss mode.
 """
 
 from __future__ import annotations
@@ -271,32 +274,81 @@ def dueling_gather_bwd_plain(dz: torch.Tensor, take: torch.Tensor, num_actions: 
 @functools.lru_cache(maxsize=None)
 def _bwd_entry():
     fn = build.library().port_dueling_head_bwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def dueling_gather_bwd(dz: torch.Tensor, take: torch.Tensor, num_actions: int,
-                       dueling: bool) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
-    """K4-bwd on ``dz.device``: the kernel on CUDA, the plain twin on the CPU."""
-    if dz.device.type == "cpu":
-        return dueling_gather_bwd_plain(dz, take, num_actions, dueling)
-    batch, num_taus = dz.shape
-    if dz.dtype != torch.float32 or take.dtype != torch.int32:
-        raise TypeError("K4-bwd takes fp32 dz and int32 actions")
+def _bwd_launch(batch: int, num_taus: int, num_actions: int, dueling: bool,
+                dev: torch.device, take: torch.Tensor,
+                *operands: Optional[torch.Tensor]) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """One K4-bwd launch; ``operands`` are (dz, d_loss, weight, scale,
+    grad), null where the mode takes none."""
+    if take.dtype != torch.int32:
+        raise TypeError(f"K4-bwd takes int32 actions, got {take.dtype}")
     if tuple(take.shape) != (batch,):
         raise ValueError(f"K4-bwd actions must be [{batch}], got {tuple(take.shape)}")
-    for t in (dz, take):
-        if t.device != dz.device or not t.is_contiguous():
+    for t in (take, *operands):
+        if t is not None and (t.device != dev or not t.is_contiguous()):
             raise ValueError("K4-bwd inputs must be contiguous on one device")
     rows = batch * num_taus
-    dvalue = torch.empty((rows, 1), dtype=torch.float32, device=dz.device) if dueling else None
-    dadv = torch.empty((rows, num_actions), dtype=torch.float32, device=dz.device)
-    with torch.cuda.device(dz.device):
-        code = _bwd_entry()(build.ptr(dz), build.ptr(take), build.ptr(dvalue), build.ptr(dadv),
-                            batch, num_taus, num_actions, build.stream_of(dz.device))
+    dvalue = torch.empty((rows, 1), dtype=torch.float32, device=dev) if dueling else None
+    dadv = torch.empty((rows, num_actions), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        code = _bwd_entry()(*[build.ptr(t) for t in operands], build.ptr(take),
+                            build.ptr(dvalue), build.ptr(dadv), batch, num_taus, num_actions,
+                            build.stream_of(dev))
     build.check_launch(NAME_BWD, code)
     return dvalue, dadv
+
+
+def dueling_gather_bwd(dz: torch.Tensor, take: torch.Tensor, num_actions: int,
+                       dueling: bool) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """K4-bwd (dz mode) on ``dz.device``: the kernel on CUDA, the plain twin
+    on the CPU."""
+    if dz.device.type == "cpu":
+        return dueling_gather_bwd_plain(dz, take, num_actions, dueling)
+    if dz.dtype != torch.float32:
+        raise TypeError("K4-bwd takes fp32 dz")
+    batch, num_taus = dz.shape
+    return _bwd_launch(batch, num_taus, num_actions, dueling, dz.device, take, dz, None, None,
+                       None, None)
+
+
+def dueling_loss_bwd_plain(d_loss: torch.Tensor, weight: torch.Tensor,
+                           weight_scale: Optional[torch.Tensor], grad: torch.Tensor,
+                           take: torch.Tensor, num_actions: int,
+                           dueling: bool) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """K4-bwd's loss mode in plain torch: the cotangent ``d_loss`` [] of
+    mean_b(w * per_sample) (w = weight, times ``weight_scale`` formed first)
+    through that mean (MeanBackward, MulBackward) and K1's saved gradient
+    ``grad`` [B, N] (the elementwise scale), then the gathers' backward."""
+    batch = grad.shape[0]
+    w = weight if weight_scale is None else weight * weight_scale
+    d_per_sample = d_loss.expand(batch) / batch * w
+    return dueling_gather_bwd_plain(d_per_sample[:, None] * grad, take, num_actions, dueling)
+
+
+def dueling_loss_bwd(d_loss: torch.Tensor, weight: torch.Tensor,
+                     weight_scale: Optional[torch.Tensor], grad: torch.Tensor,
+                     take: torch.Tensor, num_actions: int,
+                     dueling: bool) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """K4-bwd's loss mode on ``grad.device``: one launch on CUDA, reading
+    the cotangent from the device (no host sync), the plain twin on the
+    CPU."""
+    if grad.device.type == "cpu":
+        return dueling_loss_bwd_plain(d_loss, weight, weight_scale, grad, take, num_actions,
+                                      dueling)
+    batch, num_taus = grad.shape
+    tensors = [t for t in (d_loss, weight, weight_scale, grad) if t is not None]
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("K4-bwd's loss mode takes an fp32 cotangent, weights and gradient")
+    if d_loss.dim() != 0 or any(t.shape != (batch,) for t in (weight, weight_scale)
+                                if t is not None):
+        raise ValueError(f"K4-bwd's loss mode takes a 0-dim cotangent and weights [{batch}], "
+                         f"got {tuple(d_loss.shape)}, {tuple(weight.shape)}")
+    return _bwd_launch(batch, num_taus, num_actions, dueling, grad.device, take, None, d_loss,
+                       weight, weight_scale, grad)
 
 
 class DuelingGatherFn(torch.autograd.Function):
@@ -390,28 +442,3 @@ def dueling_learn(select: Head, target: Head, online: Head, take: torch.Tensor,
             build.ptr(on_q), batch, k, n_prime, n, actions, build.stream_of(dev))
     build.check_launch(NAME if mask8 is None else NAME_MASK, code)
     return z_online, on_q, a_star, z_next, td_target
-
-
-class DuelingLearnFn(torch.autograd.Function):
-    """K4's heads mode forward, K4-bwd backward: (on_value, on_adv, take,
-    num_online, select, target, reward, discount, game, mask) -> (z_online,
-    on_q, a_star, z_next, td_target), differentiable in on_value and on_adv
-    through z_online alone; ``select`` and ``target`` are (value, adv, taus)
-    heads that carry no gradient."""
-
-    @staticmethod
-    def forward(ctx, on_value, on_adv, take, num_online, select, target, reward, discount,
-                game, mask):
-        out = dueling_learn(select, target, (on_value, on_adv, num_online), take, reward,
-                            discount, game, mask)
-        ctx.save_for_backward(take)
-        ctx.dueling = on_value is not None
-        ctx.num_actions = on_adv.shape[1]
-        ctx.mark_non_differentiable(*out[1:])
-        return out
-
-    @staticmethod
-    def backward(ctx, dz, *unused):
-        (take,) = ctx.saved_tensors
-        dvalue, dadv = dueling_gather_bwd(dz.contiguous(), take, ctx.num_actions, ctx.dueling)
-        return dvalue, dadv, None, None, None, None, None, None, None, None

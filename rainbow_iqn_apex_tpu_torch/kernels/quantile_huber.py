@@ -11,23 +11,37 @@ Replaces the Pallas kernel the JAX package once had for this loss (its
     grad_b,i  = d loss_b / d online_i = -(1/N') sum_j |tau_i - 1{u<0}| clip(u, -k, k) / k
 
 As the Pallas kernel did, the forward returns the gradient with the loss, so
-the autograd backward (``QuantileHuberFn``) only scales it by the upstream
-cotangent, an elementwise torch op.  Taus and targets get no gradient (the
-targets are under ``stop_gradient`` in the JAX learner).
+no backward pass goes over the pairs again.  Taus and targets get no
+gradient (the targets are under ``stop_gradient`` in the JAX learner).
 
-Bound on the H100: ~24 KB of inputs at B = 32, N = N' = 64, so the kernel is
-launch-bound.  The kernel (``csrc/quantile_huber.cu``) runs one block per
-sample and keeps the [N, N'] pair tile on chip.
+Two modes of one kernel (``csrc/quantile_huber.cu``):
 
-``quantile_huber`` runs the kernel for CUDA tensors and
-``quantile_huber_plain`` for CPU tensors.
+- per-sample (``quantile_huber``): (loss [B], td_abs [B], grad [B, N]);
+  ``QuantileHuberFn`` is its autograd function, whose backward scales grad
+  by the upstream cotangent, an elementwise torch op;
+- weighted (``quantile_huber_weighted``), the learn step's: the same and the
+  IS-weighted mean, mean_b(w * loss_b) with w = weight (* weight_scale, the
+  reuse passes' clipped ratio, formed first), ``rainbow_iqn_apex_tpu/ops/
+  learn.py:158-162``.  ``kernels/learn_loss.py`` chains it with K4's heads
+  mode and K4-bwd's loss mode.
+
+Bound on the H100: ~24 KB of inputs at B = 32, N = N' = 64, under 0.1 us of
+bytes or flops, so the launch is the cost.  ``loss_plan`` gives the launch:
+one thread-block cluster of up to 16 blocks, ceil(B / 16) samples a block,
+block 0 summing the mean in a fixed order through distributed shared
+memory, so two calls on one input give equal bits and nothing persists
+between launches.  The per-sample mode runs one sample a block.
+
+``quantile_huber`` and ``quantile_huber_weighted`` run the kernel for CUDA
+tensors and ``quantile_huber_plain`` / ``quantile_huber_weighted_plain``
+for CPU tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,6 +50,8 @@ from rainbow_iqn_apex_tpu_torch.kernels import build
 NAME = "K1_quantile_huber"
 SOURCE = "rainbow_iqn_apex_tpu_torch/csrc/quantile_huber.cu"
 REPLACES = "rainbow_iqn_apex_tpu/ops/losses.py:31"
+MAX_CLUSTER = 16  # blocks of the weighted mode's cluster (above 8: the non-portable size)
+SMEM_LIMIT = 225 * 1024  # a block's dynamic shared memory, with the opt-in (csrc: kMaxShared)
 
 
 def quantile_huber_plain(online: torch.Tensor, taus: torch.Tensor, target: torch.Tensor,
@@ -53,19 +69,31 @@ def quantile_huber_plain(online: torch.Tensor, taus: torch.Tensor, target: torch
     return loss, td_abs, grad
 
 
+def loss_plan(batch: int, n: int, n_target: int) -> int:
+    """Samples a block of K1's weighted mode: ceil(B / 16), so its
+    ceil(B / S) blocks make one cluster of at most 16.  Raises where a
+    block's inputs and row sums, with the batch's w * loss in block 0,
+    pass the shared memory a block can take."""
+    if batch < 1 or n < 1 or n_target < 1:
+        raise ValueError(f"K1 takes B, N, N' >= 1, got {batch}, {n}, {n_target}")
+    samples = -(-batch // MAX_CLUSTER)
+    if 4 * (samples * (n_target + 4 * n) + batch) > SMEM_LIMIT:
+        raise ValueError(f"K1 keeps {samples} samples' targets, quantiles, taus and row sums in "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+    return samples
+
+
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = build.library().port_quantile_huber
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def quantile_huber(online: torch.Tensor, taus: torch.Tensor, target: torch.Tensor,
-                   kappa: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K1 on ``online.device``: the kernel on CUDA, the plain twin on the CPU."""
-    if online.device.type == "cpu":
-        return quantile_huber_plain(online, taus, target, kappa)
+def _launch(online, taus, target, kappa, weight, weight_scale):
+    """Checks and one launch of K1; returns (per_sample, td_abs, grad, mean
+    or None)."""
     batch, n = online.shape
     n_target = target.shape[1]
     if any(t.dtype != torch.float32 for t in (online, taus, target)):
@@ -73,23 +101,60 @@ def quantile_huber(online: torch.Tensor, taus: torch.Tensor, target: torch.Tenso
     if tuple(taus.shape) != (batch, n) or target.shape[0] != batch:
         raise ValueError(f"K1 shape mismatch: online {tuple(online.shape)}, taus "
                          f"{tuple(taus.shape)}, target {tuple(target.shape)}")
-    if 4 * (n_target + 2 * n) > 48 * 1024:
-        raise ValueError("K1 keeps a sample's targets and row sums in 48 KB of shared memory")
     if not kappa > 0:
         raise ValueError(f"K1 needs kappa > 0, got {kappa}")
-    for t in (online, taus, target):
+    weights = [t for t in (weight, weight_scale) if t is not None]
+    for t in weights:
+        if t.dtype != torch.float32 or tuple(t.shape) != (batch,):
+            raise ValueError(f"K1 takes fp32 weights [{batch}], got {t.dtype} {tuple(t.shape)}")
+    for t in (online, taus, target, *weights):
         if t.device != online.device or not t.is_contiguous():
             raise ValueError("K1 inputs must be contiguous on one device")
-    loss = torch.empty((batch,), dtype=torch.float32, device=online.device)
-    td_abs = torch.empty((batch,), dtype=torch.float32, device=online.device)
-    grad = torch.empty((batch, n), dtype=torch.float32, device=online.device)
-    with torch.cuda.device(online.device):
+    samples = 1 if weight is None else loss_plan(batch, n, n_target)
+    dev = online.device
+    per_sample = torch.empty((batch,), dtype=torch.float32, device=dev)
+    td_abs = torch.empty((batch,), dtype=torch.float32, device=dev)
+    grad = torch.empty((batch, n), dtype=torch.float32, device=dev)
+    mean = None if weight is None else torch.empty((), dtype=torch.float32, device=dev)
+    p = build.ptr
+    with torch.cuda.device(dev):
         code = _entry()(
-            build.ptr(online), build.ptr(taus), build.ptr(target), build.ptr(loss),
-            build.ptr(td_abs), build.ptr(grad), batch, n, n_target, float(kappa),
-            build.stream_of(online.device))
+            p(online), p(taus), p(target), p(weight), p(weight_scale), p(per_sample), p(td_abs),
+            p(grad), p(mean), batch, n, n_target, samples, float(kappa), build.stream_of(dev))
     build.check_launch(NAME, code)
-    return loss, td_abs, grad
+    return per_sample, td_abs, grad, mean
+
+
+def quantile_huber(online: torch.Tensor, taus: torch.Tensor, target: torch.Tensor,
+                   kappa: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1 on ``online.device``: the kernel on CUDA, the plain twin on the CPU."""
+    if online.device.type == "cpu":
+        return quantile_huber_plain(online, taus, target, kappa)
+    return _launch(online, taus, target, kappa, None, None)[:3]
+
+
+def quantile_huber_weighted_plain(online: torch.Tensor, taus: torch.Tensor,
+                                  target: torch.Tensor, weight: torch.Tensor,
+                                  weight_scale: Optional[torch.Tensor] = None,
+                                  kappa: float = 1.0) -> Tuple[torch.Tensor, ...]:
+    """K1's weighted mode in plain torch: (mean [], per_sample [B], td_abs
+    [B], grad [B, N]) with mean = mean_b(w * per_sample), w = weight (times
+    ``weight_scale``, formed first), as ``ops/learn.py:158-162`` of the JAX
+    package composes it."""
+    per_sample, td_abs, grad = quantile_huber_plain(online, taus, target, kappa)
+    w = weight if weight_scale is None else weight * weight_scale
+    return torch.mean(w * per_sample), per_sample, td_abs, grad
+
+
+def quantile_huber_weighted(online: torch.Tensor, taus: torch.Tensor, target: torch.Tensor,
+                            weight: torch.Tensor, weight_scale: Optional[torch.Tensor] = None,
+                            kappa: float = 1.0) -> Tuple[torch.Tensor, ...]:
+    """K1's weighted mode on ``online.device``: one launch on CUDA (one
+    cluster of blocks), the plain twin on the CPU."""
+    if online.device.type == "cpu":
+        return quantile_huber_weighted_plain(online, taus, target, weight, weight_scale, kappa)
+    per_sample, td_abs, grad, mean = _launch(online, taus, target, kappa, weight, weight_scale)
+    return mean, per_sample, td_abs, grad
 
 
 class QuantileHuberFn(torch.autograd.Function):

@@ -9,8 +9,10 @@ target copy every ``target_update_period`` steps.
 
 On CUDA every step after the convolutions is one of the port's kernels:
 K2/K3 forward for each of the three heads, then one launch of K4's heads
-mode for all three (a*, the gathers and td_target), K1, and the backward
-K4-bwd, K3-bwd, K2-bwd; the convolutions' backward is cuDNN's, Adam is
+mode for all three (a*, the gathers and td_target), K1 with the IS-weighted
+mean, and the backward K4-bwd (from the loss's cotangent), K3-bwd, K2-bwd
+(``kernels/learn_loss.py`` chains K4, K1 and K4-bwd); the convolutions'
+backward is cuDNN's, Adam is
 ``torch.optim.Adam(fused=True)``.  A multi-game batch (``Batch.game``, on a
 ``multitask.MultiGameIQN`` state) runs K2g and K2g-bwd in place of K2 and
 K2-bwd, and the heads launch masks the a* head (counted as K4m).
@@ -46,11 +48,10 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 import torch
 
 from rainbow_iqn_apex_tpu_torch.config import Config
-from rainbow_iqn_apex_tpu_torch.kernels.dueling_head import DuelingLearnFn
+from rainbow_iqn_apex_tpu_torch.kernels.learn_loss import learn_loss
 from rainbow_iqn_apex_tpu_torch.models.init import init_network_, make_network
 from rainbow_iqn_apex_tpu_torch.models.iqn import RainbowIQN
 from rainbow_iqn_apex_tpu_torch.ops.act import DeviceLike, resolve_device
-from rainbow_iqn_apex_tpu_torch.ops.losses import quantile_huber_loss
 
 Draws = Dict[str, Tuple[Optional[torch.Tensor], Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]]]]
 
@@ -193,17 +194,15 @@ def loss_and_priorities(cfg: Config, state: TrainState, batch: Batch,
     # online distribution at the taken action, N taus
     on_value, on_adv, taus = net.heads(batch.obs, cfg.num_tau_samples, taus=on_taus,
                                        generator=generator, noise=on_noise, game=game)
-    # K4's heads mode: a*, z_next, td_target, z_online and on_q in one launch
-    z_online, on_q, _, z_next, td_target = DuelingLearnFn.apply(
-        on_value, on_adv, batch.action, cfg.num_tau_samples, select, target,
-        batch.reward.contiguous(), batch.discount.contiguous(),
+    # K4's heads mode (a*, z_next, td_target, z_online and on_q in one
+    # launch), then K1's weighted mode; backward, K4-bwd's loss mode
+    loss, per_sample, td_abs, on_q, z_next = learn_loss(
+        (on_value, on_adv, cfg.num_tau_samples), batch.action, select, target, batch.reward,
+        batch.discount, taus, batch.weight, weight_scale, cfg.kappa,
         *(net.mask_args(game) if game is not None else (None, None)))
-    per_sample, td_abs = quantile_huber_loss(z_online, taus, td_target, cfg.kappa)
-    weight = batch.weight if weight_scale is None else batch.weight * weight_scale
-    loss = torch.mean(weight * per_sample)
     aux = {
         "td_abs": td_abs,
-        "loss_per_sample": per_sample.detach(),
+        "loss_per_sample": per_sample,
         "q_mean": on_q.mean(),
         "target_q_mean": z_next.mean(),
     }

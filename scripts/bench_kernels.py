@@ -3,7 +3,8 @@
 embedding merged with phi), K2-bwd, K9 (R2D2's LSTM recurrence), K9-bwd,
 K10g (the weight-only int8 / e4m3 NoisyLinear GEMM), K5 (the PER draw) and
 K5f (the frontier's draw with IS weights), K4 (the dueling head, in every
-mode) and K12 (the device games' tick) on the card, K2's multi-game modes
+mode), K12 (the device games' tick), and K1 (the quantile-Huber loss) and
+K4-bwd with the learn step's loss chain on the card, K2's multi-game modes
 K2g and K2g-bwd included.
 
 Times the port's ``noisy_linear`` and ``noisy_linear_bwd`` at every shape the
@@ -41,7 +42,13 @@ elementwise ops it replaces), ``three_launch_ms`` the latter on every tree.
 K12 (``--only k12``): every game's auto-reset tick at 16 and 4,096 lanes and
 the host adapter's one-lane step (timed as the adapter's reset and a step,
 beside the reset alone: a reset-free step run on and on walks catch's ball
-off its grid), each beside its byte bound.
+off its grid), each beside its byte bound.  K1 (``--only k1``): the learn step's loss chain at
+B 32, N = N' = 64, A 18: K1 per-sample and weighted, K4-bwd in its dz and
+loss modes, and the chain from the heads launch to K3-bwd (K1, the weighted mean, the
+seed, the mean's and product's backward, the scale by K1's gradient, K4-bwd)
+in pass 1 and a reuse pass: ``ms`` the tree's route (three launches where
+the tree has K1's weighted mode), ``parent_route_ms`` the eight (nine) ops
+of the parent's on every tree.
 The port is imported from ``--root`` (default: this checkout), so two trees,
 e.g. a parent commit unpacked into an ignored directory, are compared on one
 card by running the script once per tree in one call:
@@ -53,7 +60,7 @@ A tree whose K2-bwd recomputes the cos features (no ``save_cos``) is called
 that way; a shape a tree refuses is reported as refused.  Prints one JSON
 object per (kernel, shape, mode); ``--out`` appends them to a file as well;
 ``--only fwd`` (or ``bwd``, ``k2``, ``k2bwd``, ``k9``, ``k9bwd``, ``k10g``,
-``k5``, ``k5f``, ``k4``, ``k12``, or layer names) times a subset.  K9's unrolls (T > 1) are timed as eager calls
+``k5``, ``k5f``, ``k4``, ``k12``, ``k1``, or layer names) times a subset.  K9's unrolls (T > 1) are timed as eager calls
 between CUDA events, their device time being far above the launch's (a
 parent tree's cooperative launch is not captured in a CUDA graph); the act
 tick is timed that way and, where the tree's K9 has launch plans (a plain
@@ -109,7 +116,7 @@ def main() -> int:
                          "forward_plan's (a tree whose K10g has forward_plan(m, n, k, noisy, clusters))")
     ap.add_argument("--only", default=None,
                     help="comma-separated kernels (fwd, bwd, k2, k2bwd, k9, k9bwd, k10g, k5, k5f, "
-                         "k4, k12) or layer names to time; default all")
+                         "k4, k12, k1) or layer names to time; default all")
     args = ap.parse_args()
     only = set(args.only.split(",")) if args.only else None
 
@@ -125,6 +132,7 @@ def main() -> int:
         BF16_FLOPS,
         FP32_FLOPS,
         GAME_NAMES,
+        K1_OPS_PER_PAIR,
         K3_EXTRA_SHAPES,
         K3_TOL,
         R2D2_RESET_P,
@@ -412,7 +420,73 @@ def main() -> int:
         bench_k4(torch, dev, gen, emit, bound_ms, time_ms, _mt_mask, FP32_FLOPS)
     if wanted("k12", None):
         bench_k12(torch, dev, emit, bound_ms, time_ms, _game_bytes, GAME_NAMES, FP32_FLOPS)
+    if wanted("k1", None):
+        bench_k1(torch, dev, gen, emit, bound_ms, time_ms, K1_OPS_PER_PAIR, FP32_FLOPS)
     return 0
+
+
+def bench_k1(torch, dev, gen, emit, bound_ms, time_ms, ops_per_pair, fp32_flops):
+    """The learn step's loss chain at B 32, N = N' = 64, A 18: K1 per-sample,
+    K1 weighted, K4-bwd's dz and loss modes, and the chain from the heads launch to K3-bwd, pass 1
+    and a reuse pass: the tree's route (three launches where it has K1's
+    weighted mode) and the parent's eight ops (nine in a reuse pass) on
+    every tree."""
+    from rainbow_iqn_apex_tpu_torch.kernels import dueling_head as k4
+    from rainbow_iqn_apex_tpu_torch.kernels import quantile_huber as k1
+
+    batch, n, n_t, actions = 32, 64, 64, 18
+    m = batch * n
+    online = torch.randn((batch, n), generator=gen, device=dev)
+    taus = torch.rand((batch, n), generator=gen, device=dev)
+    target = torch.randn((batch, n_t), generator=gen, device=dev)
+    weight = torch.rand((batch,), generator=gen, device=dev) + 0.1
+    scale = torch.rand((batch,), generator=gen, device=dev) + 0.5
+    take = torch.randint(0, actions, (batch,), generator=gen, device=dev, dtype=torch.int32)
+    dz = torch.randn((batch, n), generator=gen, device=dev)
+    weighted = hasattr(k1, "quantile_huber_weighted")
+    k1_bytes = (2 * batch * n + batch * n_t) * 4 + (2 * batch + batch * n) * 4
+    bms, by = bound_ms(k1_bytes, ops_per_pair * batch * n * n_t, fp32_flops)
+    emit({"kernel": "K1_quantile_huber", "mode": "per_sample", "shape": [batch, n, n_t],
+          "ms": time_ms(torch, lambda: k1.quantile_huber(online, taus, target, 1.0), reps=REPS),
+          "bound_ms": bms, "bound_by": by})
+    if weighted:
+        bms, by = bound_ms(k1_bytes + batch * 4 + 4, ops_per_pair * batch * n * n_t, fp32_flops)
+        emit({"kernel": "K1_quantile_huber", "mode": "weighted", "shape": [batch, n, n_t],
+              "ms": time_ms(torch, lambda: k1.quantile_huber_weighted(
+                  online, taus, target, weight, None, 1.0), reps=REPS),
+              "bound_ms": bms, "bound_by": by})
+    bms, by = bound_ms(batch * n * 4 + batch * 4 + m * 4 + m * actions * 4, 2 * m * actions,
+                       fp32_flops)
+    emit({"kernel": "K4_dueling_head_bwd", "mode": "dz", "shape": [batch, n, actions],
+          "ms": time_ms(torch, lambda: k4.dueling_gather_bwd(dz, take, actions, True), reps=REPS),
+          "bound_ms": bms, "bound_by": by})
+    grad = k1.quantile_huber(online, taus, target, 1.0)[2]
+    d_loss = torch.full((), 2.5, device=dev)
+    if weighted:
+        bms, by = bound_ms(4 + 2 * batch * 4 + batch * n * 4 + m * 4 + m * actions * 4,
+                           2 * m * actions + 3 * m, fp32_flops)
+        emit({"kernel": "K4_dueling_head_bwd", "mode": "loss", "shape": [batch, n, actions],
+              "ms": time_ms(torch, lambda: k4.dueling_loss_bwd(d_loss, weight, None, grad, take,
+                                                              actions, True), reps=REPS),
+              "bound_ms": bms, "bound_by": by})
+    for name, sc in (("pass_1", None), ("reuse_pass", scale)):
+        def parent(sc=sc):
+            loss_b, _, g = k1.quantile_huber(online, taus, target, 1.0)
+            w = weight if sc is None else weight * sc
+            loss = torch.mean(w * loss_b)
+            d_ps = torch.ones_like(loss).expand(batch) / batch * w
+            return k4.dueling_gather_bwd(d_ps[:, None] * g, take, actions, True)
+
+        def route(sc=sc):
+            if not weighted:
+                return parent(sc)
+            loss, _, _, g = k1.quantile_huber_weighted(online, taus, target, weight, sc, 1.0)
+            return k4.dueling_loss_bwd(torch.ones_like(loss), weight, sc, g, take, actions, True)
+
+        emit({"kernel": "loss_chain", "at": name, "shape": [batch, n, n_t, actions],
+              "launches": 3 if weighted else 8 + (sc is not None),
+              "ms": time_ms(torch, route, reps=REPS),
+              "parent_route_ms": time_ms(torch, parent, reps=REPS)})
 
 
 def bench_k4(torch, dev, gen, emit, bound_ms, time_ms, mt_mask, fp32_flops):

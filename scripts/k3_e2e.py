@@ -5,9 +5,9 @@ serving dispatch.
 
 Runs the ``learn``, ``anakin``, ``apex`` and ``anakin_fused`` phases (or,
 with ``--phases``, those named, ``learn_r2d2``, ``anakin_r2d2``, ``serve``,
-``serve_quant`` and ``apex_quant`` among them; ``apex_quant`` runs over the
-filled replay of the ``apex`` phase, which runs first if the list does not
-name it earlier) of the ``chip_smoke.py`` at ``--root`` on that checkout's
+``serve_quant``, ``kernels_learn``, ``apex_mt`` and ``apex_quant`` among them; ``apex_quant``
+runs over the filled replay of the ``apex`` phase, which runs first if the
+list does not name it earlier) of the ``chip_smoke.py`` at ``--root`` on that checkout's
 port, as the whole script runs them, so that two trees (say the parent commit unpacked with ``git
 archive`` into the ignored ``_compare/``) are compared on one card, run after
 run, in the order parent, change, change, parent:
@@ -22,7 +22,15 @@ its weights afresh on every step, so the operands' pointers change from call
 to call.  ``--phases`` and
 ``--host-phases`` name other lists of phases (an empty string: none).
 Each phase prints its own JSON line; the script adds one ``k3_host`` line per
-timed phase (``fwd`` / ``bwd`` K3's, ``k2`` / ``k2_bwd`` K2's) and a ``k3_e2e`` summary.  Needs a CUDA card: exits with 2 where
+timed phase (``fwd`` / ``bwd`` K3's, ``k2`` / ``k2_bwd`` K2's), a
+``device_ops`` line per profile a phase takes (the device ops, kernels,
+copies and fills, in its window; a step's for ``learn``'s profile of
+``PROFILE_STEPS`` steps, a tick's for ``apex_mt``'s of ``MT_PROFILE_TICKS``,
+on any tree) and a ``k3_e2e`` summary.  The phase ``learn_reuse``, this
+script's own, is the ``learn`` phase's agent and replay at ``replay_ratio``
+2: ``REUSE_STEPS`` timed calls of ``learn_batch`` (each a pass 1 and a reuse
+pass, with its two log-prob forwards) after ``LEARN_WARMUP``, then a profile
+of ``PROFILE_STEPS`` calls, whose ``device_ops`` line gives a call's ops.  Needs a CUDA card: exits with 2 where
 there is none.
 """
 
@@ -38,6 +46,7 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 E2E_PHASES = "learn,anakin,apex,anakin_fused"
 HOST_PHASES = "learn,serve"
+REUSE_STEPS = 100  # learn_reuse: timed learn_batch calls (two passes each)
 
 
 def _summary(us):
@@ -46,6 +55,52 @@ def _summary(us):
         return {"calls": 0}
     return {"calls": len(us), "p50_us": us[len(us) // 2], "p90_us": us[int(0.9 * (len(us) - 1))],
             "mean_us": sum(us) / len(us)}
+
+
+def learn_reuse(smoke, torch, cfg):
+    """The ``learn`` phase's agent, replay, prefetcher and write-back ring at
+    ``replay_ratio`` 2: REUSE_STEPS timed ``learn_batch`` calls after the
+    warm-up, then a profile of PROFILE_STEPS calls (``smoke.device_rows``)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from rainbow_iqn_apex_tpu_torch.agents import Agent
+    from rainbow_iqn_apex_tpu_torch.parallel.supervisor import TrainSupervisor
+    from rainbow_iqn_apex_tpu_torch.train import priority_beta
+    from rainbow_iqn_apex_tpu_torch.utils.prefetch import make_replay_prefetcher
+    from rainbow_iqn_apex_tpu_torch.utils.writeback import RingCommitter, WritebackRing
+
+    cfg = smoke._learn_cfg(cfg).replace(replay_ratio=2)
+    memory = smoke._fill_replay(cfg, np)
+    agent = Agent(cfg, 18, cfg.seed)
+    sup = TrainSupervisor(cfg)
+    ring = WritebackRing(cfg.writeback_depth)
+    prefetcher = make_replay_prefetcher(memory, cfg, lambda: priority_beta(cfg, 0), agent.device)
+    committer = RingCommitter(ring, prefetcher.update_priorities, sup, agent.load_snapshot)
+
+    def calls(n):
+        for _ in range(n):
+            idx, batch = prefetcher.get()
+            committer.commit(ring.push(agent.step, idx, agent.learn_batch(batch)))
+        committer.drain()
+        torch.cuda.synchronize()
+
+    try:
+        calls(smoke.LEARN_WARMUP)
+        t = time.perf_counter()
+        calls(REUSE_STEPS)
+        elapsed = time.perf_counter() - t
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            calls(smoke.PROFILE_STEPS)
+        ops = sum(r[2] for r in smoke.device_rows(torch, prof))
+    finally:
+        prefetcher.close()
+    print(json.dumps({"phase": "learn_reuse", "replay_ratio": 2, "calls": REUSE_STEPS,
+                      "learn_calls_per_s": REUSE_STEPS / elapsed,
+                      "sgd_steps_per_s": 2 * REUSE_STEPS / elapsed,
+                      "device_ops_per_call": ops / smoke.PROFILE_STEPS,
+                      "rollbacks": sup.rollbacks}), flush=True)
+    return None
 
 
 def main() -> int:
@@ -87,8 +142,25 @@ def main() -> int:
               "anakin_r2d2": (smoke.phase_anakin_r2d2, "reference_atari_defaults"),
               "serve": (smoke.phase_serve, "serve_defaults"),
               "serve_quant": (smoke.phase_serve_quant, "serve_defaults"),
-              "apex_quant": (smoke.phase_apex_quant, "reference_atari_defaults")}
+              "apex_quant": (smoke.phase_apex_quant, "reference_atari_defaults"),
+              "apex_mt": (smoke.phase_apex_mt, "reference_atari_defaults"),
+              "kernels_learn": (smoke.phase_kernels_learn, "reference_atari_defaults"),
+              "learn_reuse": (lambda torch_, cfg: learn_reuse(smoke, torch_, cfg),
+                              "reference_atari_defaults")}
     apex_ctx = []  # the apex phase's filled replay, which apex_quant runs over
+    device_rows = smoke.device_rows
+
+    def counted_rows(torch_, prof):  # the device ops of each profile the phases take
+        rows = device_rows(torch_, prof)
+        ops = sum(r[2] for r in rows)
+        per = {"learn": smoke.PROFILE_STEPS, "learn_reuse": smoke.PROFILE_STEPS,
+               "apex_mt": smoke.MT_PROFILE_TICKS}.get(current[0])
+        print(json.dumps({"phase": "device_ops", "label": args.label, "of": current[0],
+                          "ops": ops, "ops_per_step": ops / per if per else None}), flush=True)
+        return rows
+
+    smoke.device_rows = counted_rows
+    current = [None]
 
     def run(name):
         fn, cfg = phases[name]
@@ -98,6 +170,7 @@ def main() -> int:
                 seconds["apex"] = run("apex")
             extra = (apex_ctx.pop(),)
         t = time.perf_counter()
+        current[0] = name
         out = fn(torch, cfgs[cfg], *extra)
         elapsed = time.perf_counter() - t
         if name == "apex":

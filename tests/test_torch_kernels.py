@@ -63,10 +63,13 @@ from rainbow_iqn_apex_tpu_torch.kernels.dueling_head import (
     dueling_gather_plain,
     dueling_head,
     dueling_head_plain,
+    DuelingGatherFn,
     dueling_learn,
     dueling_learn_plain,
     dueling_logp,
     dueling_logp_plain,
+    dueling_loss_bwd,
+    dueling_loss_bwd_plain,
     learn_smem,
     row_plan,
 )
@@ -77,7 +80,15 @@ from rainbow_iqn_apex_tpu_torch.kernels.noisy_linear import (
     noisy_linear_bwd_plain,
     noisy_linear_plain,
 )
-from rainbow_iqn_apex_tpu_torch.kernels.quantile_huber import quantile_huber, quantile_huber_plain
+from rainbow_iqn_apex_tpu_torch.kernels.learn_loss import learn_loss
+from rainbow_iqn_apex_tpu_torch.kernels.quantile_huber import (
+    QuantileHuberFn,
+    loss_plan,
+    quantile_huber,
+    quantile_huber_plain,
+    quantile_huber_weighted,
+    quantile_huber_weighted_plain,
+)
 from rainbow_iqn_apex_tpu_torch.kernels import tau_embed as tau_embed_module
 from rainbow_iqn_apex_tpu_torch.kernels.tau_embed import (
     TauEmbedFn,
@@ -569,6 +580,159 @@ def test_k1_kernel_matches_plain(cuda, b, n, n_t, kappa):
     got = _counted("K1_quantile_huber", lambda: quantile_huber(*args))
     for g, w in zip(got, quantile_huber_plain(*args)):
         torch.testing.assert_close(g, w, **FP32)
+
+
+# K1's weighted mode: (B, N, N') at the learner's shapes and off them
+K1_SHAPES = [(64, 64), (8, 32), (64, 200)]
+
+
+@pytest.mark.parametrize("batch,want", [
+    (32, 2), (1, 1), (7, 1), (64, 4), (256, 16), (33, 3), (17, 2), (16, 1), (5, 1), (255, 16)])
+def test_k1_plan_covers_the_batch_with_no_empty_block(batch, want):
+    samples = loss_plan(batch, 64, 64)
+    assert samples == want
+    blocks = -(-batch // samples)  # one cluster: at most 16 blocks
+    assert blocks <= 16 and blocks * samples >= batch and (blocks - 1) * samples < batch
+
+
+def test_k1_plan_refuses_what_the_kernel_does_not_take():
+    assert loss_plan(256, 64, 200) == 16  # 16 x (200 + 4 x 64) + 256 floats: 30 KB
+    with pytest.raises(ValueError):
+        loss_plan(4096, 64, 200)  # 256 samples a block: 472 KB
+    for bad in ((0, 64, 64), (32, 0, 64), (32, 64, 0), (-1, 64, 64)):
+        with pytest.raises(ValueError):
+            loss_plan(*bad)
+
+
+def _k1_weighted_args(cuda, b, n, n_t, kappa, scaled, seed=24):
+    r = _rng(seed)
+    online = _t(r.standard_normal((b, n))).to(cuda)
+    target = _t(r.standard_normal((b, n_t))).to(cuda)
+    target[0, :2] = online[0, :2]  # u == 0
+    target[-1, :2] = online[-1, :2] + kappa  # |u| == kappa: the quadratic branch
+    target[-1, 2:4] = online[-1, 2:4] - kappa
+    weight = _t(r.uniform(0.1, 1.0, b)).to(cuda)
+    scale = _t(r.uniform(0.5, 2.0, b)).to(cuda) if scaled else None
+    return online, _t(r.random((b, n))).to(cuda), target, weight, scale, kappa
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 7, 32, 64, 256])
+@pytest.mark.parametrize("n,n_t", K1_SHAPES)
+@pytest.mark.parametrize("scaled", [False, True])
+def test_k1_weighted_kernel_matches_plain_and_repeats_bit_equal(cuda, b, n, n_t, scaled):
+    args = _k1_weighted_args(cuda, b, n, n_t, 1.0, scaled)
+    got = _counted("K1_quantile_huber", lambda: quantile_huber_weighted(*args))
+    for g, w in zip(got, quantile_huber_weighted_plain(*args)):
+        torch.testing.assert_close(g, w, **FP32)
+    again = quantile_huber_weighted(*args)
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):  # the mean's order is fixed: equal bits
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [7, 32])
+@pytest.mark.parametrize("kappa", [0.5, 1.0])
+def test_k1_weighted_mode_survives_graph_replay(cuda, batch, kappa):
+    """The weighted mode against the twin, eagerly and over two replays of a
+    CUDA graph that captured three launches, the inputs rewritten between
+    the replays."""
+    args = list(_k1_weighted_args(cuda, batch, 64, 64, kappa, True, seed=25))
+    want = quantile_huber_weighted_plain(*args)
+    for g, w in zip(quantile_huber_weighted(*args), want):
+        torch.testing.assert_close(g, w, **FP32)
+    quantile_huber_weighted(*args)  # warm, outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [quantile_huber_weighted(*args) for _ in range(3)]
+    r = _rng(26)
+    for _ in range(2):
+        args[0].copy_(_t(r.standard_normal((batch, 64))).to(cuda))
+        args[3].copy_(_t(r.uniform(0.1, 1.0, batch)).to(cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = quantile_huber_weighted_plain(*args)
+        for out in outs:
+            for g, w in zip(out, want):
+                torch.testing.assert_close(g, w, **FP32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("actions", [3, 5, 18])
+@pytest.mark.parametrize("dueling", [True, False])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_k4_bwd_loss_mode_matches_the_twin_chain(cuda, actions, dueling, scaled):
+    r = _rng(27)
+    batch, n = 32, 64
+    grad = _t(r.standard_normal((batch, n))).to(cuda)
+    take = torch.from_numpy(r.integers(0, actions, batch).astype(np.int32)).to(cuda)
+    weight = _t(r.uniform(0.1, 1.0, batch)).to(cuda)
+    scale = _t(r.uniform(0.5, 2.0, batch)).to(cuda) if scaled else None
+    d_loss = torch.tensor(2.5, device=cuda)
+    args = (d_loss, weight, scale, grad, take, actions, dueling)
+    got = _counted("K4_dueling_head_bwd", lambda: dueling_loss_bwd(*args))
+    for g, w in zip(got, dueling_loss_bwd_plain(*args)):
+        if w is None:
+            assert g is None
+        else:
+            torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,taus,actions", [(80, 32, 18), (3, 5, 3), (7, 1, 5)])
+def test_k4_bwd_dz_mode_matches_plain_at_ragged_sizes(cuda, batch, taus, actions):
+    """R2D2's shape (one tau a row over B x T rows) and sizes whose element
+    count is not a multiple of four (the vector stores' ragged tail); 1e-6,
+    as K4-bwd's other tests (torch's CUDA twin divides by A as a product
+    with 1 / A)."""
+    r = _rng(28)
+    dz = _t(r.standard_normal((batch, taus))).to(cuda)
+    take = torch.from_numpy(r.integers(0, actions, batch).astype(np.int32)).to(cuda)
+    for dueling in (True, False):
+        got = _counted("K4_dueling_head_bwd",
+                       lambda: dueling_gather_bwd(dz, take, actions, dueling))
+        for g, w in zip(got, dueling_gather_bwd_plain(dz, take, actions, dueling)):
+            if w is None:
+                assert g is None
+            else:
+                torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dueling", [True, False])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_learn_loss_gradients_match_the_parent_route(cuda, dueling, scaled):
+    """LearnLossFn (heads launch, K1 weighted, K4-bwd loss mode) against the
+    route it replaced: the heads launch for td_target, K4's gather with
+    K4-bwd's dz mode for z_online, K1 per-sample, the product and torch.mean
+    through autograd; loss scaled by 2.5 before the backward."""
+    select, target, online, take, reward, discount, game, mask = _k4_heads(cuda, dueling, False)
+    r = _rng(31)
+    taus = _t(r.random((32, online[2]))).to(cuda)
+    weight = _t(r.uniform(0.1, 1.0, 32)).to(cuda)
+    scale = _t(r.uniform(0.5, 2.0, 32)).to(cuda) if scaled else None
+    leaves = [t.clone().requires_grad_(True) for t in online[:2] if t is not None]
+    on = (leaves[0] if dueling else None, leaves[-1], online[2])
+    before = {k: launches[k] for k in ("K1_quantile_huber", "K4_dueling_head_bwd")}
+    loss, per_sample, td_abs, _, _ = learn_loss(on, take, select, target, reward, discount,
+                                                taus, weight, scale, 1.0)
+    got = torch.autograd.grad(2.5 * loss, leaves)
+    torch.cuda.synchronize()
+    assert {k: launches[k] - v for k, v in before.items()} == {
+        "K1_quantile_huber": 1, "K4_dueling_head_bwd": 1}
+    td_target = dueling_learn(select, target, online, take, reward, discount)[4]
+    z_online, _ = DuelingGatherFn.apply(on[0], on[1], take, on[2])
+    ps, td = QuantileHuberFn.apply(z_online, taus, td_target, 1.0)
+    w = weight if scale is None else weight * scale
+    parent = torch.mean(w * ps)
+    want = torch.autograd.grad(2.5 * parent, leaves)
+    torch.testing.assert_close(loss, parent, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(per_sample, ps.detach(), atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(td_abs, td, atol=1e-6, rtol=1e-6)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, atol=1e-6, rtol=1e-6)
 
 
 @pytest.mark.cuda
