@@ -42,7 +42,8 @@ and runs every phase, in this order:
   above 0.2 and every run above 1,500 learn steps;
 - ``kernels_replay``: the device replay's kernels (K5 PER draw over
   1,000,000 priorities, K6 write-back, K7 append of 16 lanes of 84x84, K8
-  assembly at B 32, h 4, n 3) against their twins, timed the same way;
+  assembly at B 32, h 4, n 3) against their twins, timed the same way, then
+  K7 and K8 at the edges of their grids, each launch repeated bit-equal;
 - ``anakin``: ``DeviceReplay`` at the reference config's uncut 1,000,000
   slots (16 lanes x 62,500, 7.06 GB of frames in device memory) filled
   through K7 with synthetic frames, then 200 full-width fused
@@ -1235,8 +1236,9 @@ def phase_kernels_replay(torch, cfg):
     full-size shapes: K5 over the config's 1,000,000 priorities (G 1 and 4,
     B 32), K6 at B 32 with G 1 and 4, duplicate ids and zero slots, K7 with
     16 lanes of 84x84 over a wrapping ring, K8 at B 32, h 4, n 3 (G 1 and 4,
-    young and wrapped rings).  The kernels line takes the main path's shapes
-    (G 1)."""
+    young and wrapped rings), then K7 and K8 at their grids' edges
+    (``_replay_edges``).  The kernels line takes the main path's shapes (G
+    1)."""
     import numpy as np
 
     from rainbow_iqn_apex_tpu_torch.kernels.replay_append import (
@@ -1406,7 +1408,93 @@ def phase_kernels_replay(torch, cfg):
             results["K8_replay_assemble"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=None,
                                                  bound_ms=bms, bound_by=by)
     results["K8_replay_assemble"]["max_abs_err"] = worst
+    _replay_edges(torch, np, dev)
     return results
+
+
+def _same_bits(torch, a, b) -> bool:
+    """Equal element for element, a NaN equal to a NaN."""
+    if a.is_floating_point():
+        return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+    return bool(torch.equal(a, b))
+
+
+def _replay_edges(torch, np, dev):
+    """K7 and K8 against their twins at the edges of their grids, each launch
+    repeated and held bit-equal to the first: K7 at 40 lanes of 10 x 10 (the
+    scalar warp past 32 lanes, the byte copy, history 7, n_step 5, a NaN actor
+    priority on lanes 1 and 35), 16 of 84 x 84 at history 1, n_step 1, and 16
+    of 80 x 80; K8 on those rings (wrapped and young) at every lane's slots
+    around the write cursor, and in groups of 48 draws."""
+    from rainbow_iqn_apex_tpu_torch.kernels.replay_append import replay_append_plain
+    from rainbow_iqn_apex_tpu_torch.kernels.replay_assemble import (
+        replay_assemble,
+        replay_assemble_plain,
+    )
+    from rainbow_iqn_apex_tpu_torch.replay.device import DeviceReplay
+
+    ring_fields = ("frames", "actions", "rewards", "terminals", "cuts", "priority",
+                   "max_priority")
+    failed = []
+    cases = 0
+    for lanes, frame, h, n in ((40, (10, 10), 7, 5), (16, (84, 84), 1, 1), (16, (80, 80), 4, 3)):
+        seg = 16
+        ring = DeviceReplay(lanes=lanes, seg=seg, frame_shape=frame, history=h, n_step=n,
+                            gamma=0.99, device=dev)
+        got, want, young = ring.init_state(), ring.init_state(), ring.init_state()
+        ticks = 2 * seg + 5
+        data = [torch.from_numpy(a).to(dev) for a in _replay_ticks(
+            np, np.random.default_rng(SEED + 13), ticks, lanes, frame, p_term=0.1, p_trunc=0.08)]
+        nan = lanes > 32
+        if nan:
+            data[-1][20, 1::34] = float("nan")
+        for t in range(ticks):
+            tick = [a[t] for a in data]
+            ring.append(got, *tick)
+            replay_append_plain(want, *tick, want.pos, want.filled, h, n, ring.eps, ring.omega)
+            want.pos, want.filled = (want.pos + 1) % seg, min(want.filled + 1, seg)
+            if t < 9:
+                ring.append(young, *tick)
+        again = got.to(dev)
+        tick = [a[0] for a in data]
+        for state in (got, again):
+            ring.append(state, *tick)
+        replay_append_plain(want, *tick, want.pos, want.filled, h, n, ring.eps, ring.omega)
+        torch.cuda.synchronize()
+        name = f"K7 {lanes}x{frame[0]}x{frame[1]} h{h} n{n}"
+        cases += 1
+        if not all(_same_bits(torch, getattr(got, f), getattr(want, f)) for f in ring_fields):
+            failed.append(name)
+        if not all(_same_bits(torch, getattr(got, f), getattr(again, f)) for f in ring_fields):
+            failed.append(name + " repeat")
+        if nan and not bool(torch.isnan(got.max_priority)):
+            failed.append(name + " NaN maximum")
+        if nan:
+            continue  # K8 on priorities without NaN
+        for label, state in (("wrapped", got), ("young", young)):
+            at = (state.pos + np.arange(-h - n, h + n + 1)) % seg
+            around = (np.arange(lanes)[:, None] * seg + at[None, :]).reshape(-1)
+            spread = np.random.default_rng(SEED + 14).integers(0, lanes * seg, 96)
+            total = state.priority.sum()
+            for kind, ids, group in (("cursor", around, around.size), ("groups of 48", spread, 48)):
+                idx = torch.from_numpy(ids.astype(np.int32)).to(dev)
+                args = (state, idx, total, ring._gammas, 0.6, state.filled, h, n, group)
+                a, b = replay_assemble(*args), replay_assemble(*args)
+                c = replay_assemble_plain(*args)
+                torch.cuda.synchronize()
+                name = f"K8 {lanes}x{frame[0]}x{frame[1]} h{h} n{n} {label} {kind}"
+                cases += 1
+                if not (all(torch.equal(getattr(a, f), getattr(c, f))
+                            for f in ("obs", "next_obs", "action", "discount"))
+                        and all(bool(((getattr(a, f) - getattr(c, f)).abs()
+                                      <= REPLAY_REL * getattr(c, f).abs()).all())
+                                for f in ("reward", "prob", "weight"))):
+                    failed.append(name)
+                if not all(_same_bits(torch, getattr(a, f), getattr(b, f)) for f in a._fields):
+                    failed.append(name + " repeat")
+    emit({"phase": "kernels_replay", "kernel": "K7_K8_edges", "cases": cases, "failed": failed,
+          "ok": not failed})
+    check(not failed, f"K7 / K8 at their grids' edges: {failed}")
 
 
 def phase_kernels_frontier(torch, cfg):

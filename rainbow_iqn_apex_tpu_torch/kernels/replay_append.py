@@ -16,8 +16,12 @@ tensors ``frames`` [L, S, H, W] uint8, ``actions`` [L, S] int32,
 ``pos`` and ``filled`` are host counters; the caller advances them.
 
 Bound on the H100: the L [H, W] frames in and out (225 KB at L = 16, 84 x 84),
-launch-bound.  The kernel (``csrc/replay_append.cu``) is one block, one warp
-per lane, 16-byte frame stores.
+launch-bound.  The kernel (``csrc/replay_append.cu``) is one launch of a
+scalar block, whose first warp alone owns the small fields, the priorities
+and ``max_priority`` (lane l takes ring lane l, every load issued at once,
+the maximum a NaN-propagating shuffle reduction, no block barrier), beside
+``append_plan``'s copy blocks, which move the frames as 16-byte vectors with
+every load before any store.
 
 ``replay_append`` runs the kernel for CUDA tensors and
 ``replay_append_plain`` for CPU tensors.
@@ -27,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -37,6 +41,20 @@ from rainbow_iqn_apex_tpu_torch.kernels.replay_writeback import priority_power
 NAME = "K7_replay_append"
 SOURCE = "rainbow_iqn_apex_tpu_torch/csrc/replay_append.cu"
 REPLACES = "rainbow_iqn_apex_tpu/replay/device.py:109"
+MAX_THREADS = 256  # a block of the kernel
+PER_THREAD = 2  # 16-byte vectors a thread of a copy block
+
+
+def append_plan(lanes: int, hw: int) -> Tuple[int, int, int]:
+    """(copy_blocks, threads, per_thread): the L frames' ceil(hw / 16)
+    16-byte vectors each, flat, thread t of copy block b taking vectors b *
+    threads * per_thread + t + i * threads, i < per_thread; the scalar block
+    comes on top."""
+    if lanes < 1 or hw < 1:
+        raise ValueError(f"K7 plans lanes, hw >= 1, got {lanes}, {hw}")
+    units = lanes * -(-hw // 16)
+    threads = min(MAX_THREADS, 32 * -(-units // (32 * PER_THREAD)))
+    return -(-units // (threads * PER_THREAD)), threads, PER_THREAD
 
 
 def replay_append_plain(state: Any, frames: torch.Tensor, actions: torch.Tensor,
@@ -82,8 +100,8 @@ def replay_append_plain(state: Any, frames: torch.Tensor, actions: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = build.library().port_replay_append
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2 + [
-        ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -125,5 +143,6 @@ def replay_append(state: Any, frames: torch.Tensor, actions: torch.Tensor,
             build.ptr(state.max_priority), build.ptr(frames), build.ptr(actions),
             build.ptr(rewards), build.ptr(terminals), build.ptr(truncations),
             build.ptr(priorities), lanes, seg, height * width, pos, filled, history, n_step,
-            float(eps), float(omega), build.stream_of(dev))
+            float(eps), float(omega), *append_plan(lanes, height * width),
+            build.stream_of(dev))
     build.check_launch(NAME, code)

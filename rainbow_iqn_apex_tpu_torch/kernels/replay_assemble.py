@@ -19,8 +19,14 @@ outside [0, L * S) into it (as XLA clamps an out-of-bounds gather); the
 twin raises on one.
 
 Bound on the H100: the gathered frames in and the stacks out, ~3.4 MB at
-B = 32, 84 x 84, h = 4, n = 3.  The kernel (``csrc/replay_assemble.cu``) runs
-one block per draw and stack, transposing 4 pixels x 4 frames per 16-byte store.
+B = 32, 84 x 84, h = 4, n = 3 (~1 us), so the kernel (``csrc/replay_assemble.cu``)
+is a count of round trips.  One launch: each stack is cut into chunks of its
+16-pixel vectors (``assemble_plan``: at least two blocks an SM at B 32), each
+warp works out its stack's frames and cut mask itself (a ballot, no block
+barrier), issues all of its 16-byte frame loads before any store and, at h
+4, transposes 16 pixels x 4 frames in registers into four 16-byte stores;
+beside the copy blocks, a warp a group of draws computes the scalars, lane i
+taking draw i, and the group's weight maximum by shuffles.
 
 ``replay_assemble`` runs the kernel for CUDA tensors and
 ``replay_assemble_plain`` for CPU tensors.
@@ -30,7 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Tuple
 
 import torch
 
@@ -39,6 +45,31 @@ from rainbow_iqn_apex_tpu_torch.kernels import build
 NAME = "K8_replay_assemble"
 SOURCE = "rainbow_iqn_apex_tpu_torch/csrc/replay_assemble.cu"
 REPLACES = "rainbow_iqn_apex_tpu/replay/device.py:222"
+MAX_THREADS = 256  # a block of the kernel
+VEC_MAX = 4  # 16-pixel vectors a thread of the 16-byte path
+BLOCKS_PER_SM = 2  # copy blocks an SM the plan asks for at least
+
+
+def assemble_plan(draws: int, hw: int, sms: int) -> Tuple[int, int, int]:
+    """(chunks, per_chunk, threads): each of the ``2 * draws`` stacks is cut
+    into ``chunks`` runs of ``per_chunk`` of its ceil(hw / 16) 16-pixel
+    vectors (the last run may be shorter, none is empty), one block of
+    ``threads`` a run; thread t of run c takes vectors c * per_chunk + t + i *
+    threads, i < VEC_MAX.  Enough runs that the copy blocks give every one of
+    ``sms`` SMs BLOCKS_PER_SM where the stacks' vectors allow it."""
+    if draws < 1 or hw < 1 or sms < 1:
+        raise ValueError(f"K8 plans draws, hw, sms >= 1, got {draws}, {hw}, {sms}")
+    vectors = -(-hw // 16)
+    fill = -(-BLOCKS_PER_SM * sms // (2 * draws))
+    chunks = min(vectors, max(fill, -(-vectors // (MAX_THREADS * VEC_MAX))))
+    per_chunk = -(-vectors // chunks)
+    chunks = -(-vectors // per_chunk)
+    return chunks, per_chunk, min(MAX_THREADS, 32 * -(-per_chunk // 32))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 class Assembled(NamedTuple):
@@ -99,8 +130,8 @@ def replay_assemble_plain(state: Any, idx: torch.Tensor, total: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = build.library().port_replay_assemble
-    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int]
-                   + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [ctypes.c_float]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -135,6 +166,7 @@ def replay_assemble(state: Any, idx: torch.Tensor, total: torch.Tensor, gammas: 
     action = torch.empty((draws,), dtype=torch.int32, device=dev)
     scalars = torch.empty((4, draws), dtype=torch.float32, device=dev)
     reward, discount, weight, prob = scalars.unbind(0)
+    plan = assemble_plan(max(draws, 1), height * width, _sms(dev.index))
     with torch.cuda.device(dev):
         code = _entry()(
             build.ptr(state.frames), build.ptr(state.actions), build.ptr(state.rewards),
@@ -142,6 +174,6 @@ def replay_assemble(state: Any, idx: torch.Tensor, total: torch.Tensor, gammas: 
             build.ptr(total), build.ptr(idx), build.ptr(gammas), build.ptr(obs),
             build.ptr(next_obs), build.ptr(action), build.ptr(reward), build.ptr(discount),
             build.ptr(weight), build.ptr(prob), draws, seg, height * width, history, n_step,
-            filled, lanes, group, float(beta), int(with_weight), build.stream_of(dev))
+            filled, lanes, group, float(beta), int(with_weight), *plan, build.stream_of(dev))
     build.check_launch(NAME, code)
     return Assembled(obs, next_obs, action, reward, discount, weight, prob)

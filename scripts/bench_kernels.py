@@ -5,7 +5,8 @@ K10g (the weight-only int8 / e4m3 NoisyLinear GEMM), K5 (the PER draw) and
 K5f (the frontier's draw with IS weights), K4 (the dueling head, in every
 mode), K12 (the device games' tick), and K1 (the quantile-Huber loss) and
 K4-bwd with the learn step's loss chain on the card, K2's multi-game modes
-K2g and K2g-bwd included.
+K2g and K2g-bwd included, and K7 and K8 (the device replay's append and
+n-step assembly).
 
 Times the port's ``noisy_linear`` and ``noisy_linear_bwd`` at every shape the
 main paths give them (bucket 64's layers and ``chip_smoke.py``'s
@@ -48,7 +49,13 @@ loss modes, and the chain from the heads launch to K3-bwd (K1, the weighted mean
 seed, the mean's and product's backward, the scale by K1's gradient, K4-bwd)
 in pass 1 and a reuse pass: ``ms`` the tree's route (three launches where
 the tree has K1's weighted mode), ``parent_route_ms`` the eight (nine) ops
-of the parent's on every tree.
+of the parent's on every tree.  K7 (``--only k7``): the append tick of 16
+lanes of 84 x 84 (host-fed Anakin) and 80 x 80 (the fused Anakin's jaxgame
+frames) on ``chip_smoke.py``'s warm 64-slot ring.  K8 (``--only k8``): the
+learn batch [32, 84, 84, 4] and [32, 80, 80, 4], G 1 and 4, n 3, on that
+warm ring and on a cold one of 2,048 slots a lane (>= 200 MB of frames)
+whose calls cycle through 80 id sets spread over it, so L2 cannot hold
+them; each beside its byte bound, counted as ``chip_smoke.py`` counts it.
 The port is imported from ``--root`` (default: this checkout), so two trees,
 e.g. a parent commit unpacked into an ignored directory, are compared on one
 card by running the script once per tree in one call:
@@ -60,7 +67,7 @@ A tree whose K2-bwd recomputes the cos features (no ``save_cos``) is called
 that way; a shape a tree refuses is reported as refused.  Prints one JSON
 object per (kernel, shape, mode); ``--out`` appends them to a file as well;
 ``--only fwd`` (or ``bwd``, ``k2``, ``k2bwd``, ``k9``, ``k9bwd``, ``k10g``,
-``k5``, ``k5f``, ``k4``, ``k12``, ``k1``, or layer names) times a subset.  K9's unrolls (T > 1) are timed as eager calls
+``k5``, ``k5f``, ``k4``, ``k12``, ``k1``, ``k7``, ``k8``, or layer names) times a subset.  K9's unrolls (T > 1) are timed as eager calls
 between CUDA events, their device time being far above the launch's (a
 parent tree's cooperative launch is not captured in a CUDA graph); the act
 tick is timed that way and, where the tree's K9 has launch plans (a plain
@@ -103,6 +110,14 @@ K10G_SWEEP_ROWS = [(2048, False), (2048, True), (512, False), (512, True)]  # --
 K10G_LAYERS = [("value_hidden", 3136, 512, True), ("advantage_out", 512, 18, False),
                ("value_out", 512, 1, False)]
 K5_SLOTS, K5_BATCH = 1_000_000, 32  # the reference config's replay and learner batch
+# K7 / K8: the reference config's 16 lanes, history 4, n_step 3; chip_smoke.py's
+# 64-slot ring (warm), and 2,048 slots a lane (231 / 210 MB of 84 x 84 / 80 x 80
+# frames, past the 50 MB L2) whose draws cycle through COLD_SETS id sets,
+# COLD_BURST calls a timed call (80 calls a graph replay: 128 MB of frames read
+# at B 32 before a set comes round again)
+REPLAY_LANES, REPLAY_H, REPLAY_N = 16, 4, 3
+WARM_SEG, COLD_SEG = 64, 2048
+COLD_SETS, COLD_BURST = 80, 8
 
 
 def main() -> int:
@@ -116,7 +131,7 @@ def main() -> int:
                          "forward_plan's (a tree whose K10g has forward_plan(m, n, k, noisy, clusters))")
     ap.add_argument("--only", default=None,
                     help="comma-separated kernels (fwd, bwd, k2, k2bwd, k9, k9bwd, k10g, k5, k5f, "
-                         "k4, k12, k1) or layer names to time; default all")
+                         "k4, k12, k1, k7, k8) or layer names to time; default all")
     args = ap.parse_args()
     only = set(args.only.split(",")) if args.only else None
 
@@ -139,6 +154,7 @@ def main() -> int:
         _game_bytes,
         _lstm_args,
         _mt_mask,
+        _replay_ticks,
         bound_ms,
         errors,
         host_us,
@@ -422,7 +438,122 @@ def main() -> int:
         bench_k12(torch, dev, emit, bound_ms, time_ms, _game_bytes, GAME_NAMES, FP32_FLOPS)
     if wanted("k1", None):
         bench_k1(torch, dev, gen, emit, bound_ms, time_ms, K1_OPS_PER_PAIR, FP32_FLOPS)
+    if wanted("k7", None):
+        bench_k7(torch, dev, emit, bound_ms, time_ms, _replay_ticks, FP32_FLOPS)
+    if wanted("k8", None):
+        bench_k8(torch, dev, emit, bound_ms, time_ms, _replay_ticks, FP32_FLOPS)
     return 0
+
+
+def _ring(torch, dev, seg, frame, replay_ticks, ticks=None):
+    """A DeviceReplay of REPLAY_LANES lanes x ``seg`` slots filled through
+    K7 with ``ticks`` (default 2 seg + 5) ticks of chip_smoke.py's synthetic
+    experience."""
+    import numpy as np
+
+    from rainbow_iqn_apex_tpu_torch.replay.device import DeviceReplay
+
+    ring = DeviceReplay(lanes=REPLAY_LANES, seg=seg, frame_shape=frame, history=REPLAY_H,
+                        n_step=REPLAY_N, gamma=0.99, device=dev)
+    state = ring.init_state()
+    ticks = 2 * seg + 5 if ticks is None else ticks
+    data = [torch.from_numpy(a).to(dev) for a in replay_ticks(
+        np, np.random.default_rng(12), ticks, REPLAY_LANES, frame)]
+    for t in range(ticks):
+        ring.append(state, *[a[t] for a in data])
+    return ring, state, [a[0] for a in data]
+
+
+def bench_k7(torch, dev, emit, bound_ms, time_ms, replay_ticks, fp32_flops):
+    """K7 at the append ticks of the host-fed Anakin (16 lanes of 84 x 84) and
+    the fused Anakin (80 x 80) on chip_smoke.py's wrapped 64-slot ring, each
+    tick at one cursor, beside the twin and the byte bound counted as
+    chip_smoke.py counts it."""
+    from rainbow_iqn_apex_tpu_torch.kernels.replay_append import (
+        replay_append,
+        replay_append_plain,
+    )
+
+    lanes, h, n = REPLAY_LANES, REPLAY_H, REPLAY_N
+    for frame in ((84, 84), (80, 80)):
+        ring, got, tick = _ring(torch, dev, WARM_SEG, frame, replay_ticks)
+        want = got.to(dev)
+        args = (got.pos, got.filled, h, n, ring.eps, ring.omega)
+        replay_append(got, *tick, *args)
+        replay_append_plain(want, *tick, *args)
+        same = all(torch.equal(getattr(got, f), getattr(want, f)) for f in
+                   ("frames", "actions", "rewards", "terminals", "cuts", "priority",
+                    "max_priority"))
+        hw = frame[0] * frame[1]
+        nbytes = lanes * (2 * hw + 2 * (4 + 4 + 1 + 1) + 4 + (h + 2) * 4 + 4)
+        bms, by = bound_ms(nbytes, lanes * 8, fp32_flops)
+        emit({"kernel": "K7_replay_append", "ring": "warm", "shape": [lanes, WARM_SEG, *frame],
+              "exact": same, "ms": time_ms(torch, lambda: replay_append(got, *tick, *args)),
+              "plain_ms": time_ms(torch, lambda: replay_append_plain(want, *tick, *args)),
+              "bound_ms": bms, "bound_by": by})
+
+
+def bench_k8(torch, dev, emit, bound_ms, time_ms, replay_ticks, fp32_flops):
+    """K8 at the learn batches of the host-fed Anakin ([32, 84, 84, 4]) and the
+    fused Anakin's jaxgame frames ([32, 80, 80, 4]), G 1 and 4, n 3: on
+    chip_smoke.py's wrapped 64-slot ring (warm: its ~7 MB of frames stay in
+    L2), and on a ring of COLD_SEG slots a lane (>= 200 MB of frames) where
+    each call draws its own ids spread over the ring, COLD_SETS sets in
+    turn, so a call finds its frames out of L2 (a warm read of device
+    memory: the cache is not flushed, only outrun).  Beside the twin and the
+    byte bound counted as chip_smoke.py counts it."""
+    import itertools
+
+    from rainbow_iqn_apex_tpu_torch.kernels.replay_assemble import (
+        replay_assemble,
+        replay_assemble_plain,
+    )
+    from rainbow_iqn_apex_tpu_torch.kernels.replay_draw import replay_draw
+
+    h, n, batch, lanes = REPLAY_H, REPLAY_N, K5_BATCH, REPLAY_LANES
+    gen = torch.Generator(device=dev).manual_seed(13)
+    for frame in ((84, 84), (80, 80)):
+        hw = frame[0] * frame[1]
+        warm_ring, warm, _ = _ring(torch, dev, WARM_SEG, frame, replay_ticks)
+        cold_ring, cold, _ = _ring(torch, dev, COLD_SEG, frame, replay_ticks, ticks=COLD_SEG)
+        for groups in (1, 4):
+            m = groups * batch
+            frames_read = min(2 * h, h + n)  # obs and next_obs share h - n frames
+            nbytes = m * (frames_read * hw + 2 * h * hw + 4 + n * (4 + 1) + 2 * (h - 1)
+                          + 4 + 4 * 4 + 4)
+            bms, by = bound_ms(nbytes, m * n * 4, fp32_flops)
+            for name, ring, state in (("warm", warm_ring, warm), ("cold", cold_ring, cold)):
+                slots = lanes * state.actions.shape[1]
+                sets = [torch.randint(0, slots, (m,), generator=gen, device=dev,
+                                      dtype=torch.int32) for _ in range(COLD_SETS)]
+                _, total = replay_draw(state.priority, state.priority.new_empty((0, 1)))
+
+                def call(ids):
+                    return replay_assemble(state, ids, total, ring._gammas, 0.6, state.filled,
+                                           h, n, batch)
+                a = call(sets[0])
+                b = replay_assemble_plain(state, sets[0], total, ring._gammas, 0.6,
+                                          state.filled, h, n, batch)
+                exact = all(torch.equal(getattr(a, f), getattr(b, f))
+                            for f in ("obs", "next_obs", "action", "discount"))
+                rel = max(float(((getattr(a, f) - getattr(b, f)).abs()
+                                 / getattr(b, f).abs().clamp_min(1e-30)).max())
+                          for f in ("reward", "prob", "weight"))
+                row = {"kernel": "K8_replay_assemble", "ring": name,
+                       "ring_frame_bytes": state.frames.numel(),
+                       "shape": [groups, batch, *frame, h], "n_step": n, "stacks_exact": exact,
+                       "max_rel_err": rel, "bound_ms": bms, "bound_by": by}
+                if name == "warm":
+                    row["ms"] = time_ms(torch, lambda: call(sets[0]))
+                    row["plain_ms"] = time_ms(torch, lambda: replay_assemble_plain(
+                        state, sets[0], total, ring._gammas, 0.6, state.filled, h, n, batch))
+                else:  # COLD_BURST calls a timed call, each on the next id set
+                    turn = itertools.cycle(range(COLD_SETS))
+                    row["ms"] = time_ms(torch, lambda: [call(sets[next(turn)])
+                                                        for _ in range(COLD_BURST)]) / COLD_BURST
+                emit(row)
+        del warm, cold, warm_ring, cold_ring
+        torch.cuda.empty_cache()
 
 
 def bench_k1(torch, dev, gen, emit, bound_ms, time_ms, ops_per_pair, fp32_flops):

@@ -52,10 +52,15 @@ def _few_threads():
     torch.set_num_threads(before)
 
 
-def _pair():
-    jdev = JaxDeviceReplay(lanes=L, seg=S, frame_shape=(H, W), history=HIST, n_step=NSTEP,
+# (history, n_step): the default, and the edges of K7's window and K8's
+# stacks (S = 24 > h + n throughout)
+GEOMETRIES = [(HIST, NSTEP), (1, 1), (7, 5)]
+
+
+def _pair(history=HIST, n_step=NSTEP):
+    jdev = JaxDeviceReplay(lanes=L, seg=S, frame_shape=(H, W), history=history, n_step=n_step,
                            gamma=GAMMA)
-    pdev = DeviceReplay(lanes=L, seg=S, frame_shape=(H, W), history=HIST, n_step=NSTEP,
+    pdev = DeviceReplay(lanes=L, seg=S, frame_shape=(H, W), history=history, n_step=n_step,
                         gamma=GAMMA, device="cpu")
     return jdev, pdev
 
@@ -127,13 +132,14 @@ def _fake_uniform(monkeypatch, uniforms, keys=None):
 
 
 # ----------------------------------------------------------------- append
+@pytest.mark.parametrize("history,n_step", GEOMETRIES)
 @pytest.mark.parametrize("actor", [True, False], ids=["actor_pri", "max_pri"])
 @pytest.mark.parametrize("ticks", [5, S - 1, S + 10, 3 * S])
-def test_append_matches_jax(ticks, actor):
+def test_append_matches_jax(ticks, actor, history, n_step):
     """Every field after young, just-full, wrapped and steady-state fills,
     with actor priorities and with max-priority insertion."""
     trace = _trace(0, ticks)
-    jdev, pdev = _pair()
+    jdev, pdev = _pair(history, n_step)
     _assert_same_state(_fill_port(pdev, trace, actor), _fill_jax(jdev, trace, actor))
 
 
@@ -208,12 +214,13 @@ def _assert_same_batch(pbatch, pprob, jbatch, jprob):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), err_msg=name, **REL)
 
 
+@pytest.mark.parametrize("history,n_step", GEOMETRIES)
 @pytest.mark.parametrize("with_weight", [True, False])
 @pytest.mark.parametrize("ticks", [S - 5, 2 * S], ids=["young", "wrapped"])
-def test_assemble_matches_jax_at_the_same_indices(ticks, with_weight):
+def test_assemble_matches_jax_at_the_same_indices(ticks, with_weight, history, n_step):
     """Stacks with cut zeroing (and age zeroing while the ring is young),
     n-step returns, discounts, actions, probabilities and IS weights."""
-    jdev, pdev = _pair()
+    jdev, pdev = _pair(history, n_step)
     jds = _fill_jax(jdev, _trace(6, ticks, p_term=0.15, p_trunc=0.1))
     pds = _port_state(jds)
     rng = np.random.default_rng(7)

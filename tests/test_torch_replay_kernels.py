@@ -8,7 +8,9 @@ tests/test_torch_device_replay.py.
 On the CPU each wrapper runs its plain twin and counts no launch, and the
 twins keep the replay's rules against small oracles written out in Python:
 the clip of a u that rounds up to the total, zero slots never drawn, the
-last occurrence of a duplicate id written, group order, the fence.
+last occurrence of a duplicate id written, group order, the fence.  K7's
+and K8's launch plans (pure Python) are checked there too: every 16-byte
+vector covered once, and K8's copy blocks filling the card at B 32.
 
 The ``cuda``-marked tests hold each kernel against its twin on the card:
 slot ids exactly on dyadic priorities (an exact cdf in any summation
@@ -18,7 +20,10 @@ frames, ids, actions and flags exactly; the priority vector exactly against
 the twin run on the same card tensors (the same fp32 square root and the
 same fence; torch's CPU square root can round the last bit the other way);
 f32 reward, prob and weight to 1e-6 relative (powf against torch.pow, a
-different summation order of the priorities).
+different summation order of the priorities).  K7 and K8 also at their
+grids' edges (10 x 10 frames, 40 lanes, history 1 and 7, n_step 1 and 5,
+groups of 48, draws at the write cursor, a NaN actor priority), and each
+repeated launch bit-equal to the first.
 """
 
 import numpy as np
@@ -27,8 +32,14 @@ import torch
 
 from rainbow_iqn_apex_tpu_torch.kernels import launches
 from rainbow_iqn_apex_tpu_torch.kernels.frontier_draw import frontier_draw
-from rainbow_iqn_apex_tpu_torch.kernels.replay_append import replay_append, replay_append_plain
+from rainbow_iqn_apex_tpu_torch.kernels.replay_append import (
+    append_plan,
+    replay_append,
+    replay_append_plain,
+)
 from rainbow_iqn_apex_tpu_torch.kernels.replay_assemble import (
+    VEC_MAX,
+    assemble_plan,
     replay_assemble,
     replay_assemble_plain,
 )
@@ -142,6 +153,50 @@ def test_append_twin_max_priority_insertion_and_actor_maximum():
     frames, actions, rewards, term, trunc, _ = _tick(np.random.default_rng(3), 3, (10, 10))
     replay.append(state, frames, actions, rewards, term, trunc, torch.tensor([0.0, 8.0, 1.0]))
     assert float(state.max_priority) == pytest.approx((8.0 + 1e-6) ** 0.5, rel=1e-6)
+
+
+# ------------------------------------------------- K7's and K8's launch plans
+def _k8_vectors(plan, vectors):
+    """Every 16-pixel vector index each (run, thread, i) of a stack takes, as
+    copy_chunk indexes them."""
+    chunks, per_chunk, threads = plan
+    taken = []
+    for c in range(chunks):
+        v0, v_end = c * per_chunk, min(c * per_chunk + per_chunk, vectors)
+        for t in range(threads):
+            taken += [q for q in (v0 + t + i * threads for i in range(VEC_MAX)) if q < v_end]
+        assert v_end > v0, "an empty run"
+    return taken
+
+
+@pytest.mark.parametrize("draws,hw", [(32, 84 * 84), (32, 80 * 80), (128, 84 * 84), (48, 100),
+                                      (1, 84 * 84), (1, 1), (3, 17), (1024, 84 * 84),
+                                      (2, 256 * 256)])
+@pytest.mark.parametrize("sms", [132, 1])
+def test_k8_plan_covers_every_vector_of_a_stack_once(draws, hw, sms):
+    chunks, per_chunk, threads = plan = assemble_plan(draws, hw, sms)
+    vectors = -(-hw // 16)
+    assert sorted(_k8_vectors(plan, vectors)) == list(range(vectors))
+    assert threads % 32 == 0 and 32 <= threads <= 256 and per_chunk <= VEC_MAX * threads
+
+
+@pytest.mark.parametrize("hw", [84 * 84, 80 * 80])
+@pytest.mark.parametrize("groups", [1, 4])
+def test_k8_plan_gives_every_sm_two_copy_blocks_at_b32(hw, groups):
+    chunks, _, _ = assemble_plan(32 * groups, hw, 132)
+    assert 2 * 32 * groups * chunks >= 2 * 132
+
+
+@pytest.mark.parametrize("lanes,hw", [(16, 84 * 84), (16, 80 * 80), (40, 100), (3, 100), (1, 1),
+                                      (256, 84 * 84)])
+def test_k7_plan_covers_every_vector_once(lanes, hw):
+    blocks, threads, per_thread = append_plan(lanes, hw)
+    units = lanes * -(-hw // 16)
+    taken = [u for b in range(blocks) for t in range(threads) for i in range(per_thread)
+             if (u := b * threads * per_thread + t + i * threads) < units]
+    assert sorted(taken) == list(range(units))
+    assert threads % 32 == 0 and 32 <= threads <= 256 and 1 <= per_thread <= 4
+    assert (blocks - 1) * threads * per_thread < units  # no idle copy block
 
 
 # ------------------------------------------ K5's cdf, modelled in numpy
@@ -361,55 +416,143 @@ def test_k6_kernel_matches_twin_with_duplicates_and_zero_slots(cuda, groups, ome
 
 
 def _same_state(got, want):
+    """Every field exactly, a NaN equal to a NaN (a NaN actor priority)."""
     for name in ("frames", "actions", "rewards", "terminals", "cuts", "priority",
                  "max_priority"):
-        assert torch.equal(getattr(got, name).cpu(), getattr(want, name).cpu()), name
+        torch.testing.assert_close(getattr(got, name).cpu(), getattr(want, name).cpu(), rtol=0,
+                                   atol=0, equal_nan=True, msg=name)
     assert (got.pos, got.filled) == (want.pos, want.filled)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("lanes,frame", [(16, (84, 84)), (40, (10, 10))])
-@pytest.mark.parametrize("actor", [True, False], ids=["actor_pri", "max_pri"])
-def test_k7_kernel_matches_twin_over_a_wrapped_ring(cuda, lanes, frame, actor):
-    """84 x 84 takes the 16-byte frame copy, 10 x 10 the byte copy; 40
-    lanes loop over the block's 32 warps."""
-    seg = 16
-    card = _replay(lanes, seg, frame, 4, 3, cuda)
+def _k7_run(cuda, lanes, frame, history, n_step, actor=True, nan_at=None, seg=16):
+    """2 S + 5 ticks through K7 and through the twin on the card's tensors,
+    the actor priorities of lanes 1 and 35 (where there is one) NaN at tick
+    ``nan_at``."""
+    card = _replay(lanes, seg, frame, history, n_step, cuda)
     got, want = card.init_state(), card.init_state()
     rng = np.random.default_rng(5)
     before = launches["K7_replay_append"]
-    for _ in range(2 * seg + 5):
-        tick = [None if t is None else t.to(cuda) for t in _tick(rng, lanes, frame, actor=actor)]
+    for t in range(2 * seg + 5):
+        tick = [None if x is None else x.to(cuda) for x in _tick(rng, lanes, frame, actor=actor)]
+        if t == nan_at:
+            tick[-1][1::34] = float("nan")
         card.append(got, *tick)
-        replay_append_plain(want, *tick, want.pos, want.filled, 4, 3, card.eps, card.omega)
+        replay_append_plain(want, *tick, want.pos, want.filled, history, n_step, card.eps,
+                            card.omega)
         want.pos, want.filled = (want.pos + 1) % seg, min(want.filled + 1, seg)
     torch.cuda.synchronize()
     assert launches["K7_replay_append"] == before + 2 * seg + 5
+    return card, got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("history,n_step", [(4, 3), (1, 1), (7, 5)])
+@pytest.mark.parametrize("lanes,frame", [(16, (84, 84)), (40, (10, 10)), (16, (80, 80))])
+@pytest.mark.parametrize("actor", [True, False], ids=["actor_pri", "max_pri"])
+def test_k7_kernel_matches_twin_over_a_wrapped_ring(cuda, lanes, frame, actor, history, n_step):
+    """84 x 84 and 80 x 80 take the 16-byte frame copy, 10 x 10 the byte
+    copy; 40 lanes loop the scalar warp past 32 ring lanes; history 1 and 7
+    and n_step 1 and 5 move the dead zone and the window."""
+    _, got, want = _k7_run(cuda, lanes, frame, history, n_step, actor)
     _same_state(got, want)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("frame,history", [((84, 84), 4), ((10, 10), 3)])
-@pytest.mark.parametrize("ticks", [11, 40], ids=["young", "wrapped"])
-@pytest.mark.parametrize("groups", [1, 4])
-def test_k8_kernel_matches_twin(cuda, frame, history, ticks, groups):
-    """84 x 84 x 4 takes the 16-byte transposing store, 10 x 10 x 3 the
-    byte path; a young ring zeroes frames older than its history."""
-    cpu = _replay(4, 32, frame, history, 3, "cpu")
-    state = _filled(cpu, ticks, seed=ticks)
-    on_card = state.to(cuda)
-    gammas = cpu._gammas
-    rng = np.random.default_rng(6)
-    idx = torch.from_numpy(rng.integers(0, 4 * 32, groups * 32).astype(np.int32))
+@pytest.mark.parametrize("lanes,frame", [(16, (84, 84)), (40, (10, 10))])
+def test_k7_kernel_propagates_a_nan_actor_priority(cuda, lanes, frame):
+    """A NaN actor priority (lane 1; and lane 35, past the scalar warp's
+    first 32, at 40 lanes) reaches its slot and max_priority, as the twin's
+    maximum propagates it."""
+    _, got, want = _k7_run(cuda, lanes, frame, 4, 3, nan_at=20)
+    assert bool(torch.isnan(got.max_priority))
+    _same_state(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,frame", [(16, (84, 84)), (40, (10, 10))])
+def test_k7_kernel_repeats_bit_equal(cuda, lanes, frame):
+    card, state, _ = _k7_run(cuda, lanes, frame, 4, 3)
+    again = state.to(cuda)
+    tick = [x.to(cuda) for x in _tick(np.random.default_rng(9), lanes, frame)]
+    for s in (state, again):
+        replay_append(s, *tick, state.pos, state.filled, 4, 3, card.eps, card.omega)
+    torch.cuda.synchronize()
+    _same_state(state, again)
+
+
+def _k8_pair(cuda, state, on_card, idx, gammas, history, n_step, group, with_weight=True):
     total = state.priority.sum()
     got = _counted("K8_replay_assemble", lambda: replay_assemble(
-        on_card, idx.to(cuda), total.to(cuda), gammas.to(cuda), 0.6, state.filled, history, 3,
-        32))
-    want = replay_assemble_plain(state, idx, total, gammas, 0.6, state.filled, history, 3, 32)
+        on_card, idx.to(cuda), total.to(cuda), gammas.to(cuda), 0.6, state.filled, history,
+        n_step, group, with_weight))
+    want = replay_assemble_plain(state, idx, total, gammas, 0.6, state.filled, history, n_step,
+                                 group, with_weight)
     for name in ("obs", "next_obs", "action", "discount"):
         assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
     for name in ("reward", "prob", "weight"):
         torch.testing.assert_close(getattr(got, name).cpu(), getattr(want, name), **REL)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame,history,n_step", [
+    ((84, 84), 4, 3), ((10, 10), 3, 3), ((80, 80), 4, 3), ((84, 84), 4, 1), ((84, 84), 4, 5),
+    ((84, 84), 1, 3), ((84, 84), 7, 5), ((10, 10), 7, 1)])
+@pytest.mark.parametrize("ticks", [11, 40], ids=["young", "wrapped"])
+@pytest.mark.parametrize("groups", [1, 4])
+def test_k8_kernel_matches_twin(cuda, frame, history, n_step, ticks, groups):
+    """84 x 84 x 4 and 80 x 80 x 4 take the 16-byte transposing store, the
+    rest the byte path (10 x 10: hw % 16 != 0); n_step 1 and 5 the return's
+    edges; a young ring zeroes frames older than its history."""
+    cpu = _replay(4, 32, frame, history, n_step, "cpu")
+    state = _filled(cpu, ticks, seed=ticks)
+    rng = np.random.default_rng(6)
+    idx = torch.from_numpy(rng.integers(0, 4 * 32, groups * 32).astype(np.int32))
+    _k8_pair(cuda, state, state.to(cuda), idx, cpu._gammas, history, n_step, 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [1, 3])
+@pytest.mark.parametrize("with_weight", [True, False])
+def test_k8_kernel_matches_twin_on_groups_of_48_draws(cuda, groups, with_weight):
+    """A group of more than 32 draws: a lane takes two, the weight maximum
+    spans both."""
+    cpu = _replay(4, 32, (84, 84), 4, 3, "cpu")
+    state = _filled(cpu, 40, seed=3)
+    idx = torch.from_numpy(np.random.default_rng(8).integers(0, 4 * 32, groups * 48)
+                           .astype(np.int32))
+    _k8_pair(cuda, state, state.to(cuda), idx, cpu._gammas, 4, 3, 48, with_weight)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame,history,n_step", [((84, 84), 4, 3), ((10, 10), 7, 5)])
+@pytest.mark.parametrize("ticks", [9, 45], ids=["young", "wrapped"])
+def test_k8_kernel_matches_twin_next_to_the_write_cursor(cuda, frame, history, n_step, ticks):
+    """Every lane's slots from pos - h - n to pos + h + n: stacks that reach
+    behind the written history, into the dead zone and across the seam."""
+    seg = 32
+    cpu = _replay(4, seg, frame, history, n_step, "cpu")
+    state = _filled(cpu, ticks, seed=ticks)
+    cols = (state.pos + np.arange(-history - n_step, history + n_step + 1)) % seg
+    idx = (np.arange(4)[:, None] * seg + cols[None, :]).reshape(-1).astype(np.int32)
+    _k8_pair(cuda, state, state.to(cuda), torch.from_numpy(idx), cpu._gammas, history, n_step,
+             idx.size)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame,history", [((84, 84), 4), ((10, 10), 3)])
+def test_k8_kernel_repeats_bit_equal(cuda, frame, history):
+    cpu = _replay(4, 32, frame, history, 3, "cpu")
+    state = _filled(cpu, 40, seed=2)
+    on_card = state.to(cuda)
+    idx = torch.from_numpy(np.random.default_rng(4).integers(0, 4 * 32, 128).astype(np.int32))
+    first = _k8_pair(cuda, state, on_card, idx, cpu._gammas, history, 3, 32)
+    again = _k8_pair(cuda, state, on_card, idx, cpu._gammas, history, 3, 32)
+    for name in first._fields:
+        a, b = getattr(first, name), getattr(again, name)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
