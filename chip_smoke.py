@@ -43,12 +43,17 @@ and runs every phase, in this order:
 - ``kernels_replay``: the device replay's kernels (K5 PER draw over
   1,000,000 priorities, K6 write-back, K7 append of 16 lanes of 84x84, K8
   assembly at B 32, h 4, n 3) against their twins, timed the same way, then
+  K6 folded into K1's weighted launch (the fused step's route: G 1 and 4,
+  repeated ids, zero slots, a NaN td, ids outside the ring) bit-equal to K1's
+  launch then K6's and to K6's twin, timed beside those two launches, and
   K7 and K8 at the edges of their grids, each launch repeated bit-equal;
 - ``anakin``: ``DeviceReplay`` at the reference config's uncut 1,000,000
   slots (16 lanes x 62,500, 7.06 GB of frames in device memory) filled
   through K7 with synthetic frames, then 200 full-width fused
   sample -> learn -> write-back steps (``build_device_learn``) under
-  ``forbid_host_sync()`` with exact launch counts per step, and a profile;
+  ``forbid_host_sync()`` with exact launch counts per step (no K6 launch:
+  its write-back runs inside K1's, once a step, counted in ``folded``), and
+  a profile;
 - ``anakin_parity``: one fused step on the card against the same step
   through the plain twins on the CPU;
 - ``train_anakin``: ``python -m rainbow_iqn_apex_tpu_torch.train --role
@@ -56,14 +61,19 @@ and runs every phase, in this order:
 - ``kernels_frontier``: the device sample frontier's kernels (K5f draw with
   IS weights over the 1,000,000-slot mirror of two shards, one of them
   dead, G 8, B 32; K6f write-back at B 32 with repeated ids and zero slots)
-  against their twins, timed the same way;
+  against their twins, timed the same way, then K6f's queue between two
+  draws of the apex loop (8 write-back batches of 32 and two ticks of staged
+  rows, repeated ids, zero slots, a NaN |td|) applied by K5f's first launch
+  and by K6f's own (ids outside the mirror too), against the twins' apply
+  and the draw after it, timed beside the parent's route;
 - ``apex``: the Ape-X loop of ``configs/reference_atari_defaults.json`` at
   full width with synthetic frames: ``ApexDriver`` acting on 16 lanes with
   actor-side priorities into a 1,000,000-slot ``ShardedReplay`` filled to
   32,000 transitions, then 200 learn steps with host sampling and 200 with
-  the device frontier (``SampleAheadPusher``, K5f, K6f, reconcile at
-  drains), publishes every 100 steps, under ``forbid_host_sync()``, with
-  the exact launches of each run, and a profile;
+  the device frontier (``SampleAheadPusher``, K5f applying K6f's queue of
+  write-backs and staged appends, reconcile at drains), publishes every 100
+  steps, under ``forbid_host_sync()``, with the exact launches of each run
+  (K6f: one a reconcile that finds queued updates), and a profile;
 - ``kernels_quant``: the quantized act path's kernels (K10q int8 and fp8
   over the full-width tree with a zero channel, ties and e4m3's overflow
   edges planted, bit-equal; K10g int8 and e4m3, greedy at serving's M 2048
@@ -250,10 +260,11 @@ REPLAY_BATCH = 32  # B of the replay kernels, as the reference config
 ANAKIN_STEPS = 200  # fused steps of the `anakin` phase
 ANAKIN_FILL = 2000  # append ticks of 16 lanes before it (32,000 transitions)
 ANAKIN_FRAME_POOL = 64  # distinct synthetic ticks cycled through the fill
-# per fused step at sample_groups 1: one K5, K8 and K6 plus the learn step's kernels
+# per fused step at sample_groups 1: one K5 and K8 plus the learn step's kernels;
+# the write-back (K6) runs inside the learn step's K1 launch
 ANAKIN_PER_STEP = {"K1_quantile_huber": 1, "K2_tau_embed": 3, "K2_tau_embed_bwd": 1,
                    "K3_noisy_linear": 12, "K3_noisy_linear_bwd": 4, "K4_dueling_head": 1,
-                   "K4_dueling_head_bwd": 1, "K5_replay_draw": 1, "K6_replay_writeback": 1,
+                   "K4_dueling_head_bwd": 1, "K5_replay_draw": 1, "K6_replay_writeback": 0,
                    "K7_replay_append": 0, "K8_replay_assemble": 1, "K5f_frontier_draw": 0,
                    "K6f_frontier_writeback": 0, "K10q_quantize": 0, "K10g_noisy_linear_q": 0,
                    "K10d_dequantize": 0, "K9_lstm": 0, "K9_lstm_bwd": 0, "K11_r2d2_td": 0,
@@ -261,6 +272,7 @@ ANAKIN_PER_STEP = {"K1_quantile_huber": 1, "K2_tau_embed": 3, "K2_tau_embed_bwd"
                    "K8s_seq_assemble": 0, "K6s_seq_writeback": 0, "K12_device_games": 0,
                    "K2g_tau_embed_game": 0, "K2g_tau_embed_game_bwd": 0,
                    "K4m_dueling_head_mask": 0, "K4l_dueling_head_logp": 0}
+ANAKIN_FOLDED_PER_STEP = {"K6_replay_writeback": 1, "K6f_frontier_writeback": 0}
 FRONTIER_SHARDS = 2  # kernels_frontier: the mirror of 2 shards, the second one dead
 FRONTIER_REL = 1e-6  # K5f prob and weight: K5's chained total against torch's sum
 APEX_FILL = 2000  # append ticks of 16 lanes before the apex runs (32,000 transitions)
@@ -352,6 +364,12 @@ MT_PER_BATCH = {"K2g_tau_embed_game": 8, "K3_noisy_linear": 32, "K4m_dueling_hea
                 "K3_noisy_linear_bwd": 8, "K2g_tau_embed_game_bwd": 2}
 # per act tick: K2g, K3 x4, K4m (the env's K12 launches are per lane step and reset)
 MT_PER_ACT = {"K2g_tau_embed_game": 1, "K3_noisy_linear": 4, "K4m_dueling_head_mask": 1}
+
+
+def with_folded(counts, folded):
+    """A phase's launch counts for the kernels line, with each folded
+    kernel's runs inside another launch under "folded:<name>"."""
+    return {**counts, **{f"folded:{name}": n for name, n in folded.items()}}
 
 
 def emit(obj) -> None:
@@ -1234,11 +1252,11 @@ def _replay_of(cfg, seg, device):
 def phase_kernels_replay(torch, cfg):
     """K5-K8 against their twins (on the same card tensors) at the replay's
     full-size shapes: K5 over the config's 1,000,000 priorities (G 1 and 4,
-    B 32), K6 at B 32 with G 1 and 4, duplicate ids and zero slots, K7 with
-    16 lanes of 84x84 over a wrapping ring, K8 at B 32, h 4, n 3 (G 1 and 4,
-    young and wrapped rings), then K7 and K8 at their grids' edges
-    (``_replay_edges``).  The kernels line takes the main path's shapes (G
-    1)."""
+    B 32), K6 at B 32 with G 1 and 4, duplicate ids and zero slots, and
+    folded into K1's weighted launch (N = N' = 64), K7 with 16 lanes of
+    84x84 over a wrapping ring, K8 at B 32, h 4, n 3 (G 1 and 4, young and
+    wrapped rings), then K7 and K8 at their grids' edges (``_replay_edges``).
+    The kernels line takes the main path's shapes (G 1)."""
     import numpy as np
 
     from rainbow_iqn_apex_tpu_torch.kernels.replay_append import (
@@ -1249,8 +1267,10 @@ def phase_kernels_replay(torch, cfg):
         replay_assemble,
         replay_assemble_plain,
     )
+    from rainbow_iqn_apex_tpu_torch.kernels.quantile_huber import quantile_huber_weighted
     from rainbow_iqn_apex_tpu_torch.kernels.replay_draw import replay_draw, replay_draw_plain
     from rainbow_iqn_apex_tpu_torch.kernels.replay_writeback import (
+        Writeback,
         replay_writeback,
         replay_writeback_plain,
     )
@@ -1334,6 +1354,63 @@ def phase_kernels_replay(torch, cfg):
         if groups == 1:
             results["K6_replay_writeback"] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms,
                                                   library_ms=None, bound_ms=bms, bound_by=by)
+
+    # K6 folded into K1's weighted launch, the fused step's route: bit-equal to
+    # K1's launch then K6's, and to K6's twin on the launch's own td_abs
+    n_tau, kappa = cfg.num_tau_samples, cfg.kappa
+    failed, cases, timed = [], 0, None
+    for groups, nan_td, outside in ((1, False, False), (4, True, False), (1, True, True),
+                                    (4, False, True)):
+        m = groups * batch
+        loss_in = (torch.randn((m, n_tau), generator=gen, device=dev),
+                   torch.rand((m, n_tau), generator=gen, device=dev),
+                   torch.randn((m, n_tau), generator=gen, device=dev),
+                   torch.rand((m,), generator=gen, device=dev))
+        if nan_td:
+            loss_in[2][1, 5] = float("nan")
+        ids = torch.randint(0, 64, (groups, batch), generator=gen, device=dev,
+                            dtype=torch.int32)  # repeats, and base's zero slots
+        if outside:
+            ids[0, 3], ids[-1, -1] = n, -1
+        got, got_max = base.clone(), torch.tensor(1.5, device=dev)
+        want, want_max = base.clone(), torch.tensor(1.5, device=dev)
+        twin, twin_max = base.clone(), torch.tensor(1.5, device=dev)
+        target = Writeback(got, got_max, ids, eps, omega)
+        out = quantile_huber_weighted(*loss_in, None, kappa, target)
+        ref = quantile_huber_weighted(*loss_in, None, kappa)
+        replay_writeback(want, want_max, ids, ref[2], eps, omega)
+        if not outside:
+            replay_writeback_plain(twin, twin_max, ids, out[2], eps, omega)
+        torch.cuda.synchronize()
+        name = f"G {groups}{' NaN td' if nan_td else ''}{' ids outside' if outside else ''}"
+        cases += 1
+        if not (all(_same_bits(torch, a, b) for a, b in zip(out, ref))
+                and _same_bits(torch, got, want) and _same_bits(torch, got_max, want_max)):
+            failed.append(name + ": not K1 then K6")
+        if not outside and not (_same_bits(torch, got, twin)
+                                and _same_bits(torch, got_max, twin_max)):
+            failed.append(name + ": not K6's twin")
+        if not bool((got[base == 0] == 0).all()) or bool(torch.isnan(got_max)) != nan_td:
+            failed.append(name + ": a zero slot resurrected or the maximum's NaN")
+        if groups == 1 and not (nan_td or outside):
+            timed = (loss_in, ids)
+    loss_in, ids = timed
+    ring, ring_max = base.clone(), torch.tensor(1.5, device=dev)
+    target = Writeback(ring, ring_max, ids, eps, omega)
+
+    def two_launches():
+        out = quantile_huber_weighted(*loss_in, None, kappa)
+        replay_writeback(ring, ring_max, ids, out[2], eps, omega)
+
+    fold = dict(into="K1_quantile_huber", cases=cases, failed=failed,
+                ms=time_ms(torch, lambda: quantile_huber_weighted(*loss_in, None, kappa, target)),
+                two_launch_ms=time_ms(torch, two_launches),
+                k1_weighted_ms=time_ms(torch, lambda: quantile_huber_weighted(*loss_in, None,
+                                                                              kappa)))
+    emit({"phase": "kernels_replay", "kernel": "K6_replay_writeback", "mode": "folded into K1",
+          "shape": [1, batch, n_tau], "ok": not failed, **fold})
+    check(not failed, f"K6 folded into K1: {failed}")
+    results["K6_replay_writeback"]["folded"] = fold
 
     # K7 over a small wrapping ring of the config's lanes and frames --------
     seg = 64
@@ -1501,12 +1578,17 @@ def phase_kernels_frontier(torch, cfg):
     """K5f and K6f against their twins on the card's tensors at the apex
     path's shapes: K5f over the config's 1,000,000-slot mirror (two shards,
     the second one dead, some zero slots), G = 8 (``draw_block``), B 32;
-    K6f at B 32 with repeated ids and zero slots.  Timed the same way."""
+    K6f at B 32 with repeated ids and zero slots; K6f's queue between two
+    draws, applied by K5f's first launch and by K6f's own.  Timed the same
+    way."""
     from rainbow_iqn_apex_tpu_torch.kernels.frontier_draw import (
         frontier_draw,
         frontier_draw_plain,
     )
     from rainbow_iqn_apex_tpu_torch.kernels.frontier_writeback import (
+        MirrorQueue,
+        frontier_apply,
+        frontier_apply_plain,
         frontier_writeback,
         frontier_writeback_plain,
     )
@@ -1596,6 +1678,78 @@ def phase_kernels_frontier(torch, cfg):
     check(ok, "K6f disagrees with its twin or resurrected a zero slot")
     results["K6f_frontier_writeback"] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms,
                                              library_ms=None, bound_ms=bms, bound_by=by)
+
+    # K6f's queue between two draws of the apex loop (8 write-back batches of
+    # B, a tick of 16 staged rows every 4 of them: repeated ids inside and
+    # across batches, zero slots, a NaN |td|), applied by K5f's first launch
+    # (the draw's route) and by K6f's own launch (ids outside the mirror too)
+    eps, omega = cfg.priority_eps, cfg.priority_exponent
+
+    def queue(outside):
+        q, plain, parent = MirrorQueue(eps, omega), MirrorQueue(eps, omega), []
+        for b in range(8):
+            ids = torch.randint(0, 48, (batch,), generator=gen, device=dev, dtype=torch.int32)
+            ids[batch // 2:] = torch.randint(0, live, (batch - batch // 2,), generator=gen,
+                                             device=dev, dtype=torch.int32)
+            td = torch.randn((batch,), generator=gen, device=dev) * 3
+            if b == 2:
+                td[0] = float("nan")
+            keep = torch.ones_like(ids, dtype=torch.bool)
+            if outside and b == 5:
+                ids[3], ids[9] = n, -2
+                keep[3] = keep[9] = False
+            q.writeback(ids, td)
+            plain.writeback(ids[keep].contiguous(), td[keep].contiguous())
+            parent.append(("w", ids, td))
+            if b % 4 == 3:
+                rows = torch.randperm(live, generator=gen, device=dev)[:16].to(torch.int32)
+                rows[:4] = torch.arange(4 * b, 4 * b + 4, device=dev, dtype=torch.int32)
+                vals = torch.rand((16,), generator=gen, device=dev) * 2
+                for qq in (q, plain):
+                    qq.stage(rows, vals)
+                parent.append(("s", rows.long(), vals))
+        return q, plain, parent
+
+    mirror = p.clone()
+    mirror[:48:3] = 0.5  # the batches' first ids: live and zero slots
+    q, _, parent = queue(False)
+    got, want = mirror.clone(), mirror.clone()
+    drawn = frontier_draw(got, u, beta, n_items, q)
+    frontier_apply_plain(want, q)
+    again = frontier_draw(want.clone(), u, beta, n_items)
+    q_out, q_in, _ = queue(True)
+    applied, applied_twin = mirror.clone(), mirror.clone()
+    frontier_apply(applied, q_out)
+    frontier_apply_plain(applied_twin, q_in)
+    torch.cuda.synchronize()
+    checks = {"draw_mirror_equals_twin": bool(torch.equal(got, want)),
+              "draw_equals_apply_then_draw": all(bool(torch.equal(a, b))
+                                                 for a, b in zip(drawn, again)),
+              "apply_equals_twin": bool(torch.equal(applied, applied_twin)),
+              "no_zero_slot_drawn": bool((got[drawn[0].long()] > 0).all())}
+    ok = all(checks.values())
+    ring = mirror.clone()
+
+    def parent_route():
+        for kind, ids, vals in parent:
+            if kind == "w":
+                frontier_writeback(ring, ids, vals, eps, omega)
+            else:
+                ring.index_copy_(0, ids, vals)
+        return frontier_draw(ring, u, beta, n_items)
+
+    entries = sum(int(ids.numel()) for _, ids, _ in parent)
+    fold = dict(into="K5f_frontier_draw", queue="8 write-back batches of 32, 2 x 16 staged rows",
+                **checks, ms=time_ms(torch, lambda: frontier_draw(ring, u, beta, n_items, q)),
+                parent_route_ms=time_ms(torch, parent_route),
+                k5f_ms=time_ms(torch, lambda: frontier_draw(ring, u, beta, n_items)),
+                apply_ms=time_ms(torch, lambda: frontier_apply(ring, q)),
+                bound_ms=bound_ms(n * 4 + entries * 4 * 4 + groups * batch * 4 * 4, n,
+                                  FP32_FLOPS)[0])
+    emit({"phase": "kernels_frontier", "kernel": "K6f_frontier_writeback",
+          "mode": "queue folded into K5f", "shape": [n, groups, batch], "ok": ok, **fold})
+    check(ok, f"K6f's queue: {checks}")
+    results["K6f_frontier_writeback"]["folded"] = fold
     return results
 
 
@@ -1613,7 +1767,7 @@ def phase_anakin(torch, cfg):
     import numpy as np
 
     from rainbow_iqn_apex_tpu_torch.agents.agent import put_frames
-    from rainbow_iqn_apex_tpu_torch.kernels import launches, reset_launches
+    from rainbow_iqn_apex_tpu_torch.kernels import folded, launches, reset_launches
     from rainbow_iqn_apex_tpu_torch.ops.learn import init_train_state
     from rainbow_iqn_apex_tpu_torch.replay.device import build_device_learn
     from rainbow_iqn_apex_tpu_torch.train import priority_beta
@@ -1663,7 +1817,7 @@ def phase_anakin(torch, cfg):
     with torch.no_grad():
         target_before = torch.cat([p.flatten() for p in ts.target.parameters()])
     step0 = ts.step
-    before = dict(launches)
+    before, folded_before = dict(launches), dict(folded)
     losses, finite, lat_ms = [], [], []
     t_run = time.perf_counter()
     try:
@@ -1680,6 +1834,8 @@ def phase_anakin(torch, cfg):
     elapsed = time.perf_counter() - t_run
     counts = dict(launches)
     per_step = {name: (counts[name] - before[name]) / ANAKIN_STEPS for name in counts}
+    folded_per_step = {name: (n - folded_before[name]) / ANAKIN_STEPS
+                       for name, n in folded.items()}
     loss_t = torch.stack(losses)
     all_finite = bool(torch.isfinite(loss_t).all()) and bool(torch.stack(finite).all())
     with torch.no_grad():
@@ -1695,12 +1851,16 @@ def phase_anakin(torch, cfg):
           "step_host_p50_ms": float(lat[len(lat) // 2]),
           "step_host_p99_ms": float(lat[int(0.99 * (len(lat) - 1))]),
           "launches": counts, "launches_per_step": per_step,
+          "folded_per_step": folded_per_step,
           "losses_finite": all_finite, "loss_last": float(loss_t[-1]),
           "target_copies": copies, "target_moved": target_moved, "cuts": cuts})
     check(per_step == {k: float(v) for k, v in ANAKIN_PER_STEP.items()},
           f"launches per fused step {per_step}, want {ANAKIN_PER_STEP}")
+    check(folded_per_step == {k: float(v) for k, v in ANAKIN_FOLDED_PER_STEP.items()},
+          f"write-backs folded per fused step {folded_per_step}, want {ANAKIN_FOLDED_PER_STEP}")
     check(all_finite, "a non-finite loss in the anakin phase")
     check(copies >= 1 and target_moved, "no target copy happened in the anakin phase")
+    counts = with_folded(counts, folded)
     profile_anakin(torch, fused, ts, ds, gen, beta)
     del ds, replay, ts, fused
     torch.cuda.empty_cache()
@@ -1834,7 +1994,7 @@ def phase_apex(torch, cfg):
     of each run, then a profile of the device-sampling loop."""
     import numpy as np
 
-    from rainbow_iqn_apex_tpu_torch.kernels import launches, reset_launches
+    from rainbow_iqn_apex_tpu_torch.kernels import folded, launches, reset_launches
     from rainbow_iqn_apex_tpu_torch.parallel.apex import ActorPriorityEstimator, ApexDriver
     from rainbow_iqn_apex_tpu_torch.parallel.sharded_replay import ShardedReplay
     from rainbow_iqn_apex_tpu_torch.parallel.supervisor import TrainSupervisor
@@ -1914,6 +2074,7 @@ def phase_apex(torch, cfg):
         else:
             feed = make_replay_prefetcher(memory, cfg, lambda: beta, dev)
         reconcile_ms, publish_ms, publish_events = [], [], []
+        flush_due = []  # per reconcile: whether mirror updates waited (one K6f launch)
 
         def write_back(idx, td_abs):
             if frontier is not None:
@@ -1923,6 +2084,7 @@ def phase_apex(torch, cfg):
 
         def reconcile():
             feed.settle()
+            flush_due.append(frontier.queued)
             reconcile_ms.append(frontier.reconcile() * 1e3)
 
         sup = TrainSupervisor(cfg)
@@ -1975,15 +2137,16 @@ def phase_apex(torch, cfg):
                 raise SmokeFailure(f"a host sync in the apex loop: {e}")
             torch.cuda.synchronize()
             elapsed = time.perf_counter() - t_run
-            counts = dict(launches)
+            counts = with_folded(dict(launches), folded)
             steps = driver.step - step0
             with torch.no_grad():
                 target_after = torch.cat([p.flatten() for p in driver.state.target.parameters()])
             requests = cfg.sample_ahead_depth + APEX_WARMUP + steps
             want = {"K5f_frontier_draw": 0, "K6f_frontier_writeback": 0}
-            if frontier is not None:  # draw_ahead 2 blocks behind the current one
+            if frontier is not None:  # draw_ahead 2 blocks behind the current one; the
+                # queue goes into the draws, and out of a draw only at the reconciles
                 want = {"K5f_frontier_draw": math.ceil(requests / frontier.draw_block) + 2,
-                        "K6f_frontier_writeback": APEX_WARMUP + steps}
+                        "K6f_frontier_writeback": sum(flush_due)}
             mode = "device" if device_sampling else "host"
             lat = np.sort(np.asarray(act_ms[act0:]))
             row = {"phase": phase, "sampling": mode, "steps": steps, "batch": cfg.batch_size,
@@ -2002,7 +2165,10 @@ def phase_apex(torch, cfg):
                   "k5f_formula": "ceil((sample_ahead_depth + gets) / draw_block) + draw_ahead"
                                  f" = ceil(({cfg.sample_ahead_depth} + "
                                  f"{APEX_WARMUP + steps}) / 8) + 2",
-                  "k6f_formula": "one per retired learn step",
+                  "k6f_formula": "one per reconcile that found queued mirror updates (the "
+                                 "only flushes outside a draw)",
+                  "k6f_flushes": None if frontier is None else frontier.flushes,
+                  "k6f_folded_into_k5f": counts["folded:K6f_frontier_writeback"],
                   "losses_finite": bool(all(np.isfinite(losses)) and all(finite)),
                   "retired": ring.retired_total, "target_moved": not torch.equal(target_before,
                                                                           target_after),
@@ -2012,6 +2178,15 @@ def phase_apex(torch, cfg):
             for name, n in want.items():
                 check(counts[name] == n, f"apex ({mode}): {name} launched {counts[name]} times, "
                                          f"want {n}")
+            check(counts["K6_replay_writeback"] == 0 == counts["folded:K6_replay_writeback"],
+                  f"apex ({mode}): the device ring's write-back ran")
+            if frontier is not None:
+                k6f_folds = counts["folded:K6f_frontier_writeback"]
+                check(frontier.flushes == sum(flush_due) and 0 < k6f_folds
+                      <= counts["K5f_frontier_draw"],
+                      f"apex ({mode}): {frontier.flushes} flushes outside a draw for "
+                      f"{sum(flush_due)} reconciles with queued updates; {k6f_folds} queues "
+                      f"folded into {counts['K5f_frontier_draw']} draws")
             for name in (*LEARN_PER_STEP, *REPLAY_KERNELS):
                 check((counts[name] > 0) == (name in LEARN_PER_STEP),
                       f"apex ({mode}): {name} launched {counts[name]} times")
@@ -3279,6 +3454,7 @@ def phase_anakin_r2d2(torch, cfg):
     stack = torch.zeros((lanes, *frame, cfg.history_length), dtype=torch.uint8, device=dev)
     state = (torch.zeros((lanes, lstm), device=dev), torch.zeros((lanes, lstm), device=dev))
     prev, cuts, ticks, tick_us = None, np.zeros(lanes, bool), 0, []
+    k7s_ticks = {"emitting": 0, "none_emitting": 0}  # K7s launches by whether a lane emitted
     cut_info = {"frames": "synthetic seeded uint8 (no emulator on the machine)",
                 "target_update_period": cfg.target_update_period,
                 "ring": f"uncut: {capacity} sequences of {seq}"}
@@ -3292,8 +3468,11 @@ def phase_anakin_r2d2(torch, cfg):
                 t = time.perf_counter()
                 frame_d = put_frames(pool[ticks % R2D2_FRAME_POOL], dev)
                 keep_d = put_frames((~cuts).astype(np.uint8), dev)
+                filled0 = ss.filled
                 actions_d, state, pre = act_append(ts.net, stack, ss, state, frame_d, keep_d,
                                                    prev)
+                if prev is not None:  # this tick appended: K7s ran (filled stays under capacity)
+                    k7s_ticks["emitting" if ss.filled > filled0 else "none_emitting"] += 1
                 with hostsync.sanctioned():
                     hostsync.to_host(actions_d)  # the loop's one read: the env needs them
                 tick_us.append((time.perf_counter() - t) * 1e6)
@@ -3313,6 +3492,8 @@ def phase_anakin_r2d2(torch, cfg):
                        "K4_dueling_head": ticks})
     check(tick_counts == want_ticks, f"launches of {ticks} act_append ticks {tick_counts}, "
                                      f"want {want_ticks}")
+    check(sum(k7s_ticks.values()) == ticks - 1 and ss.filled < capacity,
+          f"K7s ticks {k7s_ticks} of {ticks - 1} appends")
 
     fused = build_device_r2d2_learn(cfg, 18, replay)
     beta = priority_beta(cfg, ticks * lanes)
@@ -3354,7 +3535,8 @@ def phase_anakin_r2d2(torch, cfg):
           "warm_gate": learn_start_seqs, "append_ticks": ticks, "fill_seconds": fill_s,
           "act_append_us_per_tick_p50": float(ticks_sorted[len(ticks_sorted) // 2]),
           "act_append_us_per_tick_mean": float(ticks_sorted.mean()),
-          "tick_launches": tick_counts, "learn_steps_per_s": ANAKIN_R2D2_STEPS / elapsed,
+          "tick_launches": tick_counts, "k7s_ticks": k7s_ticks,
+          "learn_steps_per_s": ANAKIN_R2D2_STEPS / elapsed,
           "seconds": elapsed, "step_host_p50_ms": float(lat[len(lat) // 2]),
           "step_host_p99_ms": float(lat[int(0.99 * (len(lat) - 1))]),
           "launches_per_step": per_step,
@@ -3662,7 +3844,7 @@ def phase_anakin_fused(torch, cfg):
 
     from rainbow_iqn_apex_tpu_torch.envs import prng
     from rainbow_iqn_apex_tpu_torch.envs.device_games import make_device_game
-    from rainbow_iqn_apex_tpu_torch.kernels import launches, reset_launches
+    from rainbow_iqn_apex_tpu_torch.kernels import folded, launches, reset_launches
     from rainbow_iqn_apex_tpu_torch.ops.learn import init_train_state
     from rainbow_iqn_apex_tpu_torch.replay.device import DeviceReplay, build_device_learn
     from rainbow_iqn_apex_tpu_torch.train_anakin import build_fused_segment, init_fused_carry
@@ -3696,11 +3878,12 @@ def phase_anakin_fused(torch, cfg):
 
     reset_launches()  # the main path: every segment of this phase
     cold_ms, warm_ms, cold_ok, warm_ok, losses, returns = [], [], [], [], [], []
+    folds_ok = []  # each segment: one write-back folded into K1 a learn step
     first_warm_tick, segments, warm_seen = None, 0, 0
     try:
         while warm_seen < FUSED_SEGMENTS + 1:
             key, k = prng.split(key, 2)
-            before, steps0 = dict(launches), carry[0].step
+            before, steps0, folds0 = dict(launches), carry[0].step, dict(folded)
             t0 = time.perf_counter()
             with hostsync.forbid_host_sync():
                 carry, (out_ret, loss, _q, _g) = segment(carry, k, gen)
@@ -3710,6 +3893,8 @@ def phase_anakin_fused(torch, cfg):
             learned = carry[0].step - steps0
             per = {name: launches[name] - before[name] for name in launches}
             want = _fused_expected(FUSED_PER_TICK, T, learned)
+            folds_ok.append({n: folded[n] - folds0[n] for n in folded}
+                            == {n: v * learned for n, v in ANAKIN_FOLDED_PER_STEP.items()})
             returns += [float(r) for r in ret_h[~np.isnan(ret_h)]]
             if learned and first_warm_tick is None:
                 first_warm_tick = segments * T - learned // learns_per_tick + 1
@@ -3744,6 +3929,7 @@ def phase_anakin_fused(torch, cfg):
            "peak_memory_allocated": torch.cuda.max_memory_allocated(),
            "launches": counts, "per_tick": FUSED_PER_TICK,
            "launches_exact_cold": all(cold_ok), "launches_exact_warm": all(warm_ok),
+           "folded": dict(folded), "folded_exact": all(folds_ok),
            "losses_finite": bool(np.isfinite(loss_all).all()), "episodes_ended": len(returns),
            "return_mean": float(np.mean(returns)) if returns else None,
            "learn_steps": carry[0].step, "cuts": cuts}
@@ -3753,8 +3939,10 @@ def phase_anakin_fused(torch, cfg):
           f"first learn at tick {first_warm_tick}, want {-(-cfg.learn_start // lanes)}")
     check(cold_ok and all(cold_ok), "launches of a cold fused segment differ from the prediction")
     check(warm_ok and all(warm_ok), "launches of a warm fused segment differ from the prediction")
+    check(all(folds_ok), "a fused segment's write-backs folded into K1 differ from its learn steps")
     check(row["losses_finite"], "a non-finite loss in a fused segment")
     check(all(math.isfinite(r) for r in returns) and returns, "no finite episode return")
+    counts = with_folded(counts, folded)
     profile_fused(torch, segment, carry, key, gen)
     del carry, ds, replay, ts, segment
     torch.cuda.empty_cache()
@@ -4811,14 +4999,21 @@ def main() -> int:
     line = []
     for name, res in results.items():
         by_path = {path: c.get(name, 0) for path, c in counts.items()}
+        # K6 and K6f run mostly inside another kernel's launch (build.FOLDED_INTO):
+        # their launches count those runs beside their own launches
+        folds = {path: c.get(f"folded:{name}", 0) for path, c in counts.items()}
+        fold = ({"launches_own": sum(by_path.values()), "launches_folded_by_path": folds,
+                 "folded_into": build.FOLDED_INTO[name]} if name in build.FOLDED_INTO else {})
         line.append({"name": name, "route": "cuda", "source": rows[name][0],
-                     "replaces": rows[name][1], "launches": sum(by_path.values()),
-                     "launches_by_path": by_path,
+                     "replaces": rows[name][1],
+                     "launches": sum(by_path.values()) + sum(folds.values()),
+                     "launches_by_path": by_path, **fold,
                      "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                      "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                      "bound_by": res["bound_by"], "library_ms": res["library_ms"],
                      **{key: res[key] for key in ("heads", "one_lane_step", "per_sample",
-                                                  "scaled", "chain", "dz") if key in res}})
+                                                  "scaled", "chain", "dz", "folded")
+                        if key in res}})
     emit({"phase": "total", "seconds": time.perf_counter() - t_script,
           "seconds_by_phase": by_phase})
     emit({"kernels": line})

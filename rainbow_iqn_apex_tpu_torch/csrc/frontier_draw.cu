@@ -21,12 +21,18 @@
 // Bound on the H100: the one read of the mirror, 4 MB at N = 1,000,000
 // (~1.2 us at 3.35 TB/s), plus 3 * G * B * 4 bytes out.  The epilogue is G
 // blocks of B threads and a few hundred bytes: launch-bound.
+//
+// The frontier's queued mirror updates (K6f: its staged appends and learner
+// write-backs since the last draw, writeback.cuh's MirrorQueue) ride along:
+// K5's first launch applies them to the mirror before it sums each chunk
+// (replay_draw.cu, the queue mode), so they cost no launch of their own.
 #include <math.h>
 
 #include "common.cuh"
 
-PORT_API int port_replay_draw(const void* p, const void* uniforms, void* partial, void* idx,
-                              void* total, int n, int draws, int B, void* stream);
+PORT_API int port_replay_draw_queue(void* p, const void* uniforms, void* partial, void* idx,
+                                    void* total, int n, int draws, int B, const void* queue,
+                                    void* stream);
 
 namespace {
 
@@ -67,14 +73,16 @@ __global__ void __launch_bounds__(MAX_B) weights_kernel(
 
 }  // namespace
 
-// p [n] f32 (16-byte aligned), uniforms [G * B] f32, partial [nchunks] f32
-// scratch (as port_replay_draw), idx [G * B] int32, total [] f32, prob and
-// weight [G * B] f32.
-PORT_API int port_frontier_draw(const void* p, const void* uniforms, void* partial, void* idx,
+// p [n] f32 (16-byte aligned; the queue, null or a host MirrorQueue, is
+// applied to it first), uniforms [G * B] f32, partial [nchunks] f32 scratch
+// (as port_replay_draw), idx [G * B] int32, total [] f32, prob and weight
+// [G * B] f32.
+PORT_API int port_frontier_draw(void* p, const void* uniforms, void* partial, void* idx,
                                 void* total, void* prob, void* weight, int n, int G, int B,
-                                float beta, float n_items, void* stream) {
+                                float beta, float n_items, const void* queue, void* stream) {
     if (G < 1 || B < 1 || B > MAX_B) return (int)cudaErrorInvalidValue;
-    const int err = port_replay_draw(p, uniforms, partial, idx, total, n, G * B, B, stream);
+    const int err =
+        port_replay_draw_queue(p, uniforms, partial, idx, total, n, G * B, B, queue, stream);
     if (err != 0) return err;
     const int threads = ((B + 31) / 32) * 32;
     weights_kernel<<<G, threads, 0, static_cast<cudaStream_t>(stream)>>>(

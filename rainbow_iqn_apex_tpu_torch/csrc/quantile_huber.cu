@@ -36,11 +36,28 @@
 // then a butterfly: every sum has a fixed order, so two calls on one input
 // give equal bits, and the mean is written by the launch that computed it,
 // with nothing kept between launches.
+//
+// K6 folded in (the fused Anakin step, replay/device.py:build_device_learn):
+// given the device ring's priorities, max_priority and the draws' ids [G, B /
+// G], the weighted launch also does K6's fenced write-back of its own td_abs
+// (csrc/replay_writeback.cu: pri = (td_abs + eps)^omega, max_priority =
+// max(max_priority, max pri), then the groups' fenced scatters in order, the
+// last occurrence of a repeated id winning, an id outside the ring dropped),
+// through the same scatter_group (writeback.cuh), so the step launches no K6
+// of its own.  Each sample's priority is formed where its td_abs is, and the
+// other blocks send theirs into block 0 beside their w * loss; block 0 loads
+// the ids, max_priority and group 0's fence values p[id] at entry (the ids
+// before its inputs), while the pairs run.  After the sends have landed, warp 0 takes the maximum with the
+// mean and, where a group has at most 32 draws (B 32: the main path), writes
+// the groups back alone, its barriers __syncwarp; a larger group takes the
+// whole block.
 #include <algorithm>
 #include <atomic>
+#include <initializer_list>
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "writeback.cuh"
 
 namespace {
 
@@ -98,7 +115,10 @@ __device__ __forceinline__ void wait_sent(uint64_t* bar) {
     } while (!done);
 }
 
-// weight null: the per-sample mode; else the weighted mode, the grid one cluster
+// weight null: the per-sample mode; else the weighted mode, the grid one
+// cluster; kFold: K6 folded in (weighted mode only), its own instantiation,
+// so the other modes run the code they ran before
+template <bool kFold>
 __global__ void __launch_bounds__(kMaxThreads) quantile_huber_kernel(
     const float* __restrict__ online,  // [B, N]
     const float* __restrict__ taus,    // [B, N]
@@ -109,21 +129,37 @@ __global__ void __launch_bounds__(kMaxThreads) quantile_huber_kernel(
     float* __restrict__ td_abs,        // [B]
     float* __restrict__ grad,          // [B, N]
     float* __restrict__ mean,          // [1] (weighted)
-    int B, int N, int NT, int S, float kappa) {
+    int B, int N, int NT, int S, float kappa,
+    float* __restrict__ ring,          // [N_ring] the device ring's priorities, or null
+    float* __restrict__ max_priority,  // [] (ring)
+    const int* __restrict__ ids,       // [G, B / G] (ring)
+    int n_ring, int G, float eps, float omega) {
     extern __shared__ __align__(16) float smem[];
     __shared__ uint64_t arrived;        // block 0's barrier: every block's w * loss[b] landed
     const bool weighted = weight != nullptr;
+    constexpr bool fold = kFold;
     float* tgt = smem;                  // [S, NT]
     float* on = tgt + S * NT;           // [S, N]
     float* tau_s = on + S * N;          // [S, N]
     float* row_loss = tau_s + S * N;    // [S, N]
     float* row_abs = row_loss + S * N;  // [S, N]
     float* wl = row_abs + S * N;        // [B] in block 0 (weighted): w[b] * loss[b]
+    float* ta = wl + B;                 // [B] in block 0 (fold): the priorities
+    int* sid = reinterpret_cast<int*>(ta + B);  // [B] in block 0 (fold): the ids
     const int warps = blockDim.x / 32;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int b0 = blockIdx.x * S;
     const int count = min(S, B - b0);
-    // the block's inputs first, every load in flight at once
+    // fold: block 0 issues its loads of group 0's ids and max_priority first
+    const int per_group = fold ? B / G : 0;
+    const bool fold0 = fold && blockIdx.x == 0;
+    int slot0 = -1;
+    float max0 = 0.f;
+    if (fold0) {
+        if (threadIdx.x < per_group) slot0 = ids[threadIdx.x];
+        if (threadIdx.x == 0) max0 = *max_priority;
+    }
+    // the block's inputs, every load in flight at once
 #pragma unroll 4
     for (int k = threadIdx.x; k < count * NT; k += blockDim.x) tgt[k] = target[(size_t)b0 * NT + k];
 #pragma unroll 4
@@ -131,11 +167,19 @@ __global__ void __launch_bounds__(kMaxThreads) quantile_huber_kernel(
         on[k] = online[(size_t)b0 * N + k];
         tau_s[k] = taus[(size_t)b0 * N + k];
     }
+    // fold: then every id into shared memory and group 0's fence values, read
+    // while the pairs run
+    float cur0 = 0.f;
+    if (fold0) {
+        for (int b = threadIdx.x; b < B; b += blockDim.x) sid[b] = ids[b];
+        if (slot0 >= 0 && slot0 < n_ring) cur0 = ring[slot0];
+    }
     if (weighted) {
         if (blockIdx.x == 0 && threadIdx.x == 0) {
             hopper::mbar_init(&arrived, 1);
             hopper::mbar_init_fence();
-            hopper::mbar_expect_tx(&arrived, (uint32_t)(B - count) * 4u);  // the other blocks
+            // the other blocks' w * loss[b] (and td_abs[b] with the fold)
+            hopper::mbar_expect_tx(&arrived, (uint32_t)(B - count) * (fold ? 8u : 4u));
         }
         __syncwarp();
         cluster_arrive();  // block 0's barrier is set; the wait comes before the sends
@@ -187,27 +231,66 @@ __global__ void __launch_bounds__(kMaxThreads) quantile_huber_kernel(
         a = butterfly<32>(a);
         if (lane == 0) {
             const int b = b0 + s;
+            const float t = a / ((float)N * (float)NT);
             per_sample[b] = l;
-            td_abs[b] = a / ((float)N * (float)NT);
+            td_abs[b] = t;
             if (weighted) {
                 const float w = scale != nullptr ? __fmul_rn(weight[b], scale[b]) : weight[b];
                 const float v = __fmul_rn(w, l);
-                if (blockIdx.x == 0)
+                const float pri = fold ? port::priority_of(t + eps, omega) : 0.f;
+                if (blockIdx.x == 0) {
                     wl[b] = v;
-                else
-                    send(peer(hopper::smem_u32(wl + b), 0), v, peer(hopper::smem_u32(&arrived), 0));
+                    if (fold) ta[b] = pri;
+                } else {
+                    const uint32_t bar = peer(hopper::smem_u32(&arrived), 0);
+                    send(peer(hopper::smem_u32(wl + b), 0), v, bar);
+                    if (fold) send(peer(hopper::smem_u32(ta + b), 0), pri, bar);
+                }
             }
         }
     }
     // block 0 sums its own and what every other block sent, in the order of b
     if (!weighted || blockIdx.x != 0) return;
     __syncthreads();
-    if (warp != 0) return;
+    // warp 0 takes the mean (and the fold's maximum) and the scatter of
+    // groups of at most 32 draws; larger groups take the whole block
+    const bool one_warp = per_group <= 32;
+    if (one_warp && warp != 0) return;
     wait_sent(&arrived);
-    float acc = 0.f;
-    for (int b = lane; b < B; b += 32) acc += wl[b];
-    acc = butterfly<32>(acc);
-    if (lane == 0) *mean = acc / (float)B;
+    if (warp == 0) {
+        float acc = 0.f, m = -INFINITY;
+        for (int b = lane; b < B; b += 32) {
+            acc += wl[b];
+            if (fold) m = port::nan_max(m, ta[b]);
+        }
+        acc = butterfly<32>(acc);
+        if (lane == 0) *mean = acc / (float)B;
+        if (fold) {
+#pragma unroll
+            for (int off = 16; off > 0; off /= 2)
+                m = port::nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
+            if (lane == 0) *max_priority = port::nan_max(max0, m);  // K6's, before the fence
+        }
+    }
+    if (!fold) return;
+    // K6: each group's fenced scatter in order
+    const int k = threadIdx.x;
+    const auto sync = [one_warp] {
+        if (one_warp)
+            __syncwarp();
+        else
+            __syncthreads();
+    };
+    for (int g = 0; g < G; ++g) {
+        const int i = g * per_group + k;
+        int slot[1] = {k < per_group ? (g == 0 ? slot0 : sid[i]) : -1};
+        bool inside[1] = {k < per_group && slot[0] >= 0 && slot[0] < n_ring};
+        float pri[1] = {k < per_group ? ta[i] : 0.f};
+        // group 0's fence was read at entry; a later group's reads what the earlier ones left
+        float cur[1] = {inside[0] ? (g == 0 ? cur0 : ring[slot[0]]) : 0.f};
+        port::scatter_group<1>(sid + g * per_group, per_group, slot, inside, pri, cur, true,
+                               [&](int s, float v) { ring[s] = v; }, sync);
+    }
 }
 
 std::atomic<unsigned long long> ready{0};
@@ -220,13 +303,16 @@ cudaError_t prepare() {
     if (err != cudaSuccess) return err;
     const unsigned long long bit = 1ull << (device & 63);
     if (ready.load() & bit) return cudaSuccess;
-    const void* kernel = (const void*)quantile_huber_kernel;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)kMaxShared);
-    if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err == cudaSuccess) ready.fetch_or(bit);
-    return err;
+    for (const void* kernel : {(const void*)quantile_huber_kernel<false>,
+                               (const void*)quantile_huber_kernel<true>}) {
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)kMaxShared);
+        if (err == cudaSuccess)
+            err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (err != cudaSuccess) return err;
+    }
+    ready.fetch_or(bit);
+    return cudaSuccess;
 }
 
 }  // namespace
@@ -234,23 +320,31 @@ cudaError_t prepare() {
 // K1 over S samples a block (kernels/quantile_huber.py: loss_plan), ceil(B / S)
 // blocks, a warp for each 4 of a block's S * N rows up to 32 warps.  weight
 // null: the per-sample mode.  Else the weighted mean too, the blocks one
-// cluster (at most 16).
+// cluster (at most 16); and with ring (p [n_ring] f32, max_priority [] f32,
+// ids [G, B / G] int32, updated in place) K6's write-back of td_abs.
 PORT_API int port_quantile_huber(const void* online, const void* taus, const void* target,
                                  const void* weight, const void* scale, void* per_sample,
                                  void* td_abs, void* grad, void* mean, int B, int N, int NT,
-                                 int S, float kappa, void* stream) {
+                                 int S, float kappa, void* ring, void* max_priority,
+                                 const void* ids, int n_ring, int G, float eps, float omega,
+                                 void* stream) {
     const bool weighted = weight != nullptr;
-    const size_t smem = (size_t)(S * NT + 4 * S * N + (weighted ? B : 0)) * sizeof(float);
+    const bool fold = ring != nullptr;
+    const size_t smem =
+        (size_t)(S * NT + 4 * S * N + (weighted ? B : 0) + (fold ? 2 * B : 0)) * sizeof(float);
     const long long blocks = B >= 1 && S >= 1 ? ((long long)B + S - 1) / S : 0;
+    const long long warps = (long long)S * ((N + kRows - 1) / kRows);
+    const int threads = 32 * (int)std::min<long long>(warps, kMaxThreads / 32);
     if (B < 1 || N < 1 || NT < 1 || S < 1 || smem > kMaxShared ||
-        (weighted && (blocks > kMaxCluster || mean == nullptr)))
+        (weighted && (blocks > kMaxCluster || mean == nullptr)) ||
+        (fold && (!weighted || max_priority == nullptr || ids == nullptr || n_ring < 1 ||
+                  G < 1 || B % G != 0 || B / G > threads)))
         return (int)cudaErrorInvalidValue;
     cudaError_t err = prepare();
     if (err != cudaSuccess) return (int)err;
-    const long long warps = (long long)S * ((N + kRows - 1) / kRows);
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3((unsigned)blocks, 1, 1);
-    cfg.blockDim = dim3(32 * (int)std::min<long long>(warps, kMaxThreads / 32), 1, 1);
+    cfg.blockDim = dim3(threads, 1, 1);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = static_cast<cudaStream_t>(stream);
     cudaLaunchAttribute attr[1];
@@ -260,12 +354,14 @@ PORT_API int port_quantile_huber(const void* online, const void* taus, const voi
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, quantile_huber_kernel, static_cast<const float*>(online),
+    err = cudaLaunchKernelEx(&cfg, fold ? quantile_huber_kernel<true> : quantile_huber_kernel<false>,
+                             static_cast<const float*>(online),
                              static_cast<const float*>(taus), static_cast<const float*>(target),
                              static_cast<const float*>(weight), static_cast<const float*>(scale),
                              static_cast<float*>(per_sample), static_cast<float*>(td_abs),
                              static_cast<float*>(grad), static_cast<float*>(mean), B, N, NT, S,
-                             kappa);
+                             kappa, static_cast<float*>(ring), static_cast<float*>(max_priority),
+                             static_cast<const int*>(ids), n_ring, G, eps, omega);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }

@@ -46,7 +46,31 @@
 //      draws one block computes the total only.
 // What holds it back: two launches and the latency of each block's chain of
 // L2 reads and barriers, not bandwidth.
+//
+// The queue mode (port_replay_draw_queue, K5f's only): K6f folded into launch
+// 1.  The sample frontier queues its mirror updates in program order
+// (writeback.cuh: MirrorQueue, staged segments and write-back batches) and
+// hands them to its next draw.  Each chunk block finds, from one pass over
+// the queue's entries (thread t takes entry t of 8 segments at a time, their
+// ids loaded together and with the chunk, the descriptors read at
+// compile-time indices; entries past the block's 256 in a second pass),
+// which segments touch its chunk,
+// and lists those entries (the hits) in shared memory; a block with none
+// sums as before.  A block with some copies its chunk into shared memory,
+// applies those segments there in order (each write-back batch fenced on
+// the values from before the batch, its last entry of a slot written),
+// writes each changed slot to p, then sums the chunk: from its hits alone
+// where it has at most 128 (apply_hits), else through apply_segment
+// (writeback.cuh).  The applies are calls of their own and the kernel is
+// held to 32 registers, so that 8 blocks fit an SM and the 977 chunks of a
+// 1,000,000-slot mirror run in one wave (at 48 registers, 5 blocks an SM, they
+// would take two).  A
+// slot lies in one chunk, so the entries of a slot keep their order and
+// every fence reads what the segments before it left: the mirror equals the
+// one the segments give applied one by one (kernels/frontier_writeback.py:
+// frontier_apply_plain), and the draw reads it.
 #include "common.cuh"
+#include "writeback.cuh"
 
 namespace {
 
@@ -121,6 +145,149 @@ __global__ void __launch_bounds__(THREADS) chunk_sum_kernel(const float* __restr
     __shared__ Shared sh;
     float v[PER_THREAD], L, W;
     load4(p, n, blockIdx.x, v);
+    tile_scan(v, L, W, sh);
+    if (threadIdx.x == THREADS - 1) partial[blockIdx.x] = W + (L + v[PER_THREAD - 1]);
+}
+
+// A chunk of the mirror held in shared memory; a write goes to p too.
+struct ChunkSlots {
+    float* p;
+    float* chunk;
+    int lo, hi;
+    __device__ bool inside(int s) const { return s >= lo && s < hi; }
+    __device__ float load(int s) const { return chunk[s - lo]; }
+    __device__ void store(int s, float v) const {
+        chunk[s - lo] = v;
+        p[s] = v;
+    }
+};
+
+// The segments in `segs` into the block's chunk [lo, hi) held in shared
+// memory (and p), in order.
+__device__ __noinline__ void apply_touched(float* p, float* chunk, int lo, int hi,
+                                           const port::QueueSegment* seg, int segments,
+                                           float eps, float omega, unsigned segs) {
+    const ChunkSlots slots{p, chunk, lo, hi};
+    for (int s = 0; s < segments; ++s)
+        if (segs >> s & 1u) port::apply_segment(seg[s], eps, omega, slots);
+}
+
+constexpr int SCAN_SEGMENTS = 8;  // segments whose ids a thread loads at once
+constexpr int HITS = 128;         // a chunk's queued entries applied from shared memory
+
+// The hits (segment | kind << 16, entry, slot, value bits) of a chunk, each
+// held by one thread, applied to the chunk in shared memory (and p), the
+// touched segments in order: a staged entry sets its slot; in a write-back batch the
+// last entry of a slot is found by an atomic maximum of (segment, entry) in
+// owner (each segment's keys above the earlier ones', so nothing is reset),
+// every entry reads its fence before the batch writes, and the last one
+// writes.  No device-memory load on the way (the general path,
+// apply_touched, reads each segment's ids and values again: ~2,000 cycles
+// a batch, measured).
+__device__ __noinline__ void apply_hits(float* p, float* chunk, int* owner, const int4* hits,
+                                        int nhits, int lo, int segments, float eps, float omega,
+                                        unsigned segs, unsigned staged) {
+    const int4 hit = (int)threadIdx.x < nhits ? hits[threadIdx.x] : make_int4(-1, 0, 0, 0);
+    const int local = hit.z - lo;
+    for (int s = 0; s < segments; ++s) {
+        if (!(segs >> s & 1u)) continue;
+        const bool mine = (hit.x & 0xffff) == s;
+        if (staged >> s & 1u) {
+            if (mine) {
+                chunk[local] = __int_as_float(hit.w);
+                p[hit.z] = __int_as_float(hit.w);
+            }
+            __syncthreads();
+            continue;
+        }
+        const int key = (s << 16) | hit.y;
+        float cur = 0.f;
+        if (mine) {
+            atomicMax(owner + local, key);
+            cur = chunk[local];  // the fence: the slot before this batch
+        }
+        __syncthreads();
+        if (mine && owner[local] == key) {
+            const float w = cur > 0.f ? port::priority_of(fabsf(__int_as_float(hit.w)) + eps, omega)
+                                      : 0.f;
+            chunk[local] = w;
+            p[hit.z] = w;
+        }
+        __syncthreads();
+    }
+}
+
+// Launch 1 with the queue applied first (see the head of this file).
+__global__ void __launch_bounds__(THREADS, 8) chunk_sum_queue_kernel(
+    float* __restrict__ p, int n, float* __restrict__ partial,
+    const __grid_constant__ port::MirrorQueue q) {
+    __shared__ Shared sh;
+    __shared__ float chunk[CHUNK];
+    __shared__ unsigned touched, staged;
+    __shared__ port::QueueSegment seg[port::kQueueSegments];  // apply_touched's
+    __shared__ int hit_n;
+    __shared__ int4 hits[HITS];
+    __shared__ int owner[CHUNK];  // apply_hits: a slot's last (segment, entry)
+    float v[PER_THREAD], L, W;
+    load4(p, n, blockIdx.x, v);
+    const int lo = blockIdx.x * CHUNK, hi = min(lo + CHUNK, n);
+    if (threadIdx.x == 0) touched = 0u, staged = 0u, hit_n = 0;
+    __syncthreads();  // touched and hit_n are zeroed
+    // the segments with an entry in this chunk, and those entries (the hits);
+    // every descriptor read at a compile-time index (writeback.cuh: copy_segments)
+    const int segments = q.segments, t = threadIdx.x;
+    unsigned mine = 0u, mine_staged = 0u;
+    const auto hit = [&](int s, int kind, const float* vals, int k, int slot) {
+        mine |= 1u << s;
+        mine_staged |= (kind == port::kStaged ? 1u : 0u) << s;
+        const int at = atomicAdd(&hit_n, 1);
+        if (at < HITS) hits[at] = make_int4(s | kind << 16, k, slot, __float_as_int(vals[k]));
+    };
+#pragma unroll
+    for (int s0 = 0; s0 < port::kQueueSegments; s0 += SCAN_SEGMENTS) {
+        if (s0 >= segments) break;
+        int sl[SCAN_SEGMENTS];
+#pragma unroll
+        for (int i = 0; i < SCAN_SEGMENTS; ++i) {
+            const port::QueueSegment& g = q.seg[s0 + i];
+            sl[i] = -1;
+            if (s0 + i < segments && t < g.n) sl[i] = g.ids[t];
+        }
+#pragma unroll
+        for (int i = 0; i < SCAN_SEGMENTS; ++i)
+            if (sl[i] >= lo && sl[i] < hi)
+                hit(s0 + i, q.seg[s0 + i].kind, q.seg[s0 + i].vals, t, sl[i]);
+    }
+    if (q.longest > THREADS) {  // entries past the block's first pass
+        for (int s = 0; s < segments; ++s)
+            for (int k = t + THREADS; k < q.seg[s].n; k += THREADS) {
+                const int slot = q.seg[s].ids[k];
+                if (slot >= lo && slot < hi) hit(s, q.seg[s].kind, q.seg[s].vals, k, slot);
+            }
+    }
+    if (mine) {
+        atomicOr(&touched, mine);
+        atomicOr(&staged, mine_staged);
+    }
+    __syncthreads();
+    const unsigned segs = touched;
+    if (segs) {
+#pragma unroll
+        for (int i = 0; i < PER_THREAD; ++i) {
+            chunk[threadIdx.x * PER_THREAD + i] = v[i];
+            owner[threadIdx.x * PER_THREAD + i] = -1;
+        }
+        __syncthreads();
+        if (hit_n <= HITS) {
+            apply_hits(p, chunk, owner, hits, hit_n, lo, segments, q.eps, q.omega, segs, staged);
+        } else {
+            port::copy_segments(q, seg);
+            __syncthreads();
+            apply_touched(p, chunk, lo, hi, seg, segments, q.eps, q.omega, segs);
+        }
+#pragma unroll
+        for (int i = 0; i < PER_THREAD; ++i) v[i] = chunk[threadIdx.x * PER_THREAD + i];
+    }
     tile_scan(v, L, W, sh);
     if (threadIdx.x == THREADS - 1) partial[blockIdx.x] = W + (L + v[PER_THREAD - 1]);
 }
@@ -205,15 +372,24 @@ __global__ void __launch_bounds__(THREADS) search_kernel(
 }  // namespace
 
 // p [n] f32, uniforms [draws] f32 (draws = G * B, B = batch), partial
-// [nchunks] f32 scratch (the chunk sums), idx [draws] int32, total [] f32.
-// draws == 0 computes the total only.
-PORT_API int port_replay_draw(const void* p, const void* uniforms, void* partial, void* idx,
-                              void* total, int n, int draws, int B, void* stream) {
+// [nchunks] f32 scratch (the chunk sums), idx [draws] int32, total [] f32;
+// queue: null, or a host MirrorQueue applied to p before the sums.  draws
+// == 0 computes the total only.
+PORT_API int port_replay_draw_queue(void* p, const void* uniforms, void* partial, void* idx,
+                                    void* total, int n, int draws, int B, const void* queue,
+                                    void* stream) {
     if (n <= 0 || draws < 0 || (draws > 0 && B < 1)) return (int)cudaErrorInvalidValue;
+    const port::MirrorQueue* q = static_cast<const port::MirrorQueue*>(queue);
+    if (q != nullptr && (q->segments < 1 || q->segments > port::kQueueSegments))
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int nchunks = (n + CHUNK - 1) / CHUNK;
-    chunk_sum_kernel<<<nchunks, THREADS, 0, s>>>(static_cast<const float*>(p), n,
-                                                 static_cast<float*>(partial));
+    if (q == nullptr)
+        chunk_sum_kernel<<<nchunks, THREADS, 0, s>>>(static_cast<const float*>(p), n,
+                                                     static_cast<float*>(partial));
+    else
+        chunk_sum_queue_kernel<<<nchunks, THREADS, 0, s>>>(static_cast<float*>(p), n,
+                                                           static_cast<float*>(partial), *q);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     search_kernel<<<draws > 0 ? draws : 1, THREADS, 0, s>>>(
@@ -221,4 +397,11 @@ PORT_API int port_replay_draw(const void* p, const void* uniforms, void* partial
         static_cast<const float*>(uniforms), draws, B, static_cast<int*>(idx),
         static_cast<float*>(total));
     return (int)cudaGetLastError();
+}
+
+// K5: the device ring's draw, no queue.
+PORT_API int port_replay_draw(const void* p, const void* uniforms, void* partial, void* idx,
+                              void* total, int n, int draws, int B, void* stream) {
+    return port_replay_draw_queue(const_cast<void*>(p), uniforms, partial, idx, total, n, draws,
+                                  B, nullptr, stream);
 }

@@ -21,7 +21,10 @@
 // Bound on the H100: a few KB at G*B = 128, far under a microsecond: the
 // kernel is launch-bound.  Design: one block, one thread per draw of a group,
 // a barrier between the fence reads and the writes of each group; the
-// maximum is a block reduction, not an atomic.
+// maximum is a block reduction, not an atomic.  The fenced scatter lives in
+// writeback.cuh (scatter_group), which K1's weighted launch also runs: the
+// fused Anakin step folds this write-back into K1 (csrc/quantile_huber.cu),
+// so its own launch serves update_priorities and update_priorities_grouped.
 //
 // K6s, the write-back of R2D2's sequence replay (DeviceSequenceReplay
 // .update_priorities and update_priorities_grouped,
@@ -30,55 +33,35 @@
 // set, with the same order (the last group, and in a group the last
 // occurrence of an id, wins) and the same running maximum.  The sequence ring
 // never invalidates a slot, so it has nothing to fence.
-#include <math.h>
-
 #include "common.cuh"
+#include "writeback.cuh"
 
 namespace {
 
 constexpr int MAX_THREADS = 1024;
 
-__device__ __forceinline__ float nan_max(float a, float b) {
-    return (isnan(a) || isnan(b)) ? NAN : fmaxf(a, b);
-}
-
-__device__ __forceinline__ float priority_of(float td, float eps, float omega) {
-    return omega == 0.5f ? sqrtf(td + eps) : powf(td + eps, omega);
-}
-
 __global__ void __launch_bounds__(MAX_THREADS) writeback_kernel(
     float* __restrict__ p, float* __restrict__ max_priority, const int* __restrict__ idx,
     const float* __restrict__ td, int N, int G, int B, float eps, float omega, int fence) {
-    __shared__ float warp_max[MAX_THREADS / 32];
+    __shared__ float scratch[33];
     const int k = threadIdx.x;
     float m = -INFINITY;
     for (int g = 0; g < G; ++g) {
         const int i = g * B + k;
-        int slot = 0;
-        float write = 0.f;
-        bool last = false;
+        int slot[1] = {k < B ? idx[i] : -1};
+        bool inside[1] = {k < B && slot[0] >= 0 && slot[0] < N};
+        float pri[1] = {0.f}, cur[1] = {0.f};
         if (k < B) {
-            slot = idx[i];
-            const float pri = priority_of(td[i], eps, omega);
-            m = nan_max(m, pri);
-            const bool inside = slot >= 0 && slot < N;
-            // the fence reads what the earlier groups left
-            write = !fence || (inside && p[slot] > 0.f) ? pri : 0.f;
-            last = inside;
-            for (int j = k + 1; j < B; ++j) last = last && idx[g * B + j] != slot;
+            pri[0] = port::priority_of(td[i] + eps, omega);
+            m = port::nan_max(m, pri[0]);
         }
-        __syncthreads();  // every fence read of this group before its writes
-        if (last) p[slot] = write;
-        __syncthreads();  // the writes before the next group's reads
+        // the fence reads what the earlier groups left
+        if (fence && inside[0]) cur[0] = p[slot[0]];
+        port::scatter_group<1>(idx + g * B, B, slot, inside, pri, cur, fence != 0,
+                               [&](int s, float v) { p[s] = v; });
     }
-    for (int d = 16; d > 0; d >>= 1) m = nan_max(m, __shfl_down_sync(0xffffffffu, m, d));
-    if ((k & 31) == 0) warp_max[k >> 5] = m;
-    __syncthreads();
-    if (k == 0) {
-        float all = *max_priority;
-        for (int w = 0; w < (int)(blockDim.x >> 5); ++w) all = nan_max(all, warp_max[w]);
-        *max_priority = all;
-    }
+    m = port::block_nan_max(m, scratch);
+    if (k == 0) *max_priority = port::nan_max(*max_priority, m);
 }
 
 int launch(void* p, void* max_priority, const void* idx, const void* td, int N, int G, int B,

@@ -22,11 +22,13 @@ and which tests and ``chip_smoke.py`` hold the kernel against.
     K4m dueling_head.dueling_head(game=, mask=)  K4 with the per-game action mask
     K4l dueling_head.dueling_logp              log-softmax of the (masked) q at taken actions
     K5  replay_draw.replay_draw                stratified proportional PER draw
-    K6  replay_writeback.replay_writeback      fenced priority write-back
+    K6  replay_writeback.replay_writeback      fenced priority write-back (folded into K1's
+                                               weighted mode in the fused Anakin step)
     K7  replay_append.replay_append            one append tick into the replay ring
     K8  replay_assemble.replay_assemble        n-step assembly, stack gathers, IS weights
     K5f frontier_draw.frontier_draw            the sample frontier's draw with IS weights
-    K6f frontier_writeback.frontier_writeback  the sample frontier's fenced write-back
+    K6f frontier_writeback.frontier_apply      the sample frontier's queue of staged appends and
+                                               fenced write-backs (folded into K5f's draw)
     K10q quantize.quantize                     int8 / fp8 quantization of every parameter
     K10g noisy_linear_q.noisy_linear_q         K3 on int8 / fp8 weights, dequantized in the tile load
     K10d dequantize.dequantize                 the conv and embedding weights of the quantized path
@@ -47,9 +49,10 @@ module (``TauEmbedFn``, ``NoisyLinearFn``, ``DuelingGatherFn``,
 learners call; ``learn_loss.LearnLossFn`` chains K4's heads mode, K1's
 weighted mode and K4-bwd's loss mode for the IQN learn step.
 
-``launches`` counts kernel launches by name; ``reset_launches`` zeroes it.
+``launches`` counts kernel launches by name, ``folded`` the runs of K6 and
+K6f folded into K1's and K5f's launches; ``reset_launches`` zeroes both.
 """
 
-from rainbow_iqn_apex_tpu_torch.kernels.build import launches, reset_launches
+from rainbow_iqn_apex_tpu_torch.kernels.build import folded, launches, reset_launches
 
-__all__ = ["launches", "reset_launches"]
+__all__ = ["folded", "launches", "reset_launches"]

@@ -10,7 +10,9 @@ module imports on a machine without ``nvcc`` or a card, where only the plain
 twins run.
 
 ``launches`` counts kernel launches by kernel name.  A wrapper adds one
-right after its kernel launched, and nowhere else.
+right after its kernel launched, and nowhere else.  ``folded`` counts the
+runs of a kernel's work folded into another kernel's launch (K6 in K1's
+weighted launch, K6f's queue in K5f's), which count as that launch only.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ SOURCES = ("tau_embed.cu", "noisy_linear.cu", "dueling_head.cu", "quantile_huber
            "frontier_writeback.cu", "quantize.cu", "noisy_linear_q.cu", "dequantize.cu", "lstm.cu",
            "r2d2_td.cu", "seq_stack.cu", "seq_append.cu", "seq_draw.cu", "seq_assemble.cu",
            "device_games.cu")
-HEADERS = ("common.cuh", "hopper.cuh", "threefry.cuh")
+HEADERS = ("common.cuh", "hopper.cuh", "threefry.cuh", "writeback.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -73,14 +75,23 @@ launches: Dict[str, int] = {
     "K12_device_games": 0,
 }
 
+# kernel name -> runs inside another kernel's launch (the host of the fold)
+folded: Dict[str, int] = {
+    "K6_replay_writeback": 0,  # in K1_quantile_huber's weighted launch
+    "K6f_frontier_writeback": 0,  # in K5f_frontier_draw's first launch
+}
+FOLDED_INTO = {"K6_replay_writeback": "K1_quantile_huber",
+               "K6f_frontier_writeback": "K5f_frontier_draw"}
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_log: List[str] = []  # nvcc output of the build this process ran
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, folded):
+        for name in counts:
+            counts[name] = 0
 
 
 def nvcc_path() -> str:
@@ -155,12 +166,15 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def check_launch(name: str, code: int) -> None:
-    """Raise if a C entry reported a launch error; else count the launch."""
+def check_launch(name: str, code: int, fold: Optional[str] = None) -> None:
+    """Raise if a C entry reported a launch error; else count the launch
+    (and, with ``fold``, one run of that kernel's work inside it)."""
     if code != 0:
         msg = library().port_error_string(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {code} ({msg})")
     launches[name] += 1
+    if fold is not None:
+        folded[fold] += 1
 
 
 def stream_of(device: torch.device) -> ctypes.c_void_p:

@@ -19,6 +19,12 @@ Bound on the H100: one read of the mirror, 4 MB at N = 1,000,000.  The
 kernel (``csrc/frontier_draw.cu``) runs K5's two launches (``replay_draw.py``)
 and one epilogue block per row.
 
+``queue`` (a ``frontier_writeback.MirrorQueue``, the frontier's staged
+appends and write-backs since its last draw) is applied to the mirror first,
+in place: on CUDA inside K5's first launch, each chunk block applying the
+segments that touch its chunk before it sums it (K6f folded into K5f, no
+launch of its own); the twin applies it with ``frontier_apply_plain``.
+
 ``frontier_draw`` runs the kernel for CUDA tensors and
 ``frontier_draw_plain`` for CPU tensors.
 """
@@ -27,12 +33,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from rainbow_iqn_apex_tpu_torch.kernels import build
+from rainbow_iqn_apex_tpu_torch.kernels.frontier_writeback import (
+    NAME as K6F_NAME,
+    MirrorQueue,
+    frontier_apply_plain,
+)
 from rainbow_iqn_apex_tpu_torch.kernels.replay_draw import CHUNK, replay_draw_plain
 
 NAME = "K5f_frontier_draw"
@@ -46,9 +57,13 @@ def _f32(x: float) -> float:
 
 
 def frontier_draw_plain(mirror: torch.Tensor, uniforms: torch.Tensor, beta: float,
-                        n_items: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                        n_items: float, queue: Optional[MirrorQueue] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """mirror [N] f32, uniforms [G, B] f32 -> (idx [G, B] int32, prob, weight
-    [G, B] f32): cumsum, searchsorted, gather, pow, amax."""
+    [G, B] f32): the queue's segments into the mirror, then cumsum,
+    searchsorted, gather, pow, amax."""
+    if queue is not None:
+        frontier_apply_plain(mirror, queue)
     idx, total = replay_draw_plain(mirror, uniforms)
     prob = torch.clamp_min(mirror[idx.long()] / torch.clamp_min(total, 1e-12), 1e-12)
     w = torch.pow(_f32(max(n_items, 1.0)) * prob, -_f32(beta))
@@ -59,16 +74,19 @@ def frontier_draw_plain(mirror: torch.Tensor, uniforms: torch.Tensor, beta: floa
 def _entry():
     fn = build.library().port_frontier_draw
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return fn
 
 
-def frontier_draw(mirror: torch.Tensor, uniforms: torch.Tensor, beta: float, n_items: float
+def frontier_draw(mirror: torch.Tensor, uniforms: torch.Tensor, beta: float, n_items: float,
+                  queue: Optional[MirrorQueue] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K5f on ``mirror.device``: the kernel on CUDA, the plain twin on the CPU."""
+    """K5f on ``mirror.device``: the kernel on CUDA, the plain twin on the
+    CPU.  A non-empty ``queue`` is applied to the mirror first (and left as
+    it was: the caller clears it)."""
     if mirror.device.type == "cpu":
-        return frontier_draw_plain(mirror, uniforms, beta, n_items)
+        return frontier_draw_plain(mirror, uniforms, beta, n_items, queue)
     if mirror.dtype != torch.float32 or uniforms.dtype != torch.float32:
         raise TypeError("K5f takes an fp32 mirror and fp32 uniforms")
     if mirror.dim() != 1 or uniforms.dim() != 2:
@@ -84,6 +102,9 @@ def frontier_draw(mirror: torch.Tensor, uniforms: torch.Tensor, beta: float, n_i
             raise ValueError("K5f inputs must be contiguous on one device")
     if mirror.data_ptr() % 16:
         raise ValueError("K5f reads the mirror as 16-byte vectors: align it")
+    if queue is not None and not len(queue):
+        queue = None
+    q = None if queue is None else queue.struct(mirror.device)
     chunks = -(-n // CHUNK)
     dev = mirror.device
     chunk_sums = torch.empty((chunks,), dtype=torch.float32, device=dev)
@@ -95,7 +116,7 @@ def frontier_draw(mirror: torch.Tensor, uniforms: torch.Tensor, beta: float, n_i
         code = _entry()(
             build.ptr(mirror), build.ptr(uniforms), build.ptr(chunk_sums), build.ptr(idx),
             build.ptr(total), build.ptr(prob), build.ptr(weight), n, groups, batch, _f32(beta),
-            _f32(max(n_items, 1.0)),
+            _f32(max(n_items, 1.0)), None if q is None else ctypes.byref(q),
             build.stream_of(dev))
-    build.check_launch(NAME, code)
+    build.check_launch(NAME, code, fold=None if queue is None else K6F_NAME)
     return idx, prob, weight

@@ -23,7 +23,10 @@ Two modes of one kernel (``csrc/quantile_huber.cu``):
   IS-weighted mean, mean_b(w * loss_b) with w = weight (* weight_scale, the
   reuse passes' clipped ratio, formed first), ``rainbow_iqn_apex_tpu/ops/
   learn.py:158-162``.  ``kernels/learn_loss.py`` chains it with K4's heads
-  mode and K4-bwd's loss mode.
+  mode and K4-bwd's loss mode.  Given a ``replay_writeback.Writeback``
+  target (the fused Anakin step's device ring and draws), the same launch
+  also does K6's fenced write-back of its td_abs into the ring, so the step
+  launches no K6; the twin runs K1's, then K6's.
 
 Bound on the H100: ~24 KB of inputs at B = 32, N = N' = 64, under 0.1 us of
 bytes or flops, so the launch is the cost.  ``loss_plan`` gives the launch:
@@ -46,6 +49,11 @@ from typing import Optional, Tuple
 import torch
 
 from rainbow_iqn_apex_tpu_torch.kernels import build
+from rainbow_iqn_apex_tpu_torch.kernels.replay_writeback import (
+    NAME as K6_NAME,
+    Writeback,
+    replay_writeback_plain,
+)
 
 NAME = "K1_quantile_huber"
 SOURCE = "rainbow_iqn_apex_tpu_torch/csrc/quantile_huber.cu"
@@ -69,15 +77,16 @@ def quantile_huber_plain(online: torch.Tensor, taus: torch.Tensor, target: torch
     return loss, td_abs, grad
 
 
-def loss_plan(batch: int, n: int, n_target: int) -> int:
+def loss_plan(batch: int, n: int, n_target: int, fold: bool = False) -> int:
     """Samples a block of K1's weighted mode: ceil(B / 16), so its
     ceil(B / S) blocks make one cluster of at most 16.  Raises where a
-    block's inputs and row sums, with the batch's w * loss in block 0,
-    pass the shared memory a block can take."""
+    block's inputs and row sums, with the batch's w * loss in block 0 (and,
+    with K6 folded in, its td_abs and ids), pass the shared memory a block
+    can take."""
     if batch < 1 or n < 1 or n_target < 1:
         raise ValueError(f"K1 takes B, N, N' >= 1, got {batch}, {n}, {n_target}")
     samples = -(-batch // MAX_CLUSTER)
-    if 4 * (samples * (n_target + 4 * n) + batch) > SMEM_LIMIT:
+    if 4 * (samples * (n_target + 4 * n) + batch * (3 if fold else 1)) > SMEM_LIMIT:
         raise ValueError(f"K1 keeps {samples} samples' targets, quantiles, taus and row sums in "
                          f"{SMEM_LIMIT} bytes of shared memory")
     return samples
@@ -86,14 +95,35 @@ def loss_plan(batch: int, n: int, n_target: int) -> int:
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = build.library().port_quantile_huber
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float]
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(online, taus, target, kappa, weight, weight_scale):
-    """Checks and one launch of K1; returns (per_sample, td_abs, grad, mean
-    or None)."""
+def _check_writeback(wb: Writeback, batch: int, device: torch.device) -> int:
+    """The groups of a fold's write-back target, or a raise."""
+    if wb.idx.dim() != 2 or wb.idx.numel() != batch:
+        raise ValueError(f"K6 in K1 takes idx [G, B / G] over the batch of {batch}, got "
+                         f"{tuple(wb.idx.shape)}")
+    groups, per_group = wb.idx.shape
+    if not 1 <= per_group <= 1024:
+        raise ValueError(f"K6 in K1 writes 1 <= B / G <= 1024 draws a group, got {per_group}")
+    if (wb.priority.dtype, wb.max_priority.dtype, wb.idx.dtype) != (
+            torch.float32, torch.float32, torch.int32):
+        raise TypeError("K6 in K1 takes fp32 priorities and max_priority, int32 idx")
+    if wb.priority.dim() != 1 or wb.max_priority.dim() != 0:
+        raise ValueError("K6 in K1 takes priority [N] and max_priority []")
+    for t in wb[:3]:
+        if t.device != device or not t.is_contiguous():
+            raise ValueError("K6 in K1: the ring and ids must be contiguous on the loss's device")
+    return groups
+
+
+def _launch(online, taus, target, kappa, weight, weight_scale, writeback=None):
+    """Checks and one launch of K1 (with K6 folded in where ``writeback``
+    is given); returns (per_sample, td_abs, grad, mean or None)."""
     batch, n = online.shape
     n_target = target.shape[1]
     if any(t.dtype != torch.float32 for t in (online, taus, target)):
@@ -110,18 +140,22 @@ def _launch(online, taus, target, kappa, weight, weight_scale):
     for t in (online, taus, target, *weights):
         if t.device != online.device or not t.is_contiguous():
             raise ValueError("K1 inputs must be contiguous on one device")
-    samples = 1 if weight is None else loss_plan(batch, n, n_target)
+    groups = 0 if writeback is None else _check_writeback(writeback, batch, online.device)
+    samples = 1 if weight is None else loss_plan(batch, n, n_target, writeback is not None)
     dev = online.device
     per_sample = torch.empty((batch,), dtype=torch.float32, device=dev)
     td_abs = torch.empty((batch,), dtype=torch.float32, device=dev)
     grad = torch.empty((batch, n), dtype=torch.float32, device=dev)
     mean = None if weight is None else torch.empty((), dtype=torch.float32, device=dev)
     p = build.ptr
+    wb = writeback or Writeback(None, None, None, 0.0, 0.0)
     with torch.cuda.device(dev):
         code = _entry()(
             p(online), p(taus), p(target), p(weight), p(weight_scale), p(per_sample), p(td_abs),
-            p(grad), p(mean), batch, n, n_target, samples, float(kappa), build.stream_of(dev))
-    build.check_launch(NAME, code)
+            p(grad), p(mean), batch, n, n_target, samples, float(kappa), p(wb.priority),
+            p(wb.max_priority), p(wb.idx), 0 if writeback is None else wb.priority.numel(),
+            groups, float(wb.eps), float(wb.omega), build.stream_of(dev))
+    build.check_launch(NAME, code, fold=None if writeback is None else K6_NAME)
     return per_sample, td_abs, grad, mean
 
 
@@ -148,12 +182,20 @@ def quantile_huber_weighted_plain(online: torch.Tensor, taus: torch.Tensor,
 
 def quantile_huber_weighted(online: torch.Tensor, taus: torch.Tensor, target: torch.Tensor,
                             weight: torch.Tensor, weight_scale: Optional[torch.Tensor] = None,
-                            kappa: float = 1.0) -> Tuple[torch.Tensor, ...]:
+                            kappa: float = 1.0, writeback: Optional[Writeback] = None
+                            ) -> Tuple[torch.Tensor, ...]:
     """K1's weighted mode on ``online.device``: one launch on CUDA (one
-    cluster of blocks), the plain twin on the CPU."""
+    cluster of blocks), the plain twin on the CPU.  ``writeback``: K6's
+    write-back of td_abs into that ring too, in the same launch on CUDA; on
+    the CPU K1's twin, then K6's."""
     if online.device.type == "cpu":
-        return quantile_huber_weighted_plain(online, taus, target, weight, weight_scale, kappa)
-    per_sample, td_abs, grad, mean = _launch(online, taus, target, kappa, weight, weight_scale)
+        out = quantile_huber_weighted_plain(online, taus, target, weight, weight_scale, kappa)
+        if writeback is not None:
+            replay_writeback_plain(writeback.priority, writeback.max_priority, writeback.idx,
+                                   out[2], writeback.eps, writeback.omega)
+        return out
+    per_sample, td_abs, grad, mean = _launch(online, taus, target, kappa, weight, weight_scale,
+                                             writeback)
     return mean, per_sample, td_abs, grad
 
 

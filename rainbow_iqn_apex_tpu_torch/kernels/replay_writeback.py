@@ -16,7 +16,10 @@ out-of-bounds scatter update); the twin raises on one.
 
 Bound on the H100: a few KB at G * B = 128, launch-bound.  The kernel
 (``csrc/replay_writeback.cu``) is one block with a barrier between each
-group's fence reads and its writes.
+group's fence reads and its writes.  The fused Anakin step launches none:
+it hands a ``Writeback`` target to K1's weighted mode, whose launch does
+this write-back of the td_abs it computes (``quantile_huber_weighted``,
+through the same ``scatter_group`` of ``csrc/writeback.cuh``).
 
 ``replay_writeback`` runs the kernel for CUDA tensors and
 ``replay_writeback_plain`` for CPU tensors.
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -34,6 +38,18 @@ from rainbow_iqn_apex_tpu_torch.kernels import build
 NAME = "K6_replay_writeback"
 SOURCE = "rainbow_iqn_apex_tpu_torch/csrc/replay_writeback.cu"
 REPLACES = "rainbow_iqn_apex_tpu/replay/device.py:335"
+
+
+class Writeback(NamedTuple):
+    """Where a learn step's priorities go: the device ring's ``priority``
+    [N] and ``max_priority`` [] f32 (updated in place), the draws' ``idx``
+    [G, B] int32, and the ring's ``eps`` and ``omega``."""
+
+    priority: torch.Tensor
+    max_priority: torch.Tensor
+    idx: torch.Tensor
+    eps: float
+    omega: float
 
 
 def priority_power(x: torch.Tensor, omega: float) -> torch.Tensor:

@@ -49,6 +49,7 @@ import torch
 
 from rainbow_iqn_apex_tpu_torch.config import Config
 from rainbow_iqn_apex_tpu_torch.kernels.learn_loss import learn_loss
+from rainbow_iqn_apex_tpu_torch.kernels.replay_writeback import Writeback
 from rainbow_iqn_apex_tpu_torch.models.init import init_network_, make_network
 from rainbow_iqn_apex_tpu_torch.models.iqn import RainbowIQN
 from rainbow_iqn_apex_tpu_torch.ops.act import DeviceLike, resolve_device
@@ -171,10 +172,12 @@ def loss_and_priorities(cfg: Config, state: TrainState, batch: Batch,
                         generator: Optional[torch.Generator] = None,
                         draws: Optional[Draws] = None,
                         weight_scale: Optional[torch.Tensor] = None,
+                        writeback: Optional[Writeback] = None,
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Quantile-Huber loss (IS-weighted mean) + diagnostics; the graph runs
     through the online pass on s only.  ``weight_scale`` [B] multiplies the
-    IS weights (the clipped reuse ratio of passes 2..K)."""
+    IS weights (the clipped reuse ratio of passes 2..K).  ``writeback``: the
+    device ring the priorities go to, written by K1's launch (K6 folded in)."""
     draws = draws or {}
     sel_taus, sel_noise = draws.get("select", (None, None))
     tgt_taus, tgt_noise = draws.get("target", (None, None))
@@ -195,11 +198,12 @@ def loss_and_priorities(cfg: Config, state: TrainState, batch: Batch,
     on_value, on_adv, taus = net.heads(batch.obs, cfg.num_tau_samples, taus=on_taus,
                                        generator=generator, noise=on_noise, game=game)
     # K4's heads mode (a*, z_next, td_target, z_online and on_q in one
-    # launch), then K1's weighted mode; backward, K4-bwd's loss mode
+    # launch), then K1's weighted mode (with the write-back, if given);
+    # backward, K4-bwd's loss mode
     loss, per_sample, td_abs, on_q, z_next = learn_loss(
         (on_value, on_adv, cfg.num_tau_samples), batch.action, select, target, batch.reward,
         batch.discount, taus, batch.weight, weight_scale, cfg.kappa,
-        *(net.mask_args(game) if game is not None else (None, None)))
+        *(net.mask_args(game) if game is not None else (None, None)), writeback=writeback)
     aux = {
         "td_abs": td_abs,
         "loss_per_sample": per_sample,
@@ -276,7 +280,10 @@ def make_reuse_learn_step(cfg: Config, pass_fn, logp_fn):
 def build_learn_step(cfg: Config, num_actions: int):
     """The learn step ``(state, batch, generator=None, draws=None) -> (state,
     info)``; ``state`` is updated in place and returned.  ``replay_ratio``
-    K > 1 wraps it in ``make_reuse_learn_step``."""
+    K > 1 wraps it in ``make_reuse_learn_step``.  The plain step also takes
+    ``writeback=``, a ``Writeback`` target that K1's launch writes the
+    step's priorities into (``info["priorities"]`` is returned all the
+    same)."""
     check_supported(cfg)
     del num_actions  # the state's networks carry it
 
@@ -284,9 +291,11 @@ def build_learn_step(cfg: Config, num_actions: int):
                    generator: Optional[torch.Generator] = None,
                    draws: Optional[Draws] = None,
                    weight_scale: Optional[torch.Tensor] = None,
+                   writeback: Optional[Writeback] = None,
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         params = list(state.net.parameters())
-        loss, aux = loss_and_priorities(cfg, state, batch, generator, draws, weight_scale)
+        loss, aux = loss_and_priorities(cfg, state, batch, generator, draws, weight_scale,
+                                        writeback)
         # the conv weights' gradients come back channels-last; the fused
         # Adam reads each gradient in its parameter's (contiguous) layout
         grads = [g.contiguous() for g in torch.autograd.grad(loss, params)]

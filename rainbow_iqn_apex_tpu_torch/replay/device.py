@@ -10,7 +10,8 @@ the time-limit rule (a window whose first cut is a truncation is
 ineligible), the write cursor's dead zone, proportional stratified sampling
 over p^omega, IS weights (N P)^-beta max-normalised, and never-resurrect
 write-back.  On CUDA every one of those steps is one of the port's kernels:
-K7 ``append``, K5 ``draw``, K8 ``assemble``, K6 ``update_priorities``.
+K7 ``append``, K5 ``draw``, K8 ``assemble``, K6 ``update_priorities``; the
+fused learner (``build_device_learn``) folds K6 into K1's weighted launch.
 
 Differences of form from the JAX module, none of them of value:
 - The state is updated in place (a 1,000,000-slot Atari ring is 7 GB of
@@ -40,7 +41,7 @@ import torch
 from rainbow_iqn_apex_tpu_torch.kernels.replay_append import replay_append
 from rainbow_iqn_apex_tpu_torch.kernels.replay_assemble import replay_assemble
 from rainbow_iqn_apex_tpu_torch.kernels.replay_draw import replay_draw
-from rainbow_iqn_apex_tpu_torch.kernels.replay_writeback import replay_writeback
+from rainbow_iqn_apex_tpu_torch.kernels.replay_writeback import Writeback, replay_writeback
 from rainbow_iqn_apex_tpu_torch.ops.act import DeviceLike, resolve_device
 from rainbow_iqn_apex_tpu_torch.ops.learn import Batch, build_learn_step
 
@@ -199,26 +200,43 @@ class DeviceReplay:
         """Learner write-back, never resurrecting cursor-invalidated slots (K6)."""
         return self.update_priorities_grouped(state, idx.reshape(1, -1), td_abs)
 
+    def writeback_target(self, state: DeviceReplayState, idx: torch.Tensor) -> Writeback:
+        """``update_priorities_grouped``'s write-back at ``idx`` [G, B], as a
+        target that the learn step's K1 launch writes its priorities into."""
+        return Writeback(state.priority, state.max_priority, idx.to(torch.int32).contiguous(),
+                         self.eps, self.omega)
+
 
 def build_device_learn(cfg, num_actions: int, replay: DeviceReplay):
     """The Anakin learner tick: sample -> learn -> priority write-back,
     ``(train_state, replay_state, generator, beta, *, u=None, draws=None) ->
     (train_state, replay_state, info)``, both states updated in place and
     ``info`` left on the device: no host transfer.  ``u`` injects the
-    sampler's uniforms and ``draws`` the learn step's taus and noise."""
+    sampler's uniforms and ``draws`` the learn step's taus and noise.
+
+    The write-back is ``update_priorities_grouped``'s, unconditional as in
+    JAX.  Nothing between the learn step's loss and the write-back reads or
+    writes the ring's priorities, so the learn step's K1 launch does it
+    (a ``writeback_target``; K6 folded into K1, one launch fewer a step).
+    A reuse step (``replay_ratio`` > 1) writes its last pass's priorities
+    with K6 after it."""
     learn_step = build_learn_step(cfg, num_actions)
     groups = getattr(cfg, "sample_groups", 1)
+    reuse = int(cfg.replay_ratio) > 1
 
     def fused(train_state, replay_state, generator, beta, *, u=None, draws=None):
         if groups > 1:
             idx, batch, _prob = replay.sample_grouped(
                 replay_state, cfg.batch_size, groups, beta, generator, u)
+        else:
+            idx, batch, _prob = replay.sample(replay_state, cfg.batch_size, beta, generator, u)
+            idx = idx.reshape(1, -1)
+        if reuse:
             train_state, info = learn_step(train_state, batch, generator, draws)
             replay.update_priorities_grouped(replay_state, idx, info["priorities"])
         else:
-            idx, batch, _prob = replay.sample(replay_state, cfg.batch_size, beta, generator, u)
-            train_state, info = learn_step(train_state, batch, generator, draws)
-            replay.update_priorities(replay_state, idx, info["priorities"])
+            train_state, info = learn_step(train_state, batch, generator, draws,
+                                           writeback=replay.writeback_target(replay_state, idx))
         return train_state, replay_state, info
 
     return fused

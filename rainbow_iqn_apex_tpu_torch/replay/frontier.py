@@ -1,6 +1,6 @@
 """Device-resident sample frontier of the port: the Ape-X host replay's
 priority vector mirrored into device memory, drawn from by K5f and written
-back into by K6f.
+back into by K6f, mostly inside K5f's draw.
 
 Counterpart of ``rainbow_iqn_apex_tpu/replay/frontier.py``:
 
@@ -13,7 +13,7 @@ Counterpart of ``rainbow_iqn_apex_tpu/replay/frontier.py``:
   the host sum-trees become the cold path, caught up at ring drains by
   ``reconcile``.
 - Host appends keep writing the host trees; each append's leaf deltas are
-  staged (``stage``) and flushed as one scatter before the next draw or
+  staged (``stage``) and flushed as one segment before the next draw or
   write-back, after the host has kept the last write per slot and dropped
   the dead shards' rows.
 - ``on_drop`` zeroes a dead shard's slice (draws exclude it, and the
@@ -25,11 +25,21 @@ Differences of form from the JAX module:
 
 - JAX's mirror is immutable: every draw reads a snapshot, and XLA orders the
   scatters by data dependence.  The port updates one tensor in place, so
-  every mirror kernel and copy (K5f, K6f, the staged scatter, the slice
-  writes, the refresh, the read-back) is launched on the frontier's own CUDA
-  stream under its lock, in the order the calls are made; a call that takes
-  a tensor from the caller's stream (the learner's |TD|) makes the frontier
-  stream wait for it first.
+  every mirror kernel and copy (K5f, K6f, the slice writes, the refresh,
+  the read-back) is launched on the frontier's own CUDA stream under its
+  lock, in the order the calls are made; a call that takes a tensor from
+  the caller's stream (the learner's |TD|) makes the frontier stream wait
+  for it first.
+- A flush and a write-back launch nothing: each appends a segment to a
+  queue of mirror updates (``MirrorQueue``), in program order, and the next
+  draw hands the queue to K5f, whose first launch applies it before its sums
+  (K6f folded into K5f).  Every other access to the mirror applies the queue
+  first with one K6f launch: ``mirror`` (a property), ``mirror_np``,
+  ``reconcile``, ``on_drop``, ``on_readmit``, the 4,096-row flush of
+  ``stage`` and a full queue (``flushes`` counts them); ``refresh_from_host``
+  overwrites the whole mirror and drops the queue.  Whatever reads the
+  mirror sees what the parent's launch-per-call frontier left there, bit
+  for bit.
 - The draw's uniforms come from the frontier's ``torch.Generator`` on the
   device (seeded from ``seed``), or from ``uniforms=`` (the tests hand in
   JAX's).  A draw block copies its ids and weights to pinned host memory
@@ -51,7 +61,7 @@ import numpy as np
 import torch
 
 from rainbow_iqn_apex_tpu_torch.kernels.frontier_draw import frontier_draw
-from rainbow_iqn_apex_tpu_torch.kernels.frontier_writeback import frontier_writeback
+from rainbow_iqn_apex_tpu_torch.kernels.frontier_writeback import MirrorQueue, frontier_apply
 from rainbow_iqn_apex_tpu_torch.ops.act import DeviceLike, resolve_device
 from rainbow_iqn_apex_tpu_torch.utils import hostsync
 
@@ -101,7 +111,8 @@ class DeviceSampleFrontier:
     list of host ``SumTree``s (one per replay shard, all of capacity
     ``shard_capacity``); ``from_sharded`` wires a ``ShardedReplay``.  Every
     mirror mutation is serialized by one lock and issued on one stream:
-    the critical sections only enqueue work and never wait for the device."""
+    the critical sections only enqueue work and never wait for the device.
+    Flushes and write-backs are queued for the next draw (module notes)."""
 
     def __init__(
         self,
@@ -132,14 +143,16 @@ class DeviceSampleFrontier:
         self._epochs = [0] * len(self.trees)
         self._dead: set = set()
         self._all_local = np.arange(self.cap, dtype=np.int64)
+        self._queue = MirrorQueue(self.eps, self.omega)
         self.reconciles = 0
+        self.flushes = 0  # K6f launches: the queue applied outside a draw
         self._g_reconcile = None
         if registry is not None:
             self._g_reconcile = registry.gauge("mirror_reconcile_s", role)
         self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
         with self._on_stream():
-            self.mirror = self._upload(self._host_leaves())
+            self._mirror = self._upload(self._host_leaves())
 
     # ------------------------------------------------------------ constructors
     @classmethod
@@ -182,6 +195,28 @@ class DeviceSampleFrontier:
             "the sequence-replay frontier serves the R2D2 apex loop (K9), not ported yet")
 
     # ---------------------------------------------------------------- helpers
+    @property
+    def mirror(self) -> torch.Tensor:
+        """The mirror tensor [N] f32, with every queued update applied."""
+        with self._lock:
+            self._apply_queue()
+            return self._mirror
+
+    @property
+    def queued(self) -> bool:
+        """Whether mirror updates wait (staged rows or queued segments): the
+        next access outside a draw launches K6f."""
+        return bool(self._pending) or len(self._queue) > 0
+
+    def _apply_queue(self) -> None:
+        """The queue into the mirror, one K6f launch (the lock held)."""
+        if not len(self._queue):
+            return
+        with self._on_stream():
+            frontier_apply(self._mirror, self._queue)
+        self._queue.clear()
+        self.flushes += 1
+
     def _on_stream(self):
         return contextlib.nullcontext() if self.stream is None else torch.cuda.stream(self.stream)
 
@@ -260,31 +295,38 @@ class DeviceSampleFrontier:
             with self._on_stream():
                 if u is None:
                     u = torch.rand((G, B), generator=self.generator, device=self.device)
-                idx, prob, weight = frontier_draw(self.mirror, u, beta, max(n_items, 1))
+                # K5f applies the queued updates before its sums (K6f folded in)
+                idx, prob, weight = frontier_draw(self._mirror, u, beta, max(n_items, 1),
+                                                  self._queue)
+                self._queue.clear()
                 return DrawBlock(idx, weight, prob, self.stamp, B, G)
 
     # ------------------------------------------------------------- write-back
     def update(self, idx, td_abs) -> None:
-        """The learner's priority write-back straight into the mirror (K6f;
-        the ``RingCommitter`` update target when device sampling is on).
-        ``idx`` and ``td_abs`` may be device tensors on the caller's stream
-        (the staged batch ids, the ring's |TD|) or host arrays.  Staged
-        append deltas flush first, so the mirror sees them in program order
+        """The learner's priority write-back into the mirror (K6f; the
+        ``RingCommitter`` update target when device sampling is on), queued
+        for the next draw.  ``idx`` and ``td_abs`` may be device tensors on
+        the caller's stream (the staged batch ids, the ring's |TD|) or host
+        arrays; the queue holds them until it is applied.  Staged append
+        deltas flush first, so the mirror sees them in program order
         (otherwise a slot the cursor just made eligible would drop this
         write-back on the never-resurrect fence while the host tree kept
         it)."""
         self.flush_staged()
         ids = self._as_device(idx, torch.int32)
         td = self._as_device(td_abs, torch.float32)
+        if not ids.numel():
+            return
         with self._lock:
             self._after_caller(ids, td)
-            with self._on_stream():
-                frontier_writeback(self.mirror, ids, td, self.eps, self.omega)
+            self._queue.writeback(ids, td)
+            if self._queue.full:
+                self._apply_queue()
 
     # ------------------------------------------------------- append mirroring
     def stage(self, global_idx: np.ndarray, values: np.ndarray) -> None:
         """Queue host-append leaf deltas (tree-space values at global slot
-        ids) for the next flush; past 4,096 rows, flush now."""
+        ids) for the next flush; past 4,096 rows, flush and apply now."""
         with self._lock:
             self._pending.append((
                 np.asarray(global_idx, np.int64).ravel(),
@@ -294,11 +336,13 @@ class DeviceSampleFrontier:
             flush_now = self._pending_rows >= 4096
         if flush_now:
             self.flush_staged()
+            with self._lock:
+                self._apply_queue()
 
     def flush_staged(self) -> None:
-        """Apply every staged append delta as one scatter (last write per
+        """Queue every staged append delta as one segment (last write per
         slot wins, the host tree's sequential order; dead shards' rows
-        dropped)."""
+        dropped), its ids and values uploaded in one pinned buffer."""
         with self._lock:
             if not self._pending:
                 return
@@ -316,7 +360,11 @@ class DeviceSampleFrontier:
                 idx, vals = idx[alive], vals[alive]
             if idx.size:
                 with self._on_stream():
-                    self.mirror.index_copy_(0, self._upload(idx), self._upload(vals))
+                    both = self._upload(np.concatenate([idx.astype(np.int32),
+                                                        vals.astype(np.float32).view(np.int32)]))
+                self._queue.stage(both[:idx.size], both[idx.size:].view(torch.float32))
+                if self._queue.full:
+                    self._apply_queue()
 
     # -------------------------------------------------------------- elasticity
     def on_drop(self, k: int) -> None:
@@ -325,8 +373,9 @@ class DeviceSampleFrontier:
         with self._lock:
             self._dead.add(k)
             self._epochs[k] += 1
+            self._apply_queue()
             with self._on_stream():
-                self.mirror[k * self.cap:(k + 1) * self.cap].zero_()
+                self._mirror[k * self.cap:(k + 1) * self.cap].zero_()
 
     def on_readmit(self, k: int) -> None:
         """Shard ``k`` rejoined under a new lease epoch: refresh its slice
@@ -337,25 +386,30 @@ class DeviceSampleFrontier:
         with self._lock:
             self._dead.discard(k)
             self._epochs[k] += 1
+            self._apply_queue()
             with self._on_stream():
-                self.mirror[k * self.cap:(k + 1) * self.cap].copy_(self._upload(vals))
+                self._mirror[k * self.cap:(k + 1) * self.cap].copy_(self._upload(vals))
 
     def refresh_from_host(self, dead=None) -> None:
         """Reload the whole mirror from the host trees (snapshot restore),
         optionally adopting the owner's restored dead-shard set.  Bumps every
-        shard's epoch so in-flight draw blocks read as stale."""
+        shard's epoch so in-flight draw blocks read as stale.  The queued
+        updates are dropped: the whole mirror is overwritten."""
         with self._lock:
             if dead is not None:
                 self._dead = set(dead)
             self._pending, self._pending_rows = [], 0
+            self._queue.clear()
             self._epochs = [e + 1 for e in self._epochs]
             with self._on_stream():
-                self.mirror.copy_(self._upload(self._host_leaves()))
+                self._mirror.copy_(self._upload(self._host_leaves()))
 
     # --------------------------------------------------------------- reconcile
     def _read_mirror(self) -> np.ndarray:
-        with self._lock, hostsync.sanctioned(), self._on_stream():
-            return self.mirror.cpu().numpy().copy()
+        with self._lock, hostsync.sanctioned():
+            self._apply_queue()
+            with self._on_stream():
+                return self._mirror.cpu().numpy().copy()
 
     def reconcile(self) -> float:
         """Drain-boundary sync of the cold path: read the mirror back (a

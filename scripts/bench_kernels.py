@@ -5,8 +5,9 @@ K10g (the weight-only int8 / e4m3 NoisyLinear GEMM), K5 (the PER draw) and
 K5f (the frontier's draw with IS weights), K4 (the dueling head, in every
 mode), K12 (the device games' tick), and K1 (the quantile-Huber loss) and
 K4-bwd with the learn step's loss chain on the card, K2's multi-game modes
-K2g and K2g-bwd included, and K7 and K8 (the device replay's append and
-n-step assembly).
+K2g and K2g-bwd included, K7 and K8 (the device replay's append and
+n-step assembly), and K6 and K6f (the fenced priority write-backs) with the
+launches they fold into.
 
 Times the port's ``noisy_linear`` and ``noisy_linear_bwd`` at every shape the
 main paths give them (bucket 64's layers and ``chip_smoke.py``'s
@@ -56,6 +57,16 @@ learn batch [32, 84, 84, 4] and [32, 80, 80, 4], G 1 and 4, n 3, on that
 warm ring and on a cold one of 2,048 slots a lane (>= 200 MB of frames)
 whose calls cycle through 80 id sets spread over it, so L2 cannot hold
 them; each beside its byte bound, counted as ``chip_smoke.py`` counts it.
+K6 (``--only k6``): the fused Anakin step's loss and write-back at B 32, N =
+N' = 64 over the reference config's 1,000,000 priorities, G 1 and 4: ``ms``
+the tree's route (K1's weighted launch with K6 folded in, where the tree
+has the fold), ``two_launch_ms`` the parent's K1 launch then K6's on every
+tree, and each alone.  K6f (``--only k6f``): the apex loop's mirror updates
+between two draws (8 write-back batches of 32, two ticks of 16 staged rows)
+and the draw (1,000,000 slots, G 8, B 32): ``ms`` the tree's route (K5f
+applying the queue, where the tree has it), ``parent_route_ms`` a K6f launch
+a batch, an ``index_copy_`` a staged tick and K5f on every tree, and K5f
+alone, K6f's one batch and (with the queue) its apply of the whole queue.
 The port is imported from ``--root`` (default: this checkout), so two trees,
 e.g. a parent commit unpacked into an ignored directory, are compared on one
 card by running the script once per tree in one call:
@@ -67,7 +78,8 @@ A tree whose K2-bwd recomputes the cos features (no ``save_cos``) is called
 that way; a shape a tree refuses is reported as refused.  Prints one JSON
 object per (kernel, shape, mode); ``--out`` appends them to a file as well;
 ``--only fwd`` (or ``bwd``, ``k2``, ``k2bwd``, ``k9``, ``k9bwd``, ``k10g``,
-``k5``, ``k5f``, ``k4``, ``k12``, ``k1``, ``k7``, ``k8``, or layer names) times a subset.  K9's unrolls (T > 1) are timed as eager calls
+``k5``, ``k5f``, ``k4``, ``k12``, ``k1``, ``k7``, ``k8``, ``k6``, ``k6f``, or layer names)
+times a subset.  K9's unrolls (T > 1) are timed as eager calls
 between CUDA events, their device time being far above the launch's (a
 parent tree's cooperative launch is not captured in a CUDA graph); the act
 tick is timed that way and, where the tree's K9 has launch plans (a plain
@@ -131,7 +143,7 @@ def main() -> int:
                          "forward_plan's (a tree whose K10g has forward_plan(m, n, k, noisy, clusters))")
     ap.add_argument("--only", default=None,
                     help="comma-separated kernels (fwd, bwd, k2, k2bwd, k9, k9bwd, k10g, k5, k5f, "
-                         "k4, k12, k1, k7, k8) or layer names to time; default all")
+                         "k4, k12, k1, k7, k8, k6, k6f) or layer names to time; default all")
     args = ap.parse_args()
     only = set(args.only.split(",")) if args.only else None
 
@@ -442,6 +454,10 @@ def main() -> int:
         bench_k7(torch, dev, emit, bound_ms, time_ms, _replay_ticks, FP32_FLOPS)
     if wanted("k8", None):
         bench_k8(torch, dev, emit, bound_ms, time_ms, _replay_ticks, FP32_FLOPS)
+    if wanted("k6", None):
+        bench_k6(torch, dev, gen, emit, bound_ms, time_ms, K1_OPS_PER_PAIR, FP32_FLOPS)
+    if wanted("k6f", None):
+        bench_k6f(torch, dev, gen, emit, bound_ms, time_ms, FP32_FLOPS)
     return 0
 
 
@@ -618,6 +634,113 @@ def bench_k1(torch, dev, gen, emit, bound_ms, time_ms, ops_per_pair, fp32_flops)
               "launches": 3 if weighted else 8 + (sc is not None),
               "ms": time_ms(torch, route, reps=REPS),
               "parent_route_ms": time_ms(torch, parent, reps=REPS)})
+
+
+def bench_k6(torch, dev, gen, emit, bound_ms, time_ms, ops_per_pair, fp32_flops):
+    """K6 with the loss that feeds it, at the fused Anakin step's B 32 a
+    group, N = N' = 64, over K5_SLOTS priorities, G 1 and 4."""
+    from rainbow_iqn_apex_tpu_torch.kernels import quantile_huber as k1
+    from rainbow_iqn_apex_tpu_torch.kernels import replay_writeback as k6
+
+    fold = hasattr(k6, "Writeback")
+    eps, omega, n = 1e-6, 0.5, 64
+    ring = torch.rand((K5_SLOTS,), generator=gen, device=dev) + 0.1
+    max_p = torch.tensor(1.0, device=dev)
+    for groups in (1, 4):
+        batch = groups * K5_BATCH
+        online = torch.randn((batch, n), generator=gen, device=dev)
+        taus = torch.rand((batch, n), generator=gen, device=dev)
+        target = torch.randn((batch, n), generator=gen, device=dev)
+        weight = torch.rand((batch,), generator=gen, device=dev) + 0.1
+        ids = torch.randint(0, K5_SLOTS, (groups, K5_BATCH), generator=gen, device=dev,
+                            dtype=torch.int32)
+        td = k1.quantile_huber_weighted(online, taus, target, weight, None, 1.0)[2]
+
+        def two_launches():
+            out = k1.quantile_huber_weighted(online, taus, target, weight, None, 1.0)
+            k6.replay_writeback(ring, max_p, ids, out[2], eps, omega)
+
+        def route():
+            if not fold:
+                return two_launches()
+            k1.quantile_huber_weighted(online, taus, target, weight, None, 1.0,
+                                       k6.Writeback(ring, max_p, ids, eps, omega))
+
+        # K1: online, taus, target and weight in; per_sample, td_abs, grad, mean out
+        k1_bytes = (3 * batch * n + batch + 2 * batch + batch * n) * 4 + 4
+        k6_bytes = batch * 4 * 4 + 8  # ids and td in, each slot's p in and out, max_priority
+        # the fold: K1's bytes, the ids and p in and out (td_abs never leaves the launch)
+        bms, by = bound_ms(k1_bytes + batch * 3 * 4 + 8, ops_per_pair * batch * n * n,
+                           fp32_flops)
+        emit({"kernel": "K6_replay_writeback", "at": "fused_step", "shape": [groups, K5_BATCH],
+              "route": "K1 with K6 folded in" if fold else "K1, then K6",
+              "ms": time_ms(torch, route, reps=REPS),
+              "two_launch_ms": time_ms(torch, two_launches, reps=REPS),
+              "k1_weighted_ms": time_ms(torch, lambda: k1.quantile_huber_weighted(
+                  online, taus, target, weight, None, 1.0), reps=REPS),
+              "k6_ms": time_ms(torch, lambda: k6.replay_writeback(ring, max_p, ids, td, eps,
+                                                                  omega), reps=REPS),
+              "k6_bound_ms": bound_ms(k6_bytes, 2 * batch, fp32_flops)[0],
+              "bound_ms": bms, "bound_by": by})
+
+
+def bench_k6f(torch, dev, gen, emit, bound_ms, time_ms, fp32_flops):
+    """The apex loop's mirror updates between two draws and the draw, over
+    K5_SLOTS slots (one live shard of two), G 8, B K5_BATCH."""
+    from rainbow_iqn_apex_tpu_torch.kernels import frontier_writeback as k6f
+    from rainbow_iqn_apex_tpu_torch.kernels.frontier_draw import frontier_draw
+
+    queue_mode = hasattr(k6f, "MirrorQueue")
+    eps, omega, groups, beta, n_items = 1e-6, 0.5, 8, 0.4, float(K5_SLOTS // 2)
+    mirror = torch.rand((K5_SLOTS,), generator=gen, device=dev) + 0.1
+    mirror[K5_SLOTS // 2:] = 0.0
+    u = torch.rand((groups, K5_BATCH), generator=gen, device=dev)
+    batches = [(torch.randint(0, K5_SLOTS // 2, (K5_BATCH,), generator=gen, device=dev,
+                              dtype=torch.int32),
+                torch.randn((K5_BATCH,), generator=gen, device=dev)) for _ in range(8)]
+    staged = [(torch.randperm(K5_SLOTS // 2, generator=gen, device=dev)[:16],
+               torch.rand((16,), generator=gen, device=dev)) for _ in range(2)]
+    order = [("w", 0), ("w", 1), ("w", 2), ("w", 3), ("s", 0), ("w", 4), ("w", 5), ("w", 6),
+             ("w", 7), ("s", 1)]  # a tick's appends every 4 learn steps
+
+    def parent_route():
+        for kind, i in order:
+            if kind == "w":
+                k6f.frontier_writeback(mirror, *batches[i], eps, omega)
+            else:
+                mirror.index_copy_(0, staged[i][0], staged[i][1])
+        return frontier_draw(mirror, u, beta, n_items)
+
+    queue = None
+    if queue_mode:
+        queue = k6f.MirrorQueue(eps, omega)
+        for kind, i in order:
+            if kind == "w":
+                queue.writeback(*batches[i])
+            else:
+                queue.stage(staged[i][0].to(torch.int32), staged[i][1])
+
+    def route():
+        if queue is None:
+            return parent_route()
+        return frontier_draw(mirror, u, beta, n_items, queue)
+
+    entries = 8 * K5_BATCH + 2 * 16
+    nbytes = K5_SLOTS * 4 + entries * 4 * 4 + groups * K5_BATCH * 4 * 4
+    bms, by = bound_ms(nbytes, K5_SLOTS, fp32_flops)
+    row = {"kernel": "K6f_frontier_writeback", "at": "between_draws",
+           "shape": [K5_SLOTS, groups, K5_BATCH], "queue": "8 x 32 write-back, 2 x 16 staged",
+           "route": "K5f applying the queue" if queue_mode else "8 K6f, 2 index_copy_, K5f",
+           "ms": time_ms(torch, route, reps=REPS),
+           "parent_route_ms": time_ms(torch, parent_route, reps=REPS),
+           "k5f_ms": time_ms(torch, lambda: frontier_draw(mirror, u, beta, n_items), reps=REPS),
+           "k6f_ms": time_ms(torch, lambda: k6f.frontier_writeback(mirror, *batches[0], eps,
+                                                                   omega), reps=REPS),
+           "k6f_bound_ms": bound_ms(K5_BATCH * 4 * 4, 2 * K5_BATCH, fp32_flops)[0],
+           "bound_ms": bms, "bound_by": by}
+    if queue_mode:
+        row["apply_ms"] = time_ms(torch, lambda: k6f.frontier_apply(mirror, queue), reps=REPS)
+    emit(row)
 
 
 def bench_k4(torch, dev, gen, emit, bound_ms, time_ms, mt_mask, fp32_flops):

@@ -5,7 +5,7 @@ serving dispatch.
 
 Runs the ``learn``, ``anakin``, ``apex`` and ``anakin_fused`` phases (or,
 with ``--phases``, those named, ``learn_r2d2``, ``anakin_r2d2``, ``serve``,
-``serve_quant``, ``kernels_learn``, ``kernels_replay``, ``apex_mt`` and ``apex_quant`` among them; ``apex_quant``
+``serve_quant``, ``kernels_learn``, ``kernels_replay``, ``kernels_frontier``, ``apex_mt`` and ``apex_quant`` among them; ``apex_quant``
 runs over the filled replay of the ``apex`` phase, which runs first if the
 list does not name it earlier) of the ``chip_smoke.py`` at ``--root`` on that checkout's
 port, as the whole script runs them, so that two trees (say the parent commit unpacked with ``git
@@ -146,6 +146,7 @@ def main() -> int:
               "apex_mt": (smoke.phase_apex_mt, "reference_atari_defaults"),
               "kernels_learn": (smoke.phase_kernels_learn, "reference_atari_defaults"),
               "kernels_replay": (smoke.phase_kernels_replay, "reference_atari_defaults"),
+              "kernels_frontier": (smoke.phase_kernels_frontier, "reference_atari_defaults"),
               "learn_reuse": (lambda torch_, cfg: learn_reuse(smoke, torch_, cfg),
                               "reference_atari_defaults")}
     apex_ctx = []  # the apex phase's filled replay, which apex_quant runs over

@@ -23,6 +23,10 @@ Tolerances:
   occurrence (JAX leaves the order open, so its comparison has none).
 - staged flushes, drop / readmit / refresh: exact (fp32 copies of host
   leaves).  Reconcile: host trees to 1e-6 relative.
+- on the card, K6f's queue (staged segments and write-back batches) applied
+  by K5f's first launch or by K6f's own: the mirror bit-equal to the twin's
+  apply on the same card tensors (the same fp32 square root), and K5f's
+  draw with the queue bit-equal to K5f's draw after the twin's apply.
 """
 
 import math
@@ -31,9 +35,12 @@ import numpy as np
 import pytest
 import torch
 
-from rainbow_iqn_apex_tpu_torch.kernels import launches
+from rainbow_iqn_apex_tpu_torch.kernels import folded, launches
 from rainbow_iqn_apex_tpu_torch.kernels.frontier_draw import frontier_draw, frontier_draw_plain
 from rainbow_iqn_apex_tpu_torch.kernels.frontier_writeback import (
+    MirrorQueue,
+    frontier_apply,
+    frontier_apply_plain,
     frontier_writeback,
     frontier_writeback_plain,
 )
@@ -458,3 +465,89 @@ def test_frontier_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         frontier_writeback(p, torch.zeros(4, dtype=torch.int32, device=cuda),
                            torch.zeros(5, device=cuda), 1e-6, 0.5)
+
+
+def _queue(cuda, n, seed, omega=0.5, outside=False, hot=24):
+    """8 write-back batches of 32 (repeated ids inside and across batches,
+    zero slots, a NaN |td|) and 2 ticks of 16 staged rows, in the
+    interleaving of the apex loop, ``hot`` ids a batch in the mirror's first
+    chunk (24: 200 entries there, past the 128 that K5f's chunk block applies
+    from shared memory; 12: 104, under them)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = MirrorQueue(1e-6, omega)
+    for b in range(8):
+        ids = torch.randint(0, 40, (32,), generator=gen, device=cuda, dtype=torch.int32)
+        ids[hot:] = torch.randint(0, n, (32 - hot,), generator=gen, device=cuda, dtype=torch.int32)
+        td = torch.randn((32,), generator=gen, device=cuda) * 3
+        if b == 2:
+            td[0] = float("nan")
+        if outside and b == 5:
+            ids[3], ids[9] = n, -2
+        q.writeback(ids, td)
+        if b in (3, 6):
+            ids = torch.randperm(n, generator=gen, device=cuda)[:16].to(torch.int32)
+            ids[:4] = torch.arange(4 * b, 4 * b + 4, device=cuda, dtype=torch.int32)
+            q.stage(ids, torch.rand((16,), generator=gen, device=cuda) * 2)
+    return q
+
+
+def _in_range(q, n):
+    """The queue without its ids outside [0, n) (what the kernels drop)."""
+    out = MirrorQueue(q.eps, q.omega)
+    for kind, ids, vals in q.segments:
+        keep = (ids >= 0) & (ids < n)
+        (out.stage if kind == 0 else out.writeback)(ids[keep].contiguous(),
+                                                    vals[keep].contiguous())
+    return out
+
+
+def _mirror(cuda, n, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    p = torch.rand((n,), generator=gen, device=cuda)
+    p[torch.rand((n,), generator=gen, device=cuda) < 0.2] = 0.0
+    p[: n // 4] = 0.0
+    p[:40:3] = 0.5  # the queue's first chunk: live and zero slots
+    return p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hot", [24, 12])
+@pytest.mark.parametrize("omega", [0.5, 0.6])
+@pytest.mark.parametrize("n", [4099, 1_000_000])
+def test_k5f_queue_mode_matches_the_twins_apply_then_draw(cuda, n, omega, hot):
+    p, q = _mirror(cuda, n, n), _queue(cuda, n, n + 1, omega, hot=hot)
+    u = torch.rand((8, 32), generator=torch.Generator(device=cuda).manual_seed(2), device=cuda)
+    got, want = p.clone(), p.clone()
+    k5f, k6f, fold = (launches["K5f_frontier_draw"], launches["K6f_frontier_writeback"],
+                      folded["K6f_frontier_writeback"])
+    drawn = frontier_draw(got, u, 0.6, n / 3, q)
+    torch.cuda.synchronize()
+    assert launches["K5f_frontier_draw"] == k5f + 1 and folded["K6f_frontier_writeback"] == fold + 1
+    assert launches["K6f_frontier_writeback"] == k6f
+    frontier_apply_plain(want, q)
+    if omega == 0.5:
+        assert torch.equal(got, want)
+    else:  # powf against torch.pow
+        torch.testing.assert_close(got, want, **REL)
+        want = got.clone()
+    again = frontier_draw(want, u, 0.6, n / 3)
+    for a, b in zip(drawn, again):
+        assert torch.equal(a, b)
+    assert bool((got[drawn[0].long()] > 0).all())  # no zero slot drawn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("outside", [False, True], ids=["in_range", "outside"])
+def test_k6f_queue_apply_matches_its_twin(cuda, outside):
+    n = 4099
+    p, q = _mirror(cuda, n, 11), _queue(cuda, n, 12, outside=outside)
+    got, want = p.clone(), p.clone()
+    _counted("K6f_frontier_writeback", lambda: frontier_apply(got, q))
+    frontier_apply_plain(want, _in_range(q, n))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    chunked = p.clone()  # the same queue through K5f's chunk blocks
+    frontier_draw(chunked, torch.rand((1, 4), device=cuda), 0.5, 10.0, q)
+    torch.cuda.synchronize()
+    assert torch.equal(chunked, got)
+

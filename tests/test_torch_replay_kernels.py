@@ -23,15 +23,20 @@ f32 reward, prob and weight to 1e-6 relative (powf against torch.pow, a
 different summation order of the priorities).  K7 and K8 also at their
 grids' edges (10 x 10 frames, 40 lanes, history 1 and 7, n_step 1 and 5,
 groups of 48, draws at the write cursor, a NaN actor priority), and each
-repeated launch bit-equal to the first.
+repeated launch bit-equal to the first.  K6 folded into K1's weighted
+launch (the fused Anakin step's route) bit-equal to the parent's route on
+the card, K1's launch and then K6's, and its ring to K6's twin on the
+launch's own td_abs (G 1-4, repeated ids, zero slots, a NaN td, ids
+outside the ring).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from rainbow_iqn_apex_tpu_torch.kernels import launches
+from rainbow_iqn_apex_tpu_torch.kernels import folded, launches
 from rainbow_iqn_apex_tpu_torch.kernels.frontier_draw import frontier_draw
+from rainbow_iqn_apex_tpu_torch.kernels.quantile_huber import quantile_huber_weighted
 from rainbow_iqn_apex_tpu_torch.kernels.replay_append import (
     append_plan,
     replay_append,
@@ -45,6 +50,7 @@ from rainbow_iqn_apex_tpu_torch.kernels.replay_assemble import (
 )
 from rainbow_iqn_apex_tpu_torch.kernels.replay_draw import replay_draw, replay_draw_plain
 from rainbow_iqn_apex_tpu_torch.kernels.replay_writeback import (
+    Writeback,
     replay_writeback,
     replay_writeback_plain,
 )
@@ -413,6 +419,87 @@ def test_k6_kernel_matches_twin_with_duplicates_and_zero_slots(cuda, groups, ome
         torch.testing.assert_close(got, want, **REL)
         torch.testing.assert_close(got_max, want_max, **REL)
     assert bool((got[p == 0] == 0).all())
+
+
+def _fold_inputs(cuda, batch, groups, n, seed):
+    """A loss's inputs (sample 0's td NaN where the batch has two samples)
+    and a ring of 4,096 priorities with zero slots, its ids [G, B / G] with
+    repeats inside and across groups."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    online = torch.randn((batch, n), generator=gen, device=cuda)
+    taus = torch.rand((batch, n), generator=gen, device=cuda)
+    target = torch.randn((batch, n), generator=gen, device=cuda)
+    weight = torch.rand((batch,), generator=gen, device=cuda)
+    if batch > 1:
+        target[0, 3] = float("nan")
+    ring = torch.rand((4096,), generator=gen, device=cuda)
+    ids = torch.randint(0, 48, (groups, batch // groups), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    ring[ids[0, :3].long()] = 0.0
+    return (online, taus, target, weight), ring, ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("omega", [0.5, 0.6])
+@pytest.mark.parametrize("batch,groups,n", [(32, 1, 64), (128, 4, 64), (1, 1, 64), (256, 1, 8),
+                                            (48, 3, 16), (2048, 2, 4)])
+def test_k1_with_k6_folded_matches_k1_then_k6(cuda, batch, groups, n, omega):
+    args, ring, ids = _fold_inputs(cuda, batch, groups, n, batch + groups)
+    got, got_max = ring.clone(), torch.tensor(1.5, device=cuda)
+    want, want_max = ring.clone(), torch.tensor(1.5, device=cuda)
+    twin, twin_max = ring.clone(), torch.tensor(1.5, device=cuda)
+    before, k6_before = launches["K1_quantile_huber"], launches["K6_replay_writeback"]
+    fold_before = folded["K6_replay_writeback"]
+    out = quantile_huber_weighted(*args, writeback=Writeback(got, got_max, ids, 1e-6, omega))
+    torch.cuda.synchronize()
+    assert launches["K1_quantile_huber"] == before + 1
+    assert launches["K6_replay_writeback"] == k6_before
+    assert folded["K6_replay_writeback"] == fold_before + 1
+    ref = quantile_huber_weighted(*args)
+    replay_writeback(want, want_max, ids, ref[2], 1e-6, omega)
+    replay_writeback_plain(twin, twin_max, ids, out[2], 1e-6, omega)
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):  # K1's outputs: the same launch's bits
+        assert _same_bits(a, b)
+    assert _same_bits(got, want) and _same_bits(got_max, want_max)
+    if omega == 0.5:
+        assert _same_bits(got, twin) and _same_bits(got_max, twin_max)
+    else:  # powf against torch.pow
+        torch.testing.assert_close(got, twin, equal_nan=True, **REL)
+        torch.testing.assert_close(got_max, twin_max, equal_nan=True, **REL)
+    assert bool((got[ring == 0] == 0).all())
+    assert (batch == 1) != bool(torch.isnan(got_max))
+
+
+@pytest.mark.cuda
+def test_k1_with_k6_folded_drops_ids_outside_the_ring_as_k6_does(cuda):
+    args, ring, ids = _fold_inputs(cuda, 64, 2, 64, 7)
+    ids[0, 5], ids[1, 0], ids[1, -1] = 4096, -1, 4096 + 9
+    got, got_max = ring.clone(), torch.tensor(1.5, device=cuda)
+    want, want_max = ring.clone(), torch.tensor(1.5, device=cuda)
+    out = quantile_huber_weighted(*args, writeback=Writeback(got, got_max, ids, 1e-6, 0.5))
+    replay_writeback(want, want_max, ids, out[2], 1e-6, 0.5)
+    torch.cuda.synchronize()
+    assert _same_bits(got, want) and _same_bits(got_max, want_max)
+
+
+@pytest.mark.cuda
+def test_k1_with_k6_folded_refuses_what_it_does_not_take(cuda):
+    args, ring, ids = _fold_inputs(cuda, 32, 1, 64, 3)
+    with pytest.raises(ValueError):  # ids over another batch
+        quantile_huber_weighted(*args, writeback=Writeback(
+            ring, torch.tensor(1.0, device=cuda), ids[:, :16].contiguous(), 1e-6, 0.5))
+    with pytest.raises(TypeError):
+        quantile_huber_weighted(*args, writeback=Writeback(
+            ring, torch.tensor(1.0, device=cuda), ids.long(), 1e-6, 0.5))
+    with pytest.raises(ValueError):  # the ring elsewhere
+        quantile_huber_weighted(*args, writeback=Writeback(
+            ring.cpu(), torch.tensor(1.0), ids, 1e-6, 0.5))
+
+
+def _same_bits(a, b):
+    """Equal element for element, a NaN equal to a NaN."""
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
 
 
 def _same_state(got, want):
