@@ -105,8 +105,11 @@ and runs every phase, in this order:
   [32, 120, 512] with planted resets, the learner's burn-in [32, 40, 512]
   and train slice [32, 80, 512], and an act tick's [16, 1, 512]; K9-bwd at
   [32, 80, 512]; K11, the TD and priority epilogue,
-  at [32, 80, 18], n 3; K8s-stack at [32, 120, 84, 84], h 4) against their
-  twins, timed the same way (K9's yardstick: cuDNN's LSTM layer);
+  at [32, 80, 18], n 3, reading the train slice of [32, 120] rows in place,
+  and at G 4's [128, 80, 18]; K11 with K6s's write-back
+  folded in, bit-equal to K11 then K6s; K8s-stack at [32, 120, 84, 84], h 4)
+  against their twins, timed the same way (K9's yardstick: cuDNN's LSTM
+  layer);
 - ``learn_r2d2``: the R2D2 learner of the reference config (``--role single
   --architecture r2d2``: 84x84x4, LSTM 512, burn-in 40, 80 trained steps,
   B 32, n 3, 8,621,254 parameters) through ``R2D2Agent`` on a
@@ -117,18 +120,20 @@ and runs every phase, in this order:
 - ``train_r2d2``: the CLI with ``--architecture r2d2`` on ``toy:catch`` with
   the JAX package's own R2D2 catch configuration, 20,000 frames, at seeds
   3-6 in four processes, held to that test's bar (eval mean > 0.3);
-- ``kernels_r2d2_anakin``: the device sequence replay's kernels (K7s append
-  of 16 lanes of 120 x 84x84 steps and LSTM 512 into the config's uncut ring
-  of 8,333 sequences, wrapping; K5s draw over 8,333 priorities, dyadic, cold
+- ``kernels_r2d2_anakin``: the device sequence replay's kernels (K7s as the
+  act tick's prologue: the append of 16 lanes of 120 x 84x84 steps and LSTM
+  512 into the config's uncut ring of 8,333 sequences, wrapping, with the
+  frame stack's shift and pre = lstm * keep; K5s draw over 8,333 priorities, dyadic, cold
   and random, G 1 and 4, B 32; K8s gather and IS weights at B 32, G 1 and 4;
   K6s write-back with repeated ids) against their twins, timed the same way;
 - ``anakin_r2d2``: ``--role anakin --architecture r2d2`` of the reference
   config through the trainer's ``DeviceSequenceReplay`` at the uncut 8,333
-  sequences (~7.12 GB of device memory) and its ``act_append`` tick (K7s and
-  the act's K9, K3, K4) on 16 lanes of synthetic frames until past the warm
-  gate, with the one sanctioned read per tick, then 50 fused draw -> gather
-  -> learn -> write-back steps (``build_device_r2d2_learn``) under
-  ``forbid_host_sync()`` with exact launches per step, and a profile;
+  sequences (~7.12 GB of device memory) and its ``act_append`` tick (one K7s
+  prologue launch, then the act's K9, K3, K4) on 16 lanes of synthetic
+  frames until past the warm gate, with the one sanctioned read per tick,
+  and a profile of act ticks, then 50 fused draw -> gather -> learn ->
+  write-back steps (``build_device_r2d2_learn``: K6s inside K11's launch)
+  under ``forbid_host_sync()`` with exact launches per step, and a profile;
 - ``anakin_r2d2_parity``: one fused step on the card against the same step
   through the plain twins on the CPU, over a 300-sequence ring;
 - ``train_anakin_r2d2``: the CLI with ``--role anakin --architecture r2d2``
@@ -162,8 +167,8 @@ and runs every phase, in this order:
   ``index_add_``, K4l's ``log_softmax`` + ``gather``);
 - ``apex_mt``: ``train_apex`` with ``games`` = four jaxgame games (3, 5, 4
   and 3 actions, 80x80, 4 lanes each) and ``replay_ratio`` 2 over the
-  reference config: a ``MultiGameReplay`` of the uncut 1,000,000 slots, the
-  uncut ``learn_start`` of 20,000 frames, the loop's backlog of sampled
+  reference config: a ``MultiGameReplay`` of the uncut 1,000,000 slots,
+  ``learn_start`` cut to 2,000 frames, the loop's backlog of sampled
   batches at the first warm tick, then a window of 40 ticks, with exact
   launches per act, env step and sampled batch, no masked action taken,
   per-game learn shares and occupancy, clip_frac, a profile and peak
@@ -272,7 +277,8 @@ ANAKIN_PER_STEP = {"K1_quantile_huber": 1, "K2_tau_embed": 3, "K2_tau_embed_bwd"
                    "K8s_seq_assemble": 0, "K6s_seq_writeback": 0, "K12_device_games": 0,
                    "K2g_tau_embed_game": 0, "K2g_tau_embed_game_bwd": 0,
                    "K4m_dueling_head_mask": 0, "K4l_dueling_head_logp": 0}
-ANAKIN_FOLDED_PER_STEP = {"K6_replay_writeback": 1, "K6f_frontier_writeback": 0}
+ANAKIN_FOLDED_PER_STEP = {"K6_replay_writeback": 1, "K6f_frontier_writeback": 0,
+                          "K6s_seq_writeback": 0}
 FRONTIER_SHARDS = 2  # kernels_frontier: the mirror of 2 shards, the second one dead
 FRONTIER_REL = 1e-6  # K5f prob and weight: K5's chained total against torch's sum
 APEX_FILL = 2000  # append ticks of 16 lanes before the apex runs (32,000 transitions)
@@ -326,10 +332,13 @@ ANAKIN_R2D2_WARMUP = 5
 ANAKIN_R2D2_STEPS = 50
 ANAKIN_R2D2_PROFILE_STEPS = 10
 RING_R2D2_MIN_BYTES = 7_000_000_000  # the uncut ring of 8,333 sequences: ~7.12 GB
-# per learn step: R2D2_PER_STEP's learner, plus one draw (K5s), one gather
-# (K8s) and one write-back (K6s); nothing else
+# per learn step: R2D2_PER_STEP's learner, plus one draw (K5s) and one gather
+# (K8s); the write-back (K6s) runs inside K11's launch; nothing else
 ANAKIN_R2D2_PER_STEP = {**R2D2_PER_STEP, "K5s_seq_draw": 1, "K8s_seq_assemble": 1,
-                        "K6s_seq_writeback": 1}
+                        "K6s_seq_writeback": 0}
+ANAKIN_R2D2_FOLDED_PER_STEP = {"K6_replay_writeback": 0, "K6f_frontier_writeback": 0,
+                               "K6s_seq_writeback": 1}
+ACT_PROFILE_TICKS = 10  # anakin_r2d2: act_append ticks in the tick profile
 ANAKIN_R2D2_PARITY_SEQS = 300  # anakin_r2d2_parity: ring of the step against the CPU
 ANAKIN_R2D2_PARITY_TICKS = 1700  # 16 lanes: the 300 rows wrap
 R2D2_ANAKIN_CATCH_SEEDS = (3, 4, 5, 6)  # train_anakin_r2d2: fixed before any run read them
@@ -353,6 +362,10 @@ MT_KERNELS = ("K2g_tau_embed_game", "K2g_tau_embed_game_bwd", "K4m_dueling_head_
 MT_REPLAY_RATIO = 2
 MT_METRICS = 50  # apex_mt: metrics_interval, so games and learn rows fall in the run (config: 1,000)
 MT_WINDOW_TICKS = 40  # apex_mt: env ticks after the learn_start backlog's tick
+# apex_mt: learn_start, cut from the reference's 20,000 frames so that the
+# backlog at the first warm tick is 500 sampled batches, not 5,000 (printed
+# in the phase's cuts): the same learn step repeated, ~200 s of the script
+MT_LEARN_START = 2_000
 MT_PROFILE_FROM = 24  # apex_mt: the profiler spans window ticks 24 .. 24 + MT_PROFILE_TICKS
 MT_PROFILE_TICKS = 8
 # per sampled batch at K = 2: two logp forwards (K2g, K3 x4, K4l) and two
@@ -2889,33 +2902,107 @@ def phase_kernels_r2d2(torch, cfg):
     del lstm, phi, out, g_out, wrt
 
     # K11 ----------------------------------------------------------------------
+    from rainbow_iqn_apex_tpu_torch.kernels.replay_writeback import Writeback
+    from rainbow_iqn_apex_tpu_torch.kernels.seq_writeback import seq_writeback
+
     n = cfg.multi_step
     p = TDParams(n, cfg.gamma, cfg.r2d2_eta, cfg.value_rescale_eps)
+    capacity = max(cfg.memory_capacity // seq, 64)  # the R2D2 Anakin ring's priorities
 
     def rnd(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
 
-    valid = torch.ones((batch, steps), dtype=torch.bool, device=dev)
-    valid[0, steps // 2:] = False  # a sequence cut by a time limit
-    done = torch.rand((batch, steps), generator=gen, device=dev) < 0.02
-    args = (rnd(batch, steps, scale=3.0), rnd(batch, steps, actions, scale=3.0),
-            rnd(batch, steps, actions, scale=3.0), rnd(batch, steps), done, valid,
-            torch.rand((batch,), generator=gen, device=dev) * 0.7 + 0.3)
-    got, want = r2d2_td(*args, p), r2d2_td_plain(*args, p)
-    torch.cuda.synchronize()
-    max_abs, max_rel, ok = _max_errors(torch, zip(got, want), K11_TOL)
-    nbytes = 4 * batch * steps * (2 + 2 * actions) + 2 * batch * steps + 4 * batch + 4 * (
-        batch * steps + batch + 2)
-    bms, by = bound_ms(nbytes, batch * steps * (actions + 60), FP32_FLOPS)
-    k_ms = time_ms(torch, lambda: r2d2_td(*args, p))
-    p_ms = time_ms(torch, lambda: r2d2_td_plain(*args, p))
-    emit({"phase": "kernels_r2d2", "kernel": "K11_r2d2_td", "shape": [batch, steps, actions],
-          "n": n, "max_abs_err": max_abs, "max_rel_err": max_rel, "tol": K11_TOL, "ok": ok,
-          "loss": float(got[0]), "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": None,
-          "bound_ms": bms, "bound_by": by})
-    check(ok, f"K11 disagrees with its twin: max abs {max_abs}")
-    results["K11_r2d2_td"] = dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms, bound_ms=bms,
-                                  bound_by=by, library_ms=None)
+    def td_args(rows):
+        """K11's inputs at ``rows`` sequences: reward, done and valid as the
+        train slice of [rows, burn-in + T] rows, as the learn step passes them."""
+        valid = torch.ones((rows, seq), dtype=torch.bool, device=dev)
+        valid[0, burn + steps // 2:] = False  # a sequence cut by a time limit
+        done = torch.rand((rows, seq), generator=gen, device=dev) < 0.02
+        return (rnd(rows, steps, scale=3.0), rnd(rows, steps, actions, scale=3.0),
+                rnd(rows, steps, actions, scale=3.0), rnd(rows, seq)[:, burn:], done[:, burn:],
+                valid[:, burn:], torch.rand((rows,), generator=gen, device=dev) * 0.7 + 0.3)
+
+    def td_bytes(rows):
+        return 4 * rows * steps * (2 + 2 * actions) + 2 * rows * steps + 4 * rows + 4 * (
+            rows * steps + rows + 2)
+
+    worst, k11 = 0.0, {}
+    for groups in (1, 4):  # G 4: 128 sequences, eight a block of the cluster
+        args = td_args(groups * batch)
+        got, want = r2d2_td(*args, p), r2d2_td_plain(*args, p)
+        again = r2d2_td(*args, p)
+        torch.cuda.synchronize()
+        max_abs, max_rel, ok = _max_errors(torch, zip(got, want), K11_TOL)
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        worst = max(worst, max_abs)
+        bms, by = bound_ms(td_bytes(groups * batch), groups * batch * steps * (actions + 60),
+                           FP32_FLOPS)
+        k_ms = time_ms(torch, lambda: r2d2_td(*args, p))
+        p_ms = time_ms(torch, lambda: r2d2_td_plain(*args, p))
+        emit({"phase": "kernels_r2d2", "kernel": "K11_r2d2_td",
+              "shape": [groups * batch, steps, actions], "n": n, "strided_slice": True,
+              "max_abs_err": max_abs, "max_rel_err": max_rel, "tol": K11_TOL, "ok": ok,
+              "repeat_bit_equal": repeat, "loss": float(got[0]), "kernel_ms": k_ms,
+              "plain_ms": p_ms, "library_ms": None, "bound_ms": bms, "bound_by": by})
+        check(ok and repeat, f"K11 (G={groups}) disagrees with its twin: max abs {max_abs}, "
+                             f"repeat bit-equal {repeat}")
+        k11[groups] = dict(args=args, ms=k_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by)
+    one = td_args(1)  # a cluster of one block
+    max_abs, max_rel, ok = _max_errors(torch, zip(r2d2_td(*one, p), r2d2_td_plain(*one, p)),
+                                       K11_TOL)
+    worst = max(worst, max_abs)
+    emit({"phase": "kernels_r2d2", "kernel": "K11_r2d2_td", "shape": [1, steps, actions], "n": n,
+          "max_abs_err": max_abs, "max_rel_err": max_rel, "tol": K11_TOL, "ok": ok})
+    check(ok, f"K11 at one sequence disagrees with its twin: max abs {max_abs}")
+
+    # K6s folded into K11, the R2D2 Anakin step's route: bit-equal to K11's
+    # launch then K6s's, with repeated ids (inside and across groups) and a
+    # NaN |TD|
+    eps, omega = cfg.priority_eps, cfg.priority_exponent
+    base = torch.rand((capacity,), generator=gen, device=dev) + 0.05
+    failed, cases = [], 0
+    for groups, nan_td in ((1, False), (4, True), (1, True), (4, False)):
+        args = list(td_args(groups * batch))
+        if nan_td:
+            args[3][1, 5] = float("nan")
+        ids = torch.randint(0, 64, (groups, batch), generator=gen, device=dev, dtype=torch.int32)
+        got_p, got_max = base.clone(), torch.tensor(1.5, device=dev)
+        want_p, want_max = base.clone(), torch.tensor(1.5, device=dev)
+        out = r2d2_td(*args, p, Writeback(got_p, got_max, ids, eps, omega))
+        ref = r2d2_td(*args, p)
+        seq_writeback(want_p, want_max, ids, ref[1], eps, omega)
+        torch.cuda.synchronize()
+        cases += 1
+        if not (all(_same_bits(torch, a, b) for a, b in zip(out, ref))
+                and _same_bits(torch, got_p, want_p) and _same_bits(torch, got_max, want_max)):
+            failed.append(f"G {groups}{' NaN td' if nan_td else ''}: not K11 then K6s")
+        if bool(torch.isnan(got_max)) != nan_td:
+            failed.append(f"G {groups}{' NaN td' if nan_td else ''}: the maximum's NaN")
+    args = k11[1]["args"]
+    ids = torch.randint(0, capacity, (1, batch), generator=gen, device=dev, dtype=torch.int32)
+    ring, ring_max = base.clone(), torch.tensor(1.5, device=dev)
+    target = Writeback(ring, ring_max, ids, eps, omega)
+
+    def two_launches():
+        out = r2d2_td(*args, p)
+        seq_writeback(ring, ring_max, ids, out[1], eps, omega)
+
+    # the fold: K11's bytes, the ids and each slot's priority written, max_priority
+    fold_bms, fold_by = bound_ms(td_bytes(batch) + batch * 2 * 4 + 8,
+                                 batch * steps * (actions + 60), FP32_FLOPS)
+    fold = dict(into="K11_r2d2_td", cases=cases, failed=failed,
+                ms=time_ms(torch, lambda: r2d2_td(*args, p, target)),
+                two_launch_ms=time_ms(torch, two_launches),
+                k11_ms=k11[1]["ms"], bound_ms=fold_bms, bound_by=fold_by)
+    emit({"phase": "kernels_r2d2", "kernel": "K6s_seq_writeback", "mode": "folded into K11",
+          "shape": [1, batch, steps, actions], "ring": capacity, "ok": not failed, **fold})
+    check(not failed, f"K6s folded into K11: {failed}")
+    results["K11_r2d2_td"] = dict(max_abs_err=worst, **{
+        key: k11[1][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        library_ms=None, cluster=dict(shape=[4 * batch, steps, actions], **{
+            key: k11[4][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")}))
+    k6s_fold = fold
+    del k11, args, base, ring
 
     # K8s-stack ----------------------------------------------------------------
     history = cfg.history_length
@@ -2934,7 +3021,7 @@ def phase_kernels_r2d2(torch, cfg):
                                     bound_by=by, library_ms=None)
     del obs
     torch.cuda.empty_cache()
-    return results
+    return results, k6s_fold
 
 
 def _fill_sequences(cfg, np, lanes):
@@ -3202,21 +3289,26 @@ def _fill_seq_ring(torch, np, replay, ss, ticks, seed):
 def phase_kernels_r2d2_anakin(torch, cfg):
     """K7s, K5s, K8s and K6s against their plain twins on the card at the
     R2D2 Anakin learner's full width: the config's uncut ring of 8,333
-    sequences of L 120 (84x84, LSTM 512, 16 lanes, stride 80), B 32, G 1 and
-    4.  K7s: two rings (kernel, twin) driven through the same ticks from a
-    cursor 5 slots before the end, so emissions wrap past C inside one tick,
-    then timed on a tick where no lane emits and one where all 16 emit full
-    windows (its bytes go in the kernels line); K5s on dyadic priorities
+    sequences of L 120 (84x84, LSTM 512, 16 lanes, stride 80, history 4), B
+    32, G 1 and 4.  K7s as the act tick's prologue: two rings and frame
+    stacks (kernel, twin) driven through the same ticks from a cursor 5
+    slots before the end, so emissions wrap past C inside one tick, the
+    first tick appending nothing; then timed on a tick where no lane emits
+    and one where all 16 emit full windows (its bytes go in the kernels
+    line), beside the parent's route (K7s's append, then shift_stack's three
+    ops and pre's three: seven device ops); K5s on dyadic priorities
     (exact), a cold ring (exact) and random priorities (against an fp64
     cdf); K8s and K6s on the filled ring.  The kernels line takes G 1."""
     import numpy as np
 
     from rainbow_iqn_apex_tpu_torch.kernels.seq_append import (
+        act_prologue,
+        act_prologue_plain,
         plan_append,
         seq_append,
-        seq_append_plain,
     )
     from rainbow_iqn_apex_tpu_torch.kernels.seq_assemble import seq_assemble, seq_assemble_plain
+    from rainbow_iqn_apex_tpu_torch.parallel.multihost import shift_stack
     from rainbow_iqn_apex_tpu_torch.kernels.seq_draw import seq_draw, seq_draw_plain
     from rainbow_iqn_apex_tpu_torch.kernels.seq_writeback import (
         seq_writeback,
@@ -3237,19 +3329,38 @@ def phase_kernels_r2d2_anakin(torch, cfg):
                                   device=dev)
     results = {}
 
-    # K7s ------------------------------------------------------------------
+    # K7s, as the act tick's prologue ----------------------------------------
+    history = cfg.history_length
     got, want = replay.init_state(), replay.init_state()
     for s in (got, want):
         s.pos = s.filled = capacity - 5
+    stacks = [torch.zeros((lanes, *frame, history), dtype=torch.uint8, device=dev)
+              for _ in range(2)]
     rng = np.random.default_rng(SEED + 41)
-    for _ in range(SEQ_KERNEL_TICKS):
-        f, a, r, term, trunc, c, h = _seq_tick_data(np, rng, lanes, frame, lstm)
+
+    def tick_inputs(p_term=SEQ_P_TERM, p_trunc=SEQ_P_TRUNC):
+        """A tick's frame, keep and act state on the card, and the
+        transition it leaves for the next tick's append."""
+        f, a, r, term, trunc, c, h = _seq_tick_data(np, rng, lanes, frame, lstm, p_term, p_trunc)
         f, a, c, h = (torch.from_numpy(x).to(dev) for x in (f, a, c, h))
-        replay.append(got, f, a, r, term, trunc, c, h)
-        plan = plan_append(want.buf_len, term, trunc, want.pos, want.filled, capacity, seq,
-                           stride)
-        seq_append_plain(want, f, a, r, term, c, h, plan, stride)
-        want.buf_len, want.pos, want.filled = plan.buf_len, plan.pos, plan.filled
+        keep = torch.from_numpy((rng.random(lanes) > 0.01).astype(np.uint8)).to(dev)
+        return (f, keep, c, h), (a, r, term, trunc)
+
+    prev, prev_twin, stack_or_pre_differ = None, None, 0
+    for tick in range(SEQ_KERNEL_TICKS):
+        (f, keep, c, h), (a, r, term, trunc) = tick_inputs()
+        plan = None
+        if prev is not None:
+            plan = plan_append(want.buf_len, prev[3], prev[4], want.pos, want.filled, capacity,
+                               seq, stride)
+        pre = replay.act_prologue(got, prev, stacks[0], f, keep, (c, h))
+        pre_twin = act_prologue_plain(want, prev_twin, plan, stride, stacks[1], f, keep, c, h)
+        if plan is not None:
+            want.buf_len, want.pos, want.filled = plan.buf_len, plan.pos, plan.filled
+        stack_or_pre_differ += not (torch.equal(stacks[0], stacks[1]) and all(
+            torch.equal(x, y) for x, y in zip(pre, pre_twin)))
+        prev = (f, a, r, term, trunc, *pre)
+        prev_twin = (f, a, r, term, *pre_twin)
     torch.cuda.synchronize()
     differing = [n for n in ("frames", "actions", "rewards", "dones", "valids", "init_c",
                              "init_h") if not torch.equal(getattr(got, n)[:capacity],
@@ -3263,38 +3374,72 @@ def phase_kernels_r2d2_anakin(torch, cfg):
         differing += [f"{b}[{lane}]" for b in ("buf_frames", "buf_actions", "buf_rewards",
                                                "buf_dones", "buf_c", "buf_h")
                       if not torch.equal(getattr(got, b)[lane, :n], getattr(want, b)[lane, :n])]
+    if stack_or_pre_differ:
+        differing.append(f"stack or pre on {stack_or_pre_differ} ticks")
     wrapped = got.filled == capacity and got.pos < capacity - 5
-    f, a, r, term, trunc, c, h = _seq_tick_data(np, rng, lanes, frame, lstm, 0.0, 0.0)
-    f, a, c, h = (torch.from_numpy(x).to(dev) for x in (f, a, c, h))
-    none = plan_append(np.zeros(lanes, np.int32), term, trunc, 0, capacity, capacity, seq, stride)
-    full = plan_append(np.full(lanes, seq - 1, np.int32), term, trunc, 0, capacity, capacity,
-                       seq, stride)
+    # a quiet tick (no lane emits) and a tick where all 16 lanes emit full
+    # windows, bit-equal to the twin and timed: the prologue, its twin, and
+    # the parent's route (K7s's append, then shift_stack and the two
+    # multiplies of pre as torch ops)
+    (f, keep, c, h), (a, r, term, trunc) = tick_inputs(0.0, 0.0)
+    keep.fill_(1)
+    ticks = {"no_lane_emits": np.zeros(lanes, np.int32),
+             "all_lanes_emit": np.full(lanes, seq - 1, np.int32)}
     times = {}
-    for name, plan in (("no_lane_emits", none), ("all_lanes_emit", full)):
-        times[name] = (time_ms(torch, lambda: seq_append(got, f, a, r, term, c, h, plan, stride)),
-                       time_ms(torch, lambda: seq_append_plain(want, f, a, r, term, c, h, plan,
-                                                               stride)))
+    for name, buf_len in ticks.items():
+        plan = plan_append(buf_len, term, trunc, 0, capacity, capacity, seq, stride)
+        check(bool((plan.slot >= 0).all()) if name == "all_lanes_emit"
+              else bool((plan.slot < 0).all()), f"K7s's {name} tick plan")
+        args = (f, a, r, term, c, h)
+
+        def prologue():
+            return act_prologue(got, args, plan, stride, stacks[0], f, keep, c, h)
+
+        def twin():
+            return act_prologue_plain(want, args, plan, stride, stacks[1], f, keep, c, h)
+
+        def parent_route():
+            seq_append(got, *args, plan, stride)
+            shift_stack(stacks[0], f, keep)
+            kf = keep.to(torch.float32)[:, None]
+            return c * kf, h * kf
+
+        for s in (got, want):
+            s.buf_len = buf_len.copy()
+        k_pre, w_pre = prologue(), twin()
+        torch.cuda.synchronize()
+        if not (torch.equal(stacks[0], stacks[1])
+                and all(torch.equal(x, y) for x, y in zip(k_pre, w_pre))):
+            differing.append(f"{name}: stack or pre")
+        times[name] = dict(ms=time_ms(torch, prologue), plain_ms=time_ms(torch, twin),
+                           parent_route_ms=time_ms(torch, parent_route),
+                           append_alone_ms=time_ms(torch, lambda: seq_append(
+                               got, *args, plan, stride)))
     step_bytes = hw + 4 + 4 + 1 + 2 * lstm * 4  # one builder step
     window_read = (seq - 1) * (hw + 9) + (seq - stride) * 2 * lstm * 4 + 2 * lstm * 4
     window_written = seq * (hw + 10) + 2 * lstm * 4 + 4 + (seq - stride) * step_bytes
-    nbytes = lanes * (2 * step_bytes + window_read + window_written) + 4
-    bms, by = bound_ms(nbytes, lanes * seq, FP32_FLOPS)
-    quiet_bms, quiet_by = bound_ms(lanes * 2 * step_bytes, lanes, FP32_FLOPS)
-    emit({"phase": "kernels_r2d2_anakin", "kernel": "K7s_seq_append",
-          "shape": [lanes, seq, *frame, lstm], "capacity": capacity, "stride": stride,
-          "ticks": SEQ_KERNEL_TICKS, "wrapped": wrapped, "fields_differing": differing,
-          "ok": not differing and wrapped,
-          "kernel_ms": times["all_lanes_emit"][0], "plain_ms": times["all_lanes_emit"][1],
-          "bound_ms": bms, "bound_by": by, "library_ms": None,
-          "no_lane_emits": {"kernel_ms": times["no_lane_emits"][0],
-                            "plain_ms": times["no_lane_emits"][1], "bound_ms": quiet_bms,
-                            "bound_by": quiet_by}})
-    check(not differing and wrapped, f"K7s disagrees with its twin on {differing[:8]} "
-                                     f"(wrapped {wrapped})")
-    results["K7s_seq_append"] = dict(max_abs_err=0.0, ms=times["all_lanes_emit"][0],
-                                     plain_ms=times["all_lanes_emit"][1], bound_ms=bms,
-                                     bound_by=by, library_ms=None)
-    del want
+    # the prologue's own parts: the stack read and written, this tick's frame
+    # and keep read, the act's state read and pre written
+    prologue_bytes = lanes * (2 * hw * history + hw + 1 + 4 * lstm * 4)
+    nbytes = lanes * (2 * step_bytes + window_read + window_written) + 4 + prologue_bytes
+    bms, by = bound_ms(nbytes, lanes * (seq + 2 * lstm), FP32_FLOPS)
+    quiet_bms, quiet_by = bound_ms(lanes * 2 * step_bytes + prologue_bytes,
+                                   lanes * (1 + 2 * lstm), FP32_FLOPS)
+    times["all_lanes_emit"].update(bound_ms=bms, bound_by=by)
+    times["no_lane_emits"].update(bound_ms=quiet_bms, bound_by=quiet_by)
+    emit({"phase": "kernels_r2d2_anakin", "kernel": "K7s_seq_append", "mode": "act prologue",
+          "shape": [lanes, seq, *frame, lstm], "history": history, "capacity": capacity,
+          "stride": stride, "ticks": SEQ_KERNEL_TICKS, "wrapped": wrapped,
+          "fields_differing": differing, "ok": not differing and wrapped,
+          "kernel_ms": times["all_lanes_emit"]["ms"],
+          "plain_ms": times["all_lanes_emit"]["plain_ms"], "bound_ms": bms, "bound_by": by,
+          "library_ms": None, **times})
+    check(not differing and wrapped, f"K7s's prologue disagrees with its twin on "
+                                     f"{differing[:8]} (wrapped {wrapped})")
+    results["K7s_seq_append"] = dict(max_abs_err=0.0, ms=times["all_lanes_emit"]["ms"],
+                                     plain_ms=times["all_lanes_emit"]["plain_ms"], bound_ms=bms,
+                                     bound_by=by, library_ms=None, prologue=times)
+    del want, stacks
     torch.cuda.empty_cache()
     ss = got  # the kernel's ring: K8s and K6s below read it
 
@@ -3415,15 +3560,17 @@ def phase_kernels_r2d2_anakin(torch, cfg):
 def phase_anakin_r2d2(torch, cfg):
     """The R2D2 Anakin learner through the port's entry points: the trainer's
     ``DeviceSequenceReplay`` at the config's uncut 8,333 sequences, filled
-    through the trainer's own ``act_append`` tick (K7s and the act's K9, K3,
-    K4) from 16 lanes of seeded synthetic frames, under ``forbid_host_sync()``
-    but for the one sanctioned read of the actions, until past the warm gate;
-    then ANAKIN_R2D2_STEPS ``build_device_r2d2_learn`` steps under
-    ``forbid_host_sync()`` with exact launches per step, and a profile."""
+    through the trainer's own ``act_append`` tick (one K7s prologue launch,
+    then the act's K9, K3, K4) from 16 lanes of seeded synthetic frames,
+    under ``forbid_host_sync()`` but for the one sanctioned read of the
+    actions, until past the warm gate, and a profile of ACT_PROFILE_TICKS
+    ticks; then ANAKIN_R2D2_STEPS ``build_device_r2d2_learn`` steps (K6s in
+    K11's launch) under ``forbid_host_sync()`` with exact launches and
+    folded write-backs per step, and a profile."""
     import numpy as np
 
     from rainbow_iqn_apex_tpu_torch.agents.agent import put_frames
-    from rainbow_iqn_apex_tpu_torch.kernels import launches, reset_launches
+    from rainbow_iqn_apex_tpu_torch.kernels import folded, launches, reset_launches
     from rainbow_iqn_apex_tpu_torch.ops.r2d2 import init_r2d2_state
     from rainbow_iqn_apex_tpu_torch.replay.device_sequence import (
         DeviceSequenceReplay,
@@ -3488,12 +3635,14 @@ def phase_anakin_r2d2(torch, cfg):
     fill_s = time.perf_counter() - t_fill
     tick_counts = dict(launches)
     want_ticks = {name: 0 for name in tick_counts}
-    want_ticks.update({"K7s_seq_append": ticks - 1, "K9_lstm": ticks, "K3_noisy_linear": 4 * ticks,
+    # one K7s a tick: the prologue (on the first tick the stack shift and pre alone)
+    want_ticks.update({"K7s_seq_append": ticks, "K9_lstm": ticks, "K3_noisy_linear": 4 * ticks,
                        "K4_dueling_head": ticks})
     check(tick_counts == want_ticks, f"launches of {ticks} act_append ticks {tick_counts}, "
                                      f"want {want_ticks}")
     check(sum(k7s_ticks.values()) == ticks - 1 and ss.filled < capacity,
           f"K7s ticks {k7s_ticks} of {ticks - 1} appends")
+    act_profile = profile_act_r2d2(torch, np, act_append, ts, stack, ss, state, prev, pool, rng)
 
     fused = build_device_r2d2_learn(cfg, 18, replay)
     beta = priority_beta(cfg, ticks * lanes)
@@ -3503,7 +3652,7 @@ def phase_anakin_r2d2(torch, cfg):
     with torch.no_grad():
         target_before = torch.cat([p.flatten() for p in ts.target.parameters()])
     step0 = ts.step
-    before = dict(launches)
+    before, folded_before = dict(launches), dict(folded)
     torch.cuda.reset_peak_memory_stats()
     losses, finite, lat_ms = [], [], []
     t_run = time.perf_counter()
@@ -3522,6 +3671,8 @@ def phase_anakin_r2d2(torch, cfg):
     counts = dict(launches)
     per_step = {name: (counts[name] - before[name]) / ANAKIN_R2D2_STEPS for name in counts}
     want = {name: float(ANAKIN_R2D2_PER_STEP.get(name, 0)) for name in counts}
+    folded_per_step = {name: (n - folded_before[name]) / ANAKIN_R2D2_STEPS
+                       for name, n in folded.items()}
     loss_t = torch.stack(losses)
     all_finite = bool(torch.isfinite(loss_t).all()) and bool(torch.stack(finite).all())
     with torch.no_grad():
@@ -3535,11 +3686,11 @@ def phase_anakin_r2d2(torch, cfg):
           "warm_gate": learn_start_seqs, "append_ticks": ticks, "fill_seconds": fill_s,
           "act_append_us_per_tick_p50": float(ticks_sorted[len(ticks_sorted) // 2]),
           "act_append_us_per_tick_mean": float(ticks_sorted.mean()),
-          "tick_launches": tick_counts, "k7s_ticks": k7s_ticks,
+          "tick_launches": tick_counts, "k7s_ticks": k7s_ticks, "act_profile": act_profile,
           "learn_steps_per_s": ANAKIN_R2D2_STEPS / elapsed,
           "seconds": elapsed, "step_host_p50_ms": float(lat[len(lat) // 2]),
           "step_host_p99_ms": float(lat[int(0.99 * (len(lat) - 1))]),
-          "launches_per_step": per_step,
+          "launches_per_step": per_step, "folded_per_step": folded_per_step,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "memory_allocated": torch.cuda.memory_allocated(),
           "losses_finite": all_finite, "loss_first": float(loss_t[0]),
@@ -3547,13 +3698,61 @@ def phase_anakin_r2d2(torch, cfg):
           "target_moved": not torch.equal(target_before, target_after), "cuts": cut_info})
     check(ring_bytes >= RING_R2D2_MIN_BYTES, f"the sequence ring holds {ring_bytes} bytes")
     check(per_step == want, f"launches per R2D2 anakin learn step {per_step}, want {want}")
+    check(folded_per_step == {k: float(v) for k, v in ANAKIN_R2D2_FOLDED_PER_STEP.items()},
+          f"write-backs folded per R2D2 anakin step {folded_per_step}, want "
+          f"{ANAKIN_R2D2_FOLDED_PER_STEP}")
     check(all_finite, "a non-finite loss in the anakin_r2d2 phase")
     check(copies >= 1 and not torch.equal(target_before, target_after),
           "no target copy happened in the anakin_r2d2 phase")
+    counts = with_folded(counts, folded)
     profile_anakin_r2d2(torch, fused, ts, ss, gen, beta)
     del ss, replay, ts, fused, stack, state, prev
     torch.cuda.empty_cache()
     return counts
+
+
+def profile_act_r2d2(torch, np, act_append, ts, stack, ss, state, prev, pool, rng):
+    """Where the time of an R2D2 act tick goes (ACT_PROFILE_TICKS of the
+    trainer's ``act_append`` ticks, each ending in the loop's read of the
+    actions): device ops and device time a tick, by kernel name.  The ticks
+    append to the phase's ring, and their launches are in the counts the
+    phase returns."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rainbow_iqn_apex_tpu_torch.agents.agent import put_frames
+    from rainbow_iqn_apex_tpu_torch.kernels import launches
+
+    lanes = stack.shape[0]
+    dev = stack.device
+    before = dict(launches)
+    cuts = np.zeros(lanes, bool)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for tick in range(ACT_PROFILE_TICKS):
+            frame_d = put_frames(pool[tick % len(pool)], dev)
+            keep_d = put_frames((~cuts).astype(np.uint8), dev)
+            actions_d, state, pre = act_append(ts.net, stack, ss, state, frame_d, keep_d, prev)
+            actions_d.cpu()
+            terms = rng.random(lanes) < SEQ_P_TERM
+            prev = (frame_d, actions_d, rng.normal(size=lanes).astype(np.float32), terms,
+                    np.zeros(lanes, bool), pre[0], pre[1])
+            cuts = terms
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = device_rows(torch, prof)
+    n = ACT_PROFILE_TICKS
+    device_us = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    out = {"ticks": n, "wall_us_per_tick": wall_us / n,
+           "device_ops_per_tick": sum(r[2] for r in rows) / n if rows else "not measured",
+           "device_us_per_tick": device_us / n if rows else "not measured",
+           "device_idle_share": 1.0 - device_us / wall_us if rows else "not measured",
+           "k7s_per_tick": (launches["K7s_seq_append"] - before["K7s_seq_append"]) / n,
+           "top": [{"name": k[:80], "us_per_tick": t / n, "calls_per_tick": c / n}
+                   for k, t, c in rows[:12]]}
+    emit({"phase": "profile_act_r2d2", **out})
+    return out
 
 
 def profile_anakin_r2d2(torch, fused, ts, ss, gen, beta):
@@ -4264,8 +4463,8 @@ def phase_apex_mt(torch, cfg):
     config with ``games`` = the four-game jaxgame suite (16 lanes, 4 a
     game, one ``JaxGameEnv`` each: K12 per lane step), ``replay_ratio`` 2,
     ``multitask_schedule`` uniform, a ``MultiGameReplay`` of four game shard
-    blocks over the uncut 1,000,000 slots of 80x80 frames, past the uncut
-    ``learn_start`` of 20,000 frames: the loop's backlog of sampled batches
+    blocks over the uncut 1,000,000 slots of 80x80 frames, past
+    ``learn_start`` cut to MT_LEARN_START frames: the loop's backlog of sampled batches
     (frames // frames_per_learn at the first warm tick), then a window of
     MT_WINDOW_TICKS ticks.  Hooks on ``ApexDriver`` and ``VectorEnv`` read
     the launch counters around each act, env step and learn call (exact per
@@ -4286,7 +4485,8 @@ def phase_apex_mt(torch, cfg):
     limit = np.repeat(np.asarray(spec.num_actions), lanes // spec.num_games)
     work = tempfile.mkdtemp(prefix="apex_mt-")
     run = cfg.replace(games=MT_GAMES, replay_ratio=MT_REPLAY_RATIO, multitask_schedule="uniform",
-                      target_update_period=LEARN_TARGET_PERIOD, weight_publish_interval=APEX_PUBLISH,
+                      learn_start=MT_LEARN_START, target_update_period=LEARN_TARGET_PERIOD,
+                      weight_publish_interval=APEX_PUBLISH,
                       metrics_interval=MT_METRICS, eval_episodes=1, stall_timeout_s=0.0,
                       run_id="apex_mt", results_dir=os.path.join(work, "results"),
                       checkpoint_dir=os.path.join(work, "ckpt"))
@@ -4390,7 +4590,8 @@ def phase_apex_mt(torch, cfg):
     emit({"phase": "apex_mt", "games": list(spec.games), "num_actions": list(spec.num_actions),
           "lanes": lanes, "replay_ratio": MT_REPLAY_RATIO, "capacity": run.memory_capacity,
           "frame": list(spec.frame_shape), "learn_start": run.learn_start,
-          "cuts": {"target_update_period": run.target_update_period,
+          "cuts": {"learn_start": run.learn_start,
+                   "target_update_period": run.target_update_period,
                    "weight_publish_interval": run.weight_publish_interval,
                    "metrics_interval": run.metrics_interval, "eval_episodes": run.eval_episodes,
                    "max_frames": max_frames},
@@ -4962,12 +5163,14 @@ def main() -> int:
         timed("apex_parity", phase_apex_parity, torch, learn_cfg)
         timed("train_apex", phase_train_apex, torch)
         timed("train_apex_quant", phase_train_apex_quant, torch)
-        results.update(timed("kernels_r2d2", phase_kernels_r2d2, torch, learn_cfg))
+        r2d2_results, k6s_fold = timed("kernels_r2d2", phase_kernels_r2d2, torch, learn_cfg)
+        results.update(r2d2_results)
         counts["learn_r2d2"], r2d2_ctx = timed("learn_r2d2", phase_learn_r2d2, torch, learn_cfg)
         timed("r2d2_parity", phase_r2d2_parity, torch, learn_cfg, r2d2_ctx)
         del r2d2_ctx
         timed("train_r2d2", phase_train_r2d2, torch)
         results.update(timed("kernels_r2d2_anakin", phase_kernels_r2d2_anakin, torch, learn_cfg))
+        results["K6s_seq_writeback"]["folded"] = k6s_fold
         counts["anakin_r2d2"] = timed("anakin_r2d2", phase_anakin_r2d2, torch, learn_cfg)
         timed("anakin_r2d2_parity", phase_anakin_r2d2_parity, torch, learn_cfg)
         timed("train_anakin_r2d2", phase_train_anakin_r2d2, torch)
@@ -5012,7 +5215,8 @@ def main() -> int:
                      "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                      "bound_by": res["bound_by"], "library_ms": res["library_ms"],
                      **{key: res[key] for key in ("heads", "one_lane_step", "per_sample",
-                                                  "scaled", "chain", "dz", "folded")
+                                                  "scaled", "chain", "dz", "folded",
+                                                  "cluster", "prologue")
                         if key in res}})
     emit({"phase": "total", "seconds": time.perf_counter() - t_script,
           "seconds_by_phase": by_phase})

@@ -35,11 +35,15 @@ and which tests and ``chip_smoke.py`` hold the kernel against.
     K9  lstm.lstm_forward                      R2D2's resettable LSTM recurrence (one launch per unroll)
         lstm.lstm_backward                     its backward through time
     K11 r2d2_td.r2d2_td                        R2D2's n-step TD, value rescale, masked Huber, priorities
+                                               (with K6s folded in on the R2D2 Anakin step)
     K8s seq_stack.seq_stack                    R2D2's in-sequence frame stack
     K7s seq_append.seq_append                  one append tick into R2D2's device sequence ring
+        seq_append.act_prologue                the R2D2 act tick's prologue: the append, the
+                                               frame-stack shift and pre = lstm * keep
     K5s seq_draw.seq_draw                      the sequence ring's draw over its effective priorities
     K8s seq_assemble.seq_assemble              the sequence ring's gather and IS weights
-    K6s seq_writeback.seq_writeback            the sequence ring's priority write-back (unfenced K6)
+    K6s seq_writeback.seq_writeback            the sequence ring's priority write-back (unfenced K6;
+                                               folded into K11 on the R2D2 Anakin step)
     K12 device_games.game_tick                 the device games' auto-reset tick (JAX's Threefry stream)
         device_games.game_init / game_step / game_render   its init, reset-free step and render modes
 
@@ -49,8 +53,9 @@ module (``TauEmbedFn``, ``NoisyLinearFn``, ``DuelingGatherFn``,
 learners call; ``learn_loss.LearnLossFn`` chains K4's heads mode, K1's
 weighted mode and K4-bwd's loss mode for the IQN learn step.
 
-``launches`` counts kernel launches by name, ``folded`` the runs of K6 and
-K6f folded into K1's and K5f's launches; ``reset_launches`` zeroes both.
+``launches`` counts kernel launches by name, ``folded`` the runs of K6, K6f
+and K6s folded into K1's, K5f's and K11's launches; ``reset_launches``
+zeroes both.
 """
 
 from rainbow_iqn_apex_tpu_torch.kernels.build import folded, launches, reset_launches

@@ -12,7 +12,8 @@ twins run.
 ``launches`` counts kernel launches by kernel name.  A wrapper adds one
 right after its kernel launched, and nowhere else.  ``folded`` counts the
 runs of a kernel's work folded into another kernel's launch (K6 in K1's
-weighted launch, K6f's queue in K5f's), which count as that launch only.
+weighted launch, K6f's queue in K5f's, K6s in K11's), which count as that
+launch only.
 """
 
 from __future__ import annotations
@@ -79,9 +80,11 @@ launches: Dict[str, int] = {
 folded: Dict[str, int] = {
     "K6_replay_writeback": 0,  # in K1_quantile_huber's weighted launch
     "K6f_frontier_writeback": 0,  # in K5f_frontier_draw's first launch
+    "K6s_seq_writeback": 0,  # in K11_r2d2_td's launch
 }
 FOLDED_INTO = {"K6_replay_writeback": "K1_quantile_huber",
-               "K6f_frontier_writeback": "K5f_frontier_draw"}
+               "K6f_frontier_writeback": "K5f_frontier_draw",
+               "K6s_seq_writeback": "K11_r2d2_td"}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

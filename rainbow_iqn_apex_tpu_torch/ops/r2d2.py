@@ -43,6 +43,7 @@ from rainbow_iqn_apex_tpu_torch.kernels.r2d2_td import (
     value_rescale,
     value_unrescale,
 )
+from rainbow_iqn_apex_tpu_torch.kernels.replay_writeback import Writeback
 from rainbow_iqn_apex_tpu_torch.kernels.seq_stack import seq_stack
 from rainbow_iqn_apex_tpu_torch.models.init import init_network_
 from rainbow_iqn_apex_tpu_torch.models.r2d2 import LSTMState, R2D2Net, make_r2d2_network
@@ -140,8 +141,11 @@ def _unroll_features(net: R2D2Net, obs: torch.Tensor, state: LSTMState, resets: 
 
 
 def build_r2d2_learn_step(cfg: Config, num_actions: int):
-    """The learn step ``(state, batch, generator=None, draws=None) ->
-    (state, info)``; ``state`` is updated in place and returned."""
+    """The learn step ``(state, batch, generator=None, draws=None,
+    writeback=None) -> (state, info)``; ``state`` is updated in place and
+    returned.  ``writeback``: a ``Writeback`` target (the device sequence
+    ring's priorities at the batch's draws) that K11's launch writes the
+    priorities into, K6s's write-back folded in."""
     burn, n = cfg.r2d2_burn_in, cfg.multi_step
     history = cfg.history_length
     if history > 1 and burn < history - 1:
@@ -155,7 +159,8 @@ def build_r2d2_learn_step(cfg: Config, num_actions: int):
 
     def learn_step(state: R2D2TrainState, batch: SequenceBatch,
                    generator: Optional[torch.Generator] = None,
-                   draws: Optional[Dict[str, Dict[str, Tuple[torch.Tensor, torch.Tensor]]]] = None):
+                   draws: Optional[Dict[str, Dict[str, Tuple[torch.Tensor, torch.Tensor]]]] = None,
+                   writeback: Optional[Writeback] = None):
         draws = draws or {}
         obs = batch.obs
         if history > 1 and obs.shape[-1] == 1:
@@ -173,11 +178,11 @@ def build_r2d2_learn_step(cfg: Config, num_actions: int):
             value, adv = state.target.heads(feat_t, draws.get("target"), generator)
             _, q_tgt, _ = dueling_head(value, adv, 1)
         batch_size = obs.shape[0]
+        # K11 reads the train slice of reward, done and valid in place
         loss, priorities, q_mean = R2D2TDFn.apply(
             q_taken.reshape(batch_size, steps), q_sel.reshape(batch_size, steps, -1),
-            q_tgt.reshape(batch_size, steps, -1), batch.reward[:, burn:].contiguous(),
-            batch.done[:, burn:].contiguous(), batch.valid[:, burn:].contiguous(),
-            batch.weight, params_td)
+            q_tgt.reshape(batch_size, steps, -1), batch.reward[:, burn:], batch.done[:, burn:],
+            batch.valid[:, burn:], batch.weight, params_td, writeback)
 
         # the conv weights' gradients come back channels-last; the fused
         # Adam reads each gradient in its parameter's (contiguous) layout

@@ -13,7 +13,10 @@ at index C, proportional stratified sampling over the effective priorities
 (a uniform draw over the filled prefix while they sum to 0), IS weights
 (N P)^-beta max-normalised per group, and the eta-mix write-back.  On CUDA
 every one of those steps is one of the port's kernels: K7s ``append``, K5s
-``draw``, K8s ``assemble``, K6s ``update_priorities``.
+``draw``, K8s ``assemble``, K6s ``update_priorities`` (folded into the
+learn step's K11 launch on the fused step), and the act tick's prologue
+``act_prologue`` (K7s's append with the frame-stack shift and the reset
+LSTM state in its launch).
 
 Differences of form from the JAX module, none of them of value:
 - The state is updated in place (the reference config's ring is 7 GB of
@@ -38,7 +41,7 @@ Differences of form from the JAX module, none of them of value:
   the fallback flag) beside the ids, for K8s; ``assemble`` called on its
   own runs K5s for ``meta`` alone.
 
-Not ported (each raises NotImplementedError; ROADMAP.md queue A item 9):
+Not ported (each raises NotImplementedError; ROADMAP.md A13, more than one GPU):
 the multi-device ``stack_seq_shards``, ``device_seq_specs``,
 ``device_seq_shardings``, ``build_sharded_seq_append`` and
 ``build_device_r2d2_learn_sharded``.
@@ -52,7 +55,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from rainbow_iqn_apex_tpu_torch.kernels.seq_append import plan_append, seq_append
+from rainbow_iqn_apex_tpu_torch.kernels.replay_writeback import Writeback
+from rainbow_iqn_apex_tpu_torch.kernels.seq_append import act_prologue, plan_append, seq_append
 from rainbow_iqn_apex_tpu_torch.kernels.seq_assemble import seq_assemble
 from rainbow_iqn_apex_tpu_torch.kernels.seq_draw import seq_draw
 from rainbow_iqn_apex_tpu_torch.kernels.seq_writeback import seq_writeback
@@ -186,13 +190,36 @@ class DeviceSequenceReplay:
         lstm_h: torch.Tensor,
     ) -> DeviceSeqState:
         """One lockstep tick of all lanes (K7s), then the host counters."""
+        plan, args = self._plan(s, frames, actions, rewards, terminals, truncations, lstm_c,
+                                lstm_h)
+        seq_append(s, *args, plan, self.stride)
+        s.buf_len, s.pos, s.filled = plan.buf_len, plan.pos, plan.filled
+        return s
+
+    def _plan(self, s: DeviceSeqState, frames, actions, rewards, terminals, truncations,
+              lstm_c, lstm_h):
+        """An append's host plan and K7s's arguments (``seq_append``'s)."""
         terminals = _host(terminals, bool)
         plan = plan_append(s.buf_len, terminals, _host(truncations, bool), s.pos, s.filled,
                            self.capacity, self.L, self.stride)
-        seq_append(s, frames, actions.to(torch.int32), _host(rewards, np.float32), terminals,
-                   lstm_c.to(torch.float32), lstm_h.to(torch.float32), plan, self.stride)
-        s.buf_len, s.pos, s.filled = plan.buf_len, plan.pos, plan.filled
-        return s
+        return plan, (frames, actions.to(torch.int32), _host(rewards, np.float32), terminals,
+                      lstm_c.to(torch.float32), lstm_h.to(torch.float32))
+
+    def act_prologue(self, s: DeviceSeqState, prev: Optional[tuple], stack: torch.Tensor,
+                     frame: torch.Tensor, keep: torch.Tensor,
+                     lstm: Tuple[torch.Tensor, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The R2D2 act tick's prologue in one K7s launch: ``append`` of the
+        last transition ``prev`` (``append``'s arguments in order; None on
+        the first tick), then ``stack`` [lanes, H, W, h] uint8 shifted in
+        place by ``frame`` with the lanes whose ``keep`` [lanes] uint8 is 0
+        zeroed, and pre = ``lstm`` * keep, which the act starts from.
+        Returns pre (c, h)."""
+        plan, args = (None, None) if prev is None else self._plan(s, *prev)
+        pre = act_prologue(s, args, plan, self.stride, stack, frame, keep,
+                           lstm[0].to(torch.float32), lstm[1].to(torch.float32))
+        if plan is not None:
+            s.buf_len, s.pos, s.filled = plan.buf_len, plan.pos, plan.filled
+        return pre
 
     # -------------------------------------------------------------- sampling
     def _uniforms(self, groups: int, batch_size: int, generator: Optional[torch.Generator],
@@ -255,6 +282,12 @@ class DeviceSequenceReplay:
         """Learner eta-mix write-back: a direct set and a running max (K6s)."""
         return self.update_priorities_grouped(s, idx.reshape(1, -1), td_mix)
 
+    def writeback_target(self, s: DeviceSeqState, idx: torch.Tensor) -> Writeback:
+        """``update_priorities_grouped``'s write-back at ``idx`` [G, B], as a
+        target that the learn step's K11 launch writes its priorities into."""
+        return Writeback(s.priority, s.max_priority, idx.to(torch.int32).contiguous(), self.eps,
+                         self.omega)
+
 
 def build_device_r2d2_learn(cfg, num_actions: int, replay: DeviceSequenceReplay):
     """The R2D2 Anakin learner tick: draw -> assemble -> sequence learn step
@@ -262,6 +295,11 @@ def build_device_r2d2_learn(cfg, num_actions: int, replay: DeviceSequenceReplay)
     u=None, draws=None) -> (train_state, replay_state, info)``, both states
     updated in place and ``info`` left on the device: no host transfer.
     ``u`` injects the sampler's uniforms and ``draws`` the learn step's noise.
+
+    The write-back is ``update_priorities_grouped``'s.  Nothing between the
+    learn step's TD epilogue and the write-back reads or writes the ring's
+    priorities, so K11's launch does it (a ``writeback_target``: K6s folded
+    into K11, one launch fewer a step).
 
     Warm-gate contract, as in JAX: callers learn only once the ring holds
     ``max(learn_start // seq_total, 8)`` sequences; a cold ring degrades the
@@ -274,8 +312,8 @@ def build_device_r2d2_learn(cfg, num_actions: int, replay: DeviceSequenceReplay)
     def fused(train_state, replay_state, generator, beta, *, u=None, draws=None):
         idx, batch, _prob = replay.sample_grouped(
             replay_state, cfg.batch_size, groups, beta, generator, u)
-        train_state, info = learn_step(train_state, batch, generator, draws)
-        replay.update_priorities_grouped(replay_state, idx, info["priorities"])
+        train_state, info = learn_step(train_state, batch, generator, draws,
+                                       writeback=replay.writeback_target(replay_state, idx))
         return train_state, replay_state, info
 
     return fused
@@ -286,8 +324,8 @@ def build_device_r2d2_learn(cfg, num_actions: int, replay: DeviceSequenceReplay)
 # ---------------------------------------------------------------------------
 def _multi_gpu(name: str):
     raise NotImplementedError(
-        f"{name}: the sharded sequence replay is not ported yet (ROADMAP.md queue A item 9, "
-        "more than one GPU)")
+        f"{name}: the sharded sequence replay is not ported yet (ROADMAP.md A13, more than one "
+        "GPU)")
 
 
 def stack_seq_shards(local_state: DeviceSeqState, n_dev: int) -> DeviceSeqState:

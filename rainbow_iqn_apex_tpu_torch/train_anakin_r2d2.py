@@ -18,19 +18,20 @@ builders, the LSTM state and the frame stack device-resident across ticks:
 
 Per tick:
   1. act_append: append LAST tick's completed transition with its pre-act
-     LSTM state (K7s; lag one, so its reward and cut are known), shift the
-     device frame stack, zero-reset the cut lanes' LSTM state, act (K9, K3,
-     K4).  Reading the actions back is the loop's one host sync, and it is
+     LSTM state (lag one, so its reward and cut are known), shift the device
+     frame stack, zero-reset the cut lanes' LSTM state, all in one K7s
+     launch, then act (K9, K3, K4).  Reading the actions back is the loop's one host sync, and it is
      sanctioned.  The ring's counters are host ints, so the warm gate reads
      no device value (the JAX loop reads ``filled`` back each tick until it
      opens).
   2. the fused learn steps when due: draw (K5s), gather (K8s), the R2D2 learn
-     step, priority write-back (K6s), with no host sync between metrics rows.
+     step with the priority write-back (K6s) in its K11 launch, with no host
+     sync between metrics rows.
 
 Not ported (each raises NotImplementedError): the fully fused loop with the
 env on the device (``jaxgame:`` ids with ``fused_env``: its own slice in
 ROADMAP.md queue A, on A18's device games and K12) and ``learner_devices >
-1`` (queue A item 9).  ``replay_ratio > 1`` raises ValueError, as in JAX.
+1`` (ROADMAP.md A13, more than one GPU).  ``replay_ratio > 1`` raises ValueError, as in JAX.
 
 Run it as ``python -m rainbow_iqn_apex_tpu_torch.train --role anakin
 --architecture r2d2 ...`` (``cuda:0`` unless ``--device`` names another).
@@ -52,7 +53,6 @@ from rainbow_iqn_apex_tpu_torch.obs import RunObs
 from rainbow_iqn_apex_tpu_torch.ops.act import DeviceLike, resolve_device
 from rainbow_iqn_apex_tpu_torch.ops.learn import load_host_state
 from rainbow_iqn_apex_tpu_torch.ops.r2d2 import build_r2d2_act_step, init_r2d2_state
-from rainbow_iqn_apex_tpu_torch.parallel.multihost import shift_stack
 from rainbow_iqn_apex_tpu_torch.replay.device_sequence import (
     HOST_FIELDS,
     DeviceSeqState,
@@ -168,15 +168,12 @@ def build_act_append(cfg: Config, num_actions: int, replay: DeviceSequenceReplay
     the first tick), zero-reset the cut lanes' frame stack and LSTM state
     (``keep`` [lanes] 0/1), act on the stack.  ``pre`` is the state the actor
     had BEFORE seeing this frame, which the NEXT append stores (stored-state
-    replay).  ``stack`` and ``ss`` are updated in place."""
+    replay).  ``stack`` and ``ss`` are updated in place.  Everything before
+    the act is one K7s launch (``DeviceSequenceReplay.act_prologue``)."""
     act_fn = build_r2d2_act_step(cfg, num_actions, use_noise=True)
 
     def act_append(net, stack, ss, lstm, frame, keep, prev):
-        if prev is not None:
-            replay.append(ss, *prev)
-        shift_stack(stack, frame, keep)
-        kf = keep.to(torch.float32)[:, None]
-        pre = (lstm[0] * kf, lstm[1] * kf)
+        pre = replay.act_prologue(ss, prev, stack, frame, keep, lstm)
         actions, _q, lstm = act_fn(net, stack, pre, generator)
         return actions, lstm, pre
 
@@ -197,7 +194,7 @@ def train_anakin_r2d2(cfg: Config, max_frames: Optional[int] = None,
     if cfg.learner_devices > 1:
         raise NotImplementedError(
             f"learner_devices={cfg.learner_devices}: the sharded sequence ring is not ported "
-            "yet (ROADMAP.md queue A item 9, more than one GPU)")
+            "yet (ROADMAP.md A13, more than one GPU)")
     return _train_anakin_r2d2_hostfed(cfg, max_frames, device)
 
 

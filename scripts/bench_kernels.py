@@ -67,6 +67,13 @@ and the draw (1,000,000 slots, G 8, B 32): ``ms`` the tree's route (K5f
 applying the queue, where the tree has it), ``parent_route_ms`` a K6f launch
 a batch, an ``index_copy_`` a staged tick and K5f on every tree, and K5f
 alone, K6f's one batch and (with the queue) its apply of the whole queue.
+K11 (``--only k11``): the R2D2 learner's TD epilogue at [32, 80, 18] and G
+4's [128, 80, 18], alone, as the learn step runs it (strided slices, or
+three copies first) and with the write-back (K6s folded in, or K11 then
+K6s), and K11 then K6s on every tree.  K7s (``--only k7s``): the R2D2 act
+tick's work before the act on a quiet tick and an all-emitting one: the
+tree's route (one prologue launch, or seven device ops), K7s's append alone
+and the seven-op route on every tree.
 The port is imported from ``--root`` (default: this checkout), so two trees,
 e.g. a parent commit unpacked into an ignored directory, are compared on one
 card by running the script once per tree in one call:
@@ -78,7 +85,8 @@ A tree whose K2-bwd recomputes the cos features (no ``save_cos``) is called
 that way; a shape a tree refuses is reported as refused.  Prints one JSON
 object per (kernel, shape, mode); ``--out`` appends them to a file as well;
 ``--only fwd`` (or ``bwd``, ``k2``, ``k2bwd``, ``k9``, ``k9bwd``, ``k10g``,
-``k5``, ``k5f``, ``k4``, ``k12``, ``k1``, ``k7``, ``k8``, ``k6``, ``k6f``, or layer names)
+``k5``, ``k5f``, ``k4``, ``k12``, ``k1``, ``k7``, ``k8``, ``k6``, ``k6f``, ``k11``,
+``k7s``, or layer names)
 times a subset.  K9's unrolls (T > 1) are timed as eager calls
 between CUDA events, their device time being far above the launch's (a
 parent tree's cooperative launch is not captured in a CUDA graph); the act
@@ -143,7 +151,8 @@ def main() -> int:
                          "forward_plan's (a tree whose K10g has forward_plan(m, n, k, noisy, clusters))")
     ap.add_argument("--only", default=None,
                     help="comma-separated kernels (fwd, bwd, k2, k2bwd, k9, k9bwd, k10g, k5, k5f, "
-                         "k4, k12, k1, k7, k8, k6, k6f) or layer names to time; default all")
+                         "k4, k12, k1, k7, k8, k6, k6f, k11, k7s) or layer names to time; "
+                         "default all")
     args = ap.parse_args()
     only = set(args.only.split(",")) if args.only else None
 
@@ -458,6 +467,10 @@ def main() -> int:
         bench_k6(torch, dev, gen, emit, bound_ms, time_ms, K1_OPS_PER_PAIR, FP32_FLOPS)
     if wanted("k6f", None):
         bench_k6f(torch, dev, gen, emit, bound_ms, time_ms, FP32_FLOPS)
+    if wanted("k11", None):
+        bench_k11(torch, dev, gen, emit, time_ms)
+    if wanted("k7s", None):
+        bench_k7s(torch, dev, emit, time_ms)
     return 0
 
 
@@ -852,6 +865,121 @@ def bench_k12(torch, dev, emit, bound_ms, time_ms, game_bytes, game_names, fp32_
         emit({"kernel": "K12_device_games", "game": name, "lanes": 1, "mode": "step",
               "ms": both_ms - reset_ms, "reset_and_step_ms": both_ms, "reset_ms": reset_ms,
               "bound_ms": bms, "bound_by": by})
+
+
+# K11 / K7s: the reference config's R2D2 Anakin learner and act tick
+R2D2_BURN, R2D2_T, R2D2_A, R2D2_N = 40, 80, 18, 3
+R2D2_RING = 8333  # the uncut ring's sequences
+R2D2_LANES, R2D2_LSTM, R2D2_HIST = 16, 512, 4
+
+
+def bench_k11(torch, dev, gen, emit, time_ms):
+    """K11 at the learner's [B 32, T 80, A 18], n 3, G 1 and 4, as the R2D2
+    step runs it on this tree: ``k11_ms`` one launch on contiguous inputs;
+    ``learn_route_ms`` the learn step's epilogue (the tree's: the train
+    slices of reward, done and valid read in place where K11 takes strides,
+    else three ``.contiguous()`` copies, then K11); ``fused_ms`` the fused
+    Anakin step's epilogue (with K6s folded into K11 where the tree has the
+    fold, else K11's route then K6s over the 8,333 priorities);
+    ``two_launch_ms`` K11 then K6s on contiguous inputs, on every tree."""
+    from rainbow_iqn_apex_tpu_torch.kernels import r2d2_td as k11
+    from rainbow_iqn_apex_tpu_torch.kernels.seq_writeback import seq_writeback
+
+    fold = hasattr(k11, "td_plan")
+    seq = R2D2_BURN + R2D2_T
+    p = k11.TDParams(R2D2_N, 0.997, 0.9, 1e-3)
+    ring = torch.rand((R2D2_RING,), generator=gen, device=dev) + 0.05
+    top = torch.tensor(1.0, device=dev)
+    for groups in (1, 4):
+        rows = 32 * groups
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev) * 3
+
+        q = (rnd(rows, R2D2_T), rnd(rows, R2D2_T, R2D2_A), rnd(rows, R2D2_T, R2D2_A))
+        full = (rnd(rows, seq) / 3, torch.rand((rows, seq), generator=gen, device=dev) < 0.02,
+                torch.ones((rows, seq), dtype=torch.bool, device=dev))
+        weight = torch.rand((rows,), generator=gen, device=dev) * 0.7 + 0.3
+        sliced = [t[:, R2D2_BURN:] for t in full]
+        copied = [t.contiguous() for t in sliced]
+        ids = torch.randint(0, R2D2_RING, (groups, 32), generator=gen, device=dev,
+                            dtype=torch.int32)
+
+        def learn_route():
+            ins = sliced if fold else [t.contiguous() for t in sliced]
+            return k11.r2d2_td(*q, *ins, weight, p)
+
+        def two_launches(ins=copied):
+            out = k11.r2d2_td(*q, *ins, weight, p)
+            seq_writeback(ring, top, ids, out[1], 1e-6, 0.9)
+
+        def fused():
+            if not fold:
+                return two_launches([t.contiguous() for t in sliced])
+            return k11.r2d2_td(*q, *sliced, weight, p,
+                               k11.Writeback(ring, top, ids, 1e-6, 0.9))
+
+        emit({"kernel": "K11_r2d2_td", "shape": [rows, R2D2_T, R2D2_A], "groups": groups,
+              "route": "K11 with K6s folded in, strided slices" if fold
+              else "three copies, K11, then K6s",
+              "k11_ms": time_ms(torch, lambda: k11.r2d2_td(*q, *copied, weight, p)),
+              "learn_route_ms": time_ms(torch, learn_route), "fused_ms": time_ms(torch, fused),
+              "two_launch_ms": time_ms(torch, two_launches)})
+
+
+def bench_k7s(torch, dev, emit, time_ms):
+    """The R2D2 act tick's work before the act at the reference config (16
+    lanes, 84 x 84, history 4, LSTM 512, L 120, stride 80) on a quiet tick
+    (no lane emits) and one where every lane emits a full window: ``ms`` the
+    tree's route (one K7s prologue launch where the tree has
+    ``act_prologue``, else K7s's append, ``shift_stack`` and the two
+    multiplies of pre), ``append_ms`` K7s's append alone (on a quiet tick the
+    lane plan's launch parameters dominate: the tree's size of them), and
+    ``parent_route_ms`` the latter route on every tree."""
+    import numpy as np
+
+    from rainbow_iqn_apex_tpu_torch.kernels import seq_append as k7s
+    from rainbow_iqn_apex_tpu_torch.parallel.multihost import shift_stack
+    from rainbow_iqn_apex_tpu_torch.replay.device_sequence import DeviceSequenceReplay
+
+    seq, stride = R2D2_BURN + R2D2_T, R2D2_T
+    lanes, lstm, frame = R2D2_LANES, R2D2_LSTM, (84, 84)
+    replay = DeviceSequenceReplay(R2D2_RING, seq, frame, lstm, lanes, stride, device=dev)
+    state = replay.init_state()
+    rng = np.random.default_rng(21)
+    frames = torch.from_numpy(rng.integers(0, 256, (lanes, *frame), dtype=np.uint8)).to(dev)
+    actions = torch.from_numpy(rng.integers(0, 18, lanes).astype(np.int32)).to(dev)
+    c, h = (torch.from_numpy(rng.normal(size=(lanes, lstm)).astype(np.float32)).to(dev)
+            for _ in range(2))
+    rewards = rng.normal(size=lanes).astype(np.float32)
+    cut = np.zeros(lanes, bool)
+    stack = torch.zeros((lanes, *frame, R2D2_HIST), dtype=torch.uint8, device=dev)
+    keep = torch.ones(lanes, dtype=torch.uint8, device=dev)
+    prologue = hasattr(k7s, "act_prologue")
+    for name, buf_len in (("no_lane_emits", np.zeros(lanes, np.int32)),
+                          ("all_lanes_emit", np.full(lanes, seq - 1, np.int32))):
+        plan = k7s.plan_append(buf_len, cut, cut, 0, R2D2_RING, R2D2_RING, seq, stride)
+        args = (frames, actions, rewards, cut, c, h)
+
+        def append():
+            k7s.seq_append(state, *args, plan, stride)
+
+        def parent_route():
+            append()
+            shift_stack(stack, frames, keep)
+            kf = keep.to(torch.float32)[:, None]
+            return c * kf, h * kf
+
+        def route():
+            if not prologue:
+                return parent_route()
+            return k7s.act_prologue(state, args, plan, stride, stack, frames, keep, c, h)
+
+        emit({"kernel": "K7s_seq_append", "tick": name, "shape": [lanes, seq, *frame, lstm],
+              "route": "one K7s prologue launch" if prologue
+              else "K7s, shift_stack (3 ops), pre (3 ops)",
+              "ms": time_ms(torch, route), "append_ms": time_ms(torch, append),
+              "parent_route_ms": time_ms(torch, parent_route)})
 
 
 if __name__ == "__main__":

@@ -5,7 +5,9 @@ serving dispatch.
 
 Runs the ``learn``, ``anakin``, ``apex`` and ``anakin_fused`` phases (or,
 with ``--phases``, those named, ``learn_r2d2``, ``anakin_r2d2``, ``serve``,
-``serve_quant``, ``kernels_learn``, ``kernels_replay``, ``kernels_frontier``, ``apex_mt`` and ``apex_quant`` among them; ``apex_quant``
+``serve_quant``, ``kernels_learn``, ``kernels_replay``, ``kernels_frontier``,
+``kernels_r2d2``, ``kernels_r2d2_anakin``, ``apex_mt`` and ``apex_quant``
+among them; ``apex_quant``
 runs over the filled replay of the ``apex`` phase, which runs first if the
 list does not name it earlier) of the ``chip_smoke.py`` at ``--root`` on that checkout's
 port, as the whole script runs them, so that two trees (say the parent commit unpacked with ``git
@@ -30,8 +32,13 @@ on any tree) and a ``k3_e2e`` summary.  The phase ``learn_reuse``, this
 script's own, is the ``learn`` phase's agent and replay at ``replay_ratio``
 2: ``REUSE_STEPS`` timed calls of ``learn_batch`` (each a pass 1 and a reuse
 pass, with its two log-prob forwards) after ``LEARN_WARMUP``, then a profile
-of ``PROFILE_STEPS`` calls, whose ``device_ops`` line gives a call's ops.  Needs a CUDA card: exits with 2 where
-there is none.
+of ``PROFILE_STEPS`` calls, whose ``device_ops`` line gives a call's ops.
+The phase ``act_r2d2``, also this script's own, times the R2D2 Anakin
+trainer's ``act_append`` tick through its entry points on either tree and
+profiles a few ticks (a tick's device ops); ``learn_r2d2`` and
+``anakin_r2d2`` give a step's ops (and ``anakin_r2d2``, on a tree whose
+phase profiles its act ticks, a tick's first).  Needs a CUDA card: exits
+with 2 where there is none.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 E2E_PHASES = "learn,anakin,apex,anakin_fused"
 HOST_PHASES = "learn,serve"
 REUSE_STEPS = 100  # learn_reuse: timed learn_batch calls (two passes each)
+ACT_WARMUP, ACT_TICKS, ACT_PROFILE = 20, 300, 10  # act_r2d2: ticks
 
 
 def _summary(us):
@@ -103,6 +111,71 @@ def learn_reuse(smoke, torch, cfg):
     return None
 
 
+def act_r2d2(smoke, torch, cfg):
+    """The R2D2 Anakin trainer's ``act_append`` tick on this tree (any tree:
+    it takes the trainer's entry points only), at the reference config's 16
+    lanes, 84x84x4 and LSTM 512 over a 512-sequence ring: ACT_WARMUP ticks,
+    ACT_TICKS timed ticks (host us a tick, each ending in the loop's read
+    of the actions), then a profile of ACT_PROFILE ticks whose
+    ``device_ops`` line gives a tick's device ops (kernels, copies, fills)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from rainbow_iqn_apex_tpu_torch.agents.agent import put_frames
+    from rainbow_iqn_apex_tpu_torch.ops.r2d2 import init_r2d2_state
+    from rainbow_iqn_apex_tpu_torch.replay.device_sequence import DeviceSequenceReplay
+    from rainbow_iqn_apex_tpu_torch.train_anakin_r2d2 import _seq_geometry, build_act_append
+
+    cfg = smoke._r2d2_anakin_cfg(cfg)
+    lanes, lstm = cfg.num_envs_per_actor, cfg.lstm_size
+    frame = (cfg.frame_height, cfg.frame_width)
+    seq, stride, _, _ = _seq_geometry(cfg)
+    dev = torch.device("cuda", 0)
+    replay = DeviceSequenceReplay(512, seq, frame, lstm, lanes, stride, cfg.priority_exponent,
+                                  cfg.priority_eps, device=dev)
+    ss = replay.init_state()
+    ts = init_r2d2_state(cfg, 18, cfg.seed, frame, device=dev)
+    act_append = build_act_append(cfg, 18, replay,
+                                  torch.Generator(device=dev).manual_seed(cfg.seed))
+    rng = np.random.default_rng(7)
+    pool = rng.integers(0, 256, (16, lanes, *frame), dtype=np.uint8)
+    stack = torch.zeros((lanes, *frame, cfg.history_length), dtype=torch.uint8, device=dev)
+    carry = {"state": (torch.zeros((lanes, lstm), device=dev),
+                       torch.zeros((lanes, lstm), device=dev)),
+             "prev": None, "cuts": np.zeros(lanes, bool), "tick": 0}
+
+    def tick():
+        frame_d = put_frames(pool[carry["tick"] % len(pool)], dev)
+        keep_d = put_frames((~carry["cuts"]).astype(np.uint8), dev)
+        actions_d, carry["state"], pre = act_append(ts.net, stack, ss, carry["state"], frame_d,
+                                                    keep_d, carry["prev"])
+        actions_d.cpu()  # the loop's one read
+        terms = rng.random(lanes) < smoke.SEQ_P_TERM
+        carry["prev"] = (frame_d, actions_d, rng.normal(size=lanes).astype(np.float32), terms,
+                         np.zeros(lanes, bool), pre[0], pre[1])
+        carry["cuts"] = terms
+        carry["tick"] += 1
+
+    for _ in range(ACT_WARMUP):
+        tick()
+    us = []
+    for _ in range(ACT_TICKS):
+        t = time.perf_counter()
+        tick()
+        us.append((time.perf_counter() - t) * 1e6)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(ACT_PROFILE):
+            tick()
+        torch.cuda.synchronize()
+    rows = smoke.device_rows(torch, prof)
+    print(json.dumps({"phase": "act_r2d2", "ticks": ACT_TICKS, "act_append_us": _summary(us),
+                      "device_ops_per_tick": sum(r[2] for r in rows) / ACT_PROFILE,
+                      "device_us_per_tick": sum(r[1] for r in rows) / ACT_PROFILE,
+                      "ops": sorted(([k[:60], c / ACT_PROFILE] for k, _, c in rows),
+                                    key=lambda r: -r[1])}), flush=True)
+    return None
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=ROOT)
@@ -147,6 +220,11 @@ def main() -> int:
               "kernels_learn": (smoke.phase_kernels_learn, "reference_atari_defaults"),
               "kernels_replay": (smoke.phase_kernels_replay, "reference_atari_defaults"),
               "kernels_frontier": (smoke.phase_kernels_frontier, "reference_atari_defaults"),
+              "kernels_r2d2": (smoke.phase_kernels_r2d2, "reference_atari_defaults"),
+              "kernels_r2d2_anakin": (smoke.phase_kernels_r2d2_anakin,
+                                      "reference_atari_defaults"),
+              "act_r2d2": (lambda torch_, cfg: act_r2d2(smoke, torch_, cfg),
+                           "reference_atari_defaults"),
               "learn_reuse": (lambda torch_, cfg: learn_reuse(smoke, torch_, cfg),
                               "reference_atari_defaults")}
     apex_ctx = []  # the apex phase's filled replay, which apex_quant runs over
@@ -156,13 +234,19 @@ def main() -> int:
         rows = device_rows(torch_, prof)
         ops = sum(r[2] for r in rows)
         per = {"learn": smoke.PROFILE_STEPS, "learn_reuse": smoke.PROFILE_STEPS,
-               "apex_mt": smoke.MT_PROFILE_TICKS}.get(current[0])
+               "apex_mt": smoke.MT_PROFILE_TICKS, "learn_r2d2": smoke.R2D2_PROFILE_STEPS,
+               "act_r2d2": ACT_PROFILE}.get(current[0])
+        if current[0] == "anakin_r2d2":  # the tick profile (this tree's), then the steps'
+            per = smoke.ANAKIN_R2D2_PROFILE_STEPS
+            if getattr(smoke, "ACT_PROFILE_TICKS", None) and not seen_act[0]:
+                per, seen_act[0] = smoke.ACT_PROFILE_TICKS, True
         print(json.dumps({"phase": "device_ops", "label": args.label, "of": current[0],
                           "ops": ops, "ops_per_step": ops / per if per else None}), flush=True)
         return rows
 
     smoke.device_rows = counted_rows
     current = [None]
+    seen_act = [False]
 
     def run(name):
         fn, cfg = phases[name]

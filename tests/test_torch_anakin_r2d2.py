@@ -155,7 +155,7 @@ def test_cli_routes_r2d2_anakin_to_the_hostfed_loop(tmp_path):
 
 @pytest.mark.parametrize("kw,err,match", [
     (dict(env_id="jaxgame:catch", fused_env=True), NotImplementedError, "A18"),
-    (dict(learner_devices=2), NotImplementedError, "item 9"),
+    (dict(learner_devices=2), NotImplementedError, "A13, more than one GPU"),
     (dict(replay_ratio=2), ValueError, "replay_ratio")], ids=["fused", "devices", "reuse"])
 def test_unported_options_raise(tmp_path, kw, err, match):
     with pytest.raises(err, match=match):

@@ -364,5 +364,5 @@ def test_sharded_sequence_parts_raise_naming_the_multi_gpu_item():
                      (device_sequence.device_seq_shardings, (None,)),
                      (device_sequence.build_sharded_seq_append, (None, None)),
                      (device_sequence.build_device_r2d2_learn_sharded, (None, A, None, None))):
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(NotImplementedError, match="A13, more than one GPU"):
             fn(*args)

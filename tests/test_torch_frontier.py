@@ -75,9 +75,10 @@ def _jax():
     return jax, jnp, JaxShardedReplay, JaxFrontier
 
 
-def _fill(cls, shards=2, cap=512, lanes=4, seed=0, ticks=None):
+def _fill(cls, shards=2, cap=512, lanes=4, seed=0, ticks=None, use_native=True):
     m = cls.build(shards, cap, lanes, frame_shape=FRAME, history=2, n_step=3, gamma=0.9,
-                  seed=seed)
+                  seed=seed, use_native=use_native)
+    assert all((s._core is not None) == use_native for s in m.shards), "not the core asked for"
     rng = np.random.default_rng(seed + 1)
     for _ in range(ticks if ticks is not None else cap // lanes):
         m.append_batch(
@@ -90,10 +91,27 @@ def _fill(cls, shards=2, cap=512, lanes=4, seed=0, ticks=None):
     return m
 
 
-def _pair(seed=0, dead=(), **kw):
-    """(JAX memory + frontier, port memory + frontier) over equal replays."""
+@pytest.fixture(params=[False, True], ids=["numpy", "native"])
+def use_native(request, tmp_path, monkeypatch):
+    """Which replay core both sides run, the NumPy one or the C++ one: the
+    two sum an n-step return in another order, so a bit-for-bit comparison
+    names its core.  ``native`` builds the JAX package's core into
+    ``tmp_path`` (its loader builds in the source tree without a lock, and
+    under parallel test workers a lost race would fall back to NumPy
+    silently)."""
+    if request.param:
+        from test_torch_train import _jax_native_core_in  # imports JAX: not at module level
+
+        _jax_native_core_in(tmp_path, monkeypatch)
+    return request.param
+
+
+def _pair(use_native, seed=0, dead=(), **kw):
+    """(JAX memory + frontier, port memory + frontier) over equal replays,
+    both on the NumPy core or both on the C++ one."""
     _, _, JaxShardedReplay, JaxFrontier = _jax()
-    mj, mp = _fill(JaxShardedReplay, seed=seed, **kw), _fill(ShardedReplay, seed=seed, **kw)
+    mj = _fill(JaxShardedReplay, seed=seed, use_native=use_native, **kw)
+    mp = _fill(ShardedReplay, seed=seed, use_native=use_native, **kw)
     fj = JaxFrontier.from_sharded(mj, seed=seed + 7)
     fp = DeviceSampleFrontier.from_sharded(mp, seed=seed + 7, device="cpu")
     for k in dead:
@@ -115,8 +133,8 @@ def _leaves(m):
 
 # ------------------------------------------------------------ draw parity
 @pytest.mark.parametrize("dead", [(), (1,)], ids=["all_alive", "dead_shard"])
-def test_draw_matches_jax_exactly_on_dyadic_priorities(dead):
-    (mj, fj), (mp, fp) = _pair(seed=1, dead=dead)
+def test_draw_matches_jax_exactly_on_dyadic_priorities(dead, use_native):
+    (mj, fj), (mp, fp) = _pair(use_native, seed=1, dead=dead)
     _, jnp, _, _ = _jax()
     mirror = fp.mirror_np()
     np.testing.assert_array_equal(mirror, np.asarray(fj.mirror))
@@ -140,10 +158,10 @@ def test_draw_matches_jax_exactly_on_dyadic_priorities(dead):
     assert (host_w == blk_p.weight.numpy()).all()
 
 
-def test_draw_matches_jax_on_random_priorities_within_rounding():
+def test_draw_matches_jax_on_random_priorities_within_rounding(use_native):
     """Real tree leaves: prob and weight agree where the ids do, and an id
     differs only where u is within 1e-6 * sum p of an fp64 cdf boundary."""
-    (mj, fj), (mp, fp) = _pair(seed=2)
+    (mj, fj), (mp, fp) = _pair(use_native, seed=2)
     batch = 32
     blk_j = fj.draw(batch, 0.4, len(mj))
     u = _jax_uniforms(9, fj.draw_block, batch)
@@ -195,8 +213,8 @@ def test_draw_twin_weights_follow_the_host_formula():
 
 
 # ------------------------------------------------------------- write-back
-def test_update_matches_jax_with_zero_slots_and_dead_shards():
-    (mj, fj), (mp, fp) = _pair(seed=4, dead=(1,))
+def test_update_matches_jax_with_zero_slots_and_dead_shards(use_native):
+    (mj, fj), (mp, fp) = _pair(use_native, seed=4, dead=(1,))
     cap = mp.shard_capacity
     mirror = fp.mirror_np()
     rng = np.random.default_rng(5)
@@ -231,8 +249,8 @@ def test_update_writes_the_last_of_repeated_ids_and_never_resurrects():
 
 
 # ------------------------------------------------------- staged appends
-def test_appends_stage_the_same_mirror_as_jax():
-    (mj, fj), (mp, fp) = _pair(seed=8, ticks=40)
+def test_appends_stage_the_same_mirror_as_jax(use_native):
+    (mj, fj), (mp, fp) = _pair(use_native, seed=8, ticks=40)
     rng = np.random.default_rng(9)
     for t in range(100):  # wraps the 64-slot lanes of each shard
         tick = (rng.integers(0, 255, (4, *FRAME), dtype=np.uint8), rng.integers(0, 4, 4),
@@ -246,8 +264,8 @@ def test_appends_stage_the_same_mirror_as_jax():
     np.testing.assert_array_equal(fp.mirror_np(), _leaves(mp).astype(np.float32))
 
 
-def test_staged_flush_keeps_the_last_write_and_drops_dead_rows():
-    (mj, fj), (mp, fp) = _pair(seed=10)
+def test_staged_flush_keeps_the_last_write_and_drops_dead_rows(use_native):
+    (mj, fj), (mp, fp) = _pair(use_native, seed=10)
     cap = mp.shard_capacity
     for f in (fj, fp):
         f.on_drop(1)
@@ -291,10 +309,10 @@ def test_restore_refreshes_the_mirror(tmp_path):
     assert all(e == b + 1 for e, b in zip(f.stamp[0], epochs))
 
 
-def test_reconcile_after_lagged_writebacks_matches_jax():
+def test_reconcile_after_lagged_writebacks_matches_jax(use_native):
     """K = 2 lagged write-backs interleaved with appends, then reconcile on
     both sides: equal host trees and fresh-item defaults."""
-    (mj, fj), (mp, fp) = _pair(seed=11, ticks=96)
+    (mj, fj), (mp, fp) = _pair(use_native, seed=11, ticks=96)
     rng = np.random.default_rng(2)
     queue = []
     for step in range(12):
@@ -321,12 +339,13 @@ def test_reconcile_after_lagged_writebacks_matches_jax():
 
 
 # ---------------------------------------------------------- batch assembly
-def test_batch_assembler_zeroes_invalidated_rows_as_jax_does():
+def test_batch_assembler_zeroes_invalidated_rows_as_jax_does(use_native):
+    """Bit for bit on one core: the n-step reward is summed in the core's order."""
     _, _, JaxShardedReplay, _ = _jax()
     from rainbow_iqn_apex_tpu.replay.frontier import make_batch_assembler as jax_assembler
 
-    mj = _fill(JaxShardedReplay, shards=1, cap=256)
-    mp = _fill(ShardedReplay, shards=1, cap=256)
+    mj = _fill(JaxShardedReplay, shards=1, cap=256, use_native=use_native)
+    mp = _fill(ShardedReplay, shards=1, cap=256, use_native=use_native)
     reg = MetricRegistry()
     leaves = _leaves(mp)
     bad, good = np.flatnonzero(leaves == 0)[:4], np.flatnonzero(leaves > 0)[:4]

@@ -27,10 +27,12 @@ and K3-bwd bit-equal on a repeat (no atomics);
 K4's gather mode and K4-bwd 1e-6 (one fp32 product and subtraction).
 R2D2's kernels on the card: K9 and K9-bwd 1e-4 abs/rel (fp32 products of
 512 (2048) terms per step summed in another order, carried through up to 120
-steps of the recurrence); K11 1e-5 (fp32, summation order); K8s-stack
+steps of the recurrence); K11 1e-5 (fp32, summation order), bit-equal on
+a repeat, and with K6s folded in bit-equal to K11 then K6s; K8s-stack
 bit-equal (a byte copy).  The R2D2 Anakin sequence replay's kernels on the
 card: K7s bit-equal (ring rows [0, C), priorities, counters and each
-builder's valid prefix; byte and fp32 copies); K5s equal on dyadic
+builder's valid prefix; byte and fp32 copies), and as the act tick's
+prologue bit-equal to its twin (the frame stack and pre too); K5s equal on dyadic
 priorities and a cold ring, and against an fp64 cdf within 1e-5 of the
 total at a boundary; K8s's gathers bit-equal, prob and weights 1e-6 relative
 (one division and powf against torch's); K6s 1e-6 relative (powf).  The
@@ -1386,15 +1388,24 @@ def _td_inputs(batch, steps, actions, seed):
     done = torch.from_numpy(r.random((batch, steps)) < 0.05)
     valid = torch.ones((batch, steps), dtype=torch.bool)
     valid[0, steps // 2:] = False  # a cut sequence
-    valid[-1] = False  # an empty one
-    done[1, steps // 3] = True
+    if batch > 1:
+        valid[-1] = False  # an empty one
+        done[1, steps // 3] = True
     return (_t(r.standard_normal((batch, steps)) * 3), q_sel,
             _t(r.standard_normal((batch, steps, actions)) * 3),
             _t(r.standard_normal((batch, steps))), done, valid, _t(r.uniform(0.3, 1, batch)))
 
 
+# (B, T, A, n): the reference learner at G 1, 2 and 4 (a cluster of 16
+# blocks of 2, 4 and 8 sequences summing into block 0), odd sizes, a cluster
+# of one block and of two, T*A not a multiple of 4 (q_sel copied a float at a
+# time), a long T (8 steps a lane)
+K11_SHAPES = [(32, 80, 18, 3), (5, 9, 4, 2), (64, 80, 18, 3), (128, 80, 18, 3), (33, 80, 18, 3),
+              (1, 80, 18, 3), (2, 80, 18, 3), (7, 13, 3, 5), (16, 200, 18, 3)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,steps,actions,n", [(32, 80, 18, 3), (5, 9, 4, 2)])
+@pytest.mark.parametrize("batch,steps,actions,n", K11_SHAPES)
 def test_k11_kernel_matches_plain(cuda, batch, steps, actions, n):
     from rainbow_iqn_apex_tpu_torch.kernels.r2d2_td import TDParams, r2d2_td, r2d2_td_plain
 
@@ -1404,7 +1415,115 @@ def test_k11_kernel_matches_plain(cuda, batch, steps, actions, n):
     want = r2d2_td_plain(*args, p)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
-    assert float(got[1][-1]) == 0.0 and not got[3][-1].any()  # the empty sequence
+    if batch > 1:
+        assert float(got[1][-1]) == 0.0 and not got[3][-1].any()  # the empty sequence
+    again = r2d2_td(*args, p)  # fixed summation orders: a repeat gives the same bits
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_k11_kernel_reads_the_train_slice_in_place(cuda):
+    """reward, done and valid as column slices of [B, L] rows, as the learn
+    step passes them: the bits of contiguous copies."""
+    from rainbow_iqn_apex_tpu_torch.kernels.r2d2_td import TDParams, r2d2_td
+
+    burn = 40
+    q_taken, q_sel, q_tgt, reward, done, valid, weight = _td_inputs(32, 120, 18, 48)
+    args = [t.to(cuda) for t in (q_taken[:, burn:].contiguous(), q_sel[:, burn:].contiguous(),
+                                 q_tgt[:, burn:].contiguous())]
+    rows = [t.to(cuda) for t in (reward, done, valid)]
+    p = TDParams(3, 0.99, 0.9, 1e-3)
+    got = r2d2_td(*args, *(t[:, burn:] for t in rows), weight.to(cuda), p)
+    want = r2d2_td(*args, *(t[:, burn:].contiguous() for t in rows), weight.to(cuda), p)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_k11_kernel_takes_rows_that_start_off_16_bytes(cuda, offset):
+    """q_sel or q_tgt a contiguous view whose start is not 16-byte aligned
+    (T*A a multiple of 4): the kernel copies that launch's rows a float at a
+    time, and gives the bits of aligned copies."""
+    from rainbow_iqn_apex_tpu_torch.kernels.r2d2_td import TDParams, r2d2_td
+
+    q_taken, q_sel, q_tgt, reward, done, valid, weight = [
+        t.to(cuda) for t in _td_inputs(32, 80, 18, 52)]
+    p = TDParams(3, 0.99, 0.9, 1e-3)
+    want = r2d2_td(q_taken, q_sel, q_tgt, reward, done, valid, weight, p)
+    for which in ("q_sel", "q_tgt"):
+        src = q_sel if which == "q_sel" else q_tgt
+        storage = torch.empty(src.numel() + offset, device=cuda)
+        view = storage[offset:].view(src.shape)
+        view.copy_(src)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        args = (view, q_tgt) if which == "q_sel" else (q_sel, view)
+        got = r2d2_td(q_taken, *args, reward, done, valid, weight, p)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), which
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("omega", [0.5, 0.9])
+@pytest.mark.parametrize("groups", [1, 2, 4])
+@pytest.mark.parametrize("nan", [False, True], ids=["finite", "nan_td"])
+def test_k11_with_k6s_folded_equals_k11_then_k6s(cuda, groups, omega, nan):
+    """The fold's launch against K11's then K6s's on the same inputs, bit for
+    bit: its outputs, the ring's priorities (repeated ids inside and across
+    groups, zero slots written: no fence) and max_priority; with a NaN
+    reward, a NaN priority is written and the maximum turns NaN."""
+    from rainbow_iqn_apex_tpu_torch.kernels import folded
+    from rainbow_iqn_apex_tpu_torch.kernels.r2d2_td import TDParams, r2d2_td
+    from rainbow_iqn_apex_tpu_torch.kernels.replay_writeback import Writeback
+    from rainbow_iqn_apex_tpu_torch.kernels.seq_writeback import seq_writeback
+
+    batch = 32
+    inputs = list(_td_inputs(groups * batch, 80, 18, 49))
+    if nan:
+        inputs[3][5, 10] = float("nan")
+    args = [t.to(cuda) for t in inputs]
+    p = TDParams(3, 0.99, 0.9, 1e-3)
+    gen = torch.Generator(device=cuda).manual_seed(groups)
+    ring = torch.rand((8333,), generator=gen, device=cuda)
+    ring[:10] = 0.0
+    ids = torch.randint(0, 40, (groups, batch), generator=gen, device=cuda, dtype=torch.int32)
+    got_p, got_max = ring.clone(), torch.tensor(1.5, device=cuda)
+    want_p, want_max = ring.clone(), torch.tensor(1.5, device=cuda)
+    fold_before = folded["K6s_seq_writeback"]
+    k6s_before = launches["K6s_seq_writeback"]
+    got = _counted("K11_r2d2_td", lambda: r2d2_td(
+        *args, p, Writeback(got_p, got_max, ids, 1e-6, omega)))
+    assert folded["K6s_seq_writeback"] == fold_before + 1
+    assert launches["K6s_seq_writeback"] == k6s_before
+    want = r2d2_td(*args, p)
+    seq_writeback(want_p, want_max, ids, want[1], 1e-6, omega)
+    torch.cuda.synchronize()
+
+    def same(a, b):
+        return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+    assert all(same(a, b) for a, b in zip(got, want))
+    assert same(got_p, want_p) and same(got_max, want_max)
+    assert bool(torch.isnan(got_max)) == nan
+    assert bool((got_p[ids.reshape(-1).long()] != ring[ids.reshape(-1).long()]).any())
+
+
+@pytest.mark.cuda
+def test_k11_and_its_fold_refuse_what_they_do_not_take(cuda):
+    from rainbow_iqn_apex_tpu_torch.kernels.r2d2_td import TDParams, r2d2_td
+    from rainbow_iqn_apex_tpu_torch.kernels.replay_writeback import Writeback
+
+    args = [t.to(cuda) for t in _td_inputs(4, 10, 3, 50)]
+    p = TDParams(3, 0.99, 0.9, 1e-3)
+    ring, top = torch.zeros(20, device=cuda), torch.tensor(1.0, device=cuda)
+    ids = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # reward with a column stride of 2
+        r2d2_td(*args[:3], torch.zeros((4, 20), device=cuda)[:, ::2], *args[4:], p)
+    with pytest.raises(ValueError):  # ids not [G, B / G] over the batch
+        r2d2_td(*args, p, Writeback(ring, top, ids[:1], 1e-6, 0.5))
+    with pytest.raises(TypeError):
+        r2d2_td(*args, p, Writeback(ring, top, ids.long(), 1e-6, 0.5))
+    with pytest.raises(ValueError):  # 513 sequences: more than 16 blocks of 32
+        r2d2_td(*[t.to(cuda) for t in _td_inputs(513, 10, 3, 51)], p)
 
 
 @pytest.mark.cuda
@@ -1494,6 +1613,91 @@ def test_k7s_kernel_matches_twin(cuda, lanes, seq_len, stride, frame, lstm, capa
     assert launches["K7s_seq_append"] == before + ticks
     assert got.filled == capacity  # wrapped
     _same_seq_state(got, want)
+
+
+def _prologue_tick(rng, cuda, lanes, frame, lstm, history, p_term, p_trunc):
+    """One act tick's device inputs: this tick's frame, keep, the act's LSTM
+    state and the last transition's append arguments (host rewards and
+    cuts)."""
+    f, a, r, term, trunc, c, h = _seq_tick(rng, lanes, frame, lstm, p_term, p_trunc)
+    keep = (rng.random(lanes) > 0.2).astype(np.uint8)
+    dev = [torch.from_numpy(x).to(cuda) for x in (
+        rng.integers(0, 256, (lanes, *frame), dtype=np.uint8), keep,
+        rng.normal(size=(lanes, lstm)).astype(np.float32),
+        rng.normal(size=(lanes, lstm)).astype(np.float32))]
+    prev = (torch.from_numpy(f).to(cuda), torch.from_numpy(a).to(cuda), r, term, trunc,
+            torch.from_numpy(c).to(cuda), torch.from_numpy(h).to(cuda))
+    return dev, prev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,seq_len,stride,frame,lstm,capacity,history,ticks", [
+    (16, 120, 80, (84, 84), 512, 64, 4, 400),  # the reference config: h 4, four pixels a thread
+    (3, 7, 2, (5, 7), 4, 16, 4, 90),  # 35 pixels: the byte path at h 4
+    (4, 6, 3, (8, 8), 8, 8, 2, 60),  # h 2
+    (70, 6, 3, (4, 4), 8, 200, 3, 30)])  # past 64 lanes: the 256-lane plan
+def test_k7s_prologue_matches_twin(cuda, lanes, seq_len, stride, frame, lstm, capacity, history,
+                                   ticks):
+    """The act tick's prologue against its twin (seq_append_plain, then
+    shift_stack and lstm * keep) tick after tick, the first tick (no
+    append) included: the ring, builders, stack and pre bit for bit, one
+    K7s launch a tick; then a tick where no lane emits and one where every
+    lane does."""
+    from rainbow_iqn_apex_tpu_torch.kernels.seq_append import (
+        act_prologue_plain,
+        plan_append,
+    )
+
+    replay = _seq_replay(cuda, lanes, seq_len, stride, frame, lstm, capacity)
+    got, want = replay.init_state(), replay.init_state()
+    stacks = [torch.zeros((lanes, *frame, history), dtype=torch.uint8, device=cuda)
+              for _ in range(2)]
+    rng = _rng(52)
+    prev = None
+    no_cut = np.zeros(lanes, bool)
+    for tick in range(ticks + 2):
+        (frame_d, keep, c, h), nxt = _prologue_tick(rng, cuda, lanes, frame, lstm, history,
+                                                    0.03, 0.02)
+        if tick == ticks:  # quiet: the builders restart and nothing is cut
+            got.buf_len[:] = want.buf_len[:] = 0
+            prev = prev[:3] + (no_cut, no_cut) + prev[5:]
+        if tick == ticks + 1:  # every lane is cut: every lane emits
+            prev = prev[:3] + (~no_cut, no_cut) + prev[5:]
+        plan = None
+        if prev is not None:
+            f, a, r, term, trunc, pc, ph = prev
+            plan = plan_append(want.buf_len, term, trunc, want.pos, want.filled, capacity,
+                               seq_len, stride)
+            assert tick != ticks or (plan.slot < 0).all()
+            assert tick != ticks + 1 or (plan.slot >= 0).all()
+        k_pre = _counted("K7s_seq_append", lambda: replay.act_prologue(
+            got, prev, stacks[0], frame_d, keep, (c, h)))
+        w_pre = act_prologue_plain(want, None if prev is None else (f, a, r, term, pc, ph),
+                                   plan, stride, stacks[1], frame_d, keep, c, h)
+        if plan is not None:
+            want.buf_len, want.pos, want.filled = plan.buf_len, plan.pos, plan.filled
+        assert torch.equal(stacks[0], stacks[1]), f"tick {tick}: stack"
+        assert all(torch.equal(a, b) for a, b in zip(k_pre, w_pre)), f"tick {tick}: pre"
+        prev = nxt[:5] + k_pre
+    torch.cuda.synchronize()
+    _same_seq_state(got, want)
+
+
+@pytest.mark.cuda
+def test_k7s_prologue_refuses_what_it_does_not_take(cuda):
+    replay = _seq_replay(cuda, 3, 6, 3, (8, 8), 8, 16)
+    state = replay.init_state()
+    stack = torch.zeros((3, 8, 8, 4), dtype=torch.uint8, device=cuda)
+    frame = torch.zeros((3, 8, 8), dtype=torch.uint8, device=cuda)
+    keep = torch.ones(3, dtype=torch.uint8, device=cuda)
+    lstm = (torch.zeros((3, 8), device=cuda), torch.zeros((3, 8), device=cuda))
+    with pytest.raises(TypeError):
+        replay.act_prologue(state, None, stack, frame, keep.bool(), lstm)
+    with pytest.raises(ValueError):
+        replay.act_prologue(state, None, stack[:2], frame[:2], keep[:2], lstm)
+    with pytest.raises(ValueError):
+        replay.act_prologue(state, None, stack.permute(0, 3, 1, 2).contiguous().permute(
+            0, 2, 3, 1), frame, keep, lstm)
 
 
 @pytest.mark.cuda

@@ -32,7 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from hypothesis import HealthCheck, given, settings
+from hypothesis import HealthCheck, example, given, settings
 from hypothesis import strategies as st
 
 from rainbow_iqn_apex_tpu.ops import learn as jlearn
@@ -211,9 +211,12 @@ FRAME_F = (10, 10)
 SHARDS, CAP, LANES = 2, 256, 4
 
 
-def _memory(seed, omega=0.5, eps=1e-6, dyadic=False, cls=ShardedReplay, ticks=40):
+def _memory(seed, omega=0.5, eps=1e-6, dyadic=False, cls=ShardedReplay, ticks=40,
+            use_native=True):
     m = cls.build(SHARDS, SHARDS * CAP, LANES, frame_shape=FRAME_F, history=2, n_step=2,
-                  gamma=0.9, priority_exponent=omega, priority_eps=eps, seed=seed)
+                  gamma=0.9, priority_exponent=omega, priority_eps=eps, seed=seed,
+                  use_native=use_native)
+    assert all((s._core is not None) == use_native for s in m.shards), "not the core asked for"
     rng = np.random.default_rng(seed)
     for _ in range(ticks):
         _append(m, rng, dyadic)
@@ -290,8 +293,24 @@ def _update_args(seed, mirror):
     return idx, td
 
 
+def _reconcile_both(fq, fe):
+    """Both frontiers' reconcile: the same outcome, a ValueError (a NaN
+    priority in the mirror: the host sum-tree refuses it) or none."""
+    outcome = []
+    for f in (fq, fe):
+        try:
+            f.reconcile()
+            outcome.append(None)
+        except ValueError as e:
+            outcome.append(str(e))
+    assert outcome[0] == outcome[1], outcome
+    assert outcome[0] in (None, "priorities must be finite and non-negative"), outcome
+    return outcome[0]
+
+
 @settings(max_examples=30, deadline=None, suppress_health_check=[HealthCheck.too_slow])
 @given(_ops_strategy())
+@example(ops=[("update", 51776), ("reconcile", 0)])  # a NaN |TD| in a live slot, reconciled
 def test_queued_frontier_equals_the_eager_reference(ops):
     mq, me = _memory(5), _memory(5)
     fq = DeviceSampleFrontier.from_sharded(mq, seed=1, device="cpu")
@@ -325,8 +344,8 @@ def test_queued_frontier_equals_the_eager_reference(ops):
             fq.refresh_from_host()
             fe.refresh_from_host()
         elif kind == "reconcile":
-            fq.reconcile()
-            fe.reconcile()
+            _reconcile_both(fq, fe)
+            assert fq.reconciles == fe.reconciles
             for sq, se in zip(mq.shards, me.shards):
                 assert np.array_equal(sq.tree.tree, se.tree.tree)
                 assert sq.max_priority == se.max_priority
@@ -336,20 +355,61 @@ def test_queued_frontier_equals_the_eager_reference(ops):
     assert np.array_equal(fq.mirror_np(), fe.mirror_np(), equal_nan=True)
 
 
+@pytest.mark.parametrize("use_native", [False, True], ids=["numpy", "native"])
+def test_reconcile_of_a_nan_priority_raises_as_the_jax_frontier_does(use_native, tmp_path,
+                                                                     monkeypatch):
+    """The write-back of the ``hypothesis`` example above (a NaN |TD| in a
+    live slot), then reconcile: the JAX frontier's host sum-tree refuses
+    the NaN with the same ValueError as the port's, on either core, and
+    both leave the same host trees."""
+    from rainbow_iqn_apex_tpu.parallel.sharded_replay import ShardedReplay as JaxShardedReplay
+    from rainbow_iqn_apex_tpu.replay.frontier import DeviceSampleFrontier as JaxFrontier
+
+    if use_native:
+        from test_torch_train import _jax_native_core_in
+
+        _jax_native_core_in(tmp_path, monkeypatch)
+    mj = _memory(5, cls=JaxShardedReplay, use_native=use_native)
+    mp = _memory(5, use_native=use_native)
+    fj = JaxFrontier.from_sharded(mj, seed=1)
+    fp = DeviceSampleFrontier.from_sharded(mp, seed=1, device="cpu")
+    idx, td = _update_args(51776, fp.mirror_np())
+    live = fp.mirror_np()[idx] > 0
+    assert np.isnan(td[live]).any(), "the example's NaN |TD| must land in a live slot"
+    fj.update(idx, td)
+    fp.update(torch.from_numpy(idx), torch.from_numpy(td))
+    raised = []
+    for f in (fj, fp):
+        with pytest.raises(ValueError, match="priorities must be finite and non-negative"):
+            f.reconcile()
+        raised.append(f.reconciles)
+    assert raised == [0, 0]
+    for sj, sp in zip(mj.shards, mp.shards):
+        np.testing.assert_array_equal(sp.tree.tree, sj.tree.tree)
+        assert sp.max_priority == sj.max_priority
+
+
 def _jax_draw_uniforms(fj, groups, batch):
     """The uniforms the JAX frontier's next draw takes from its key."""
     _, sub = jax.random.split(fj._key)
     return np.asarray(jax.random.uniform(sub, (groups, batch)))
 
 
+@pytest.mark.parametrize("use_native", [False, True], ids=["numpy", "native"])
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_queued_frontier_matches_jax_on_dyadic_interleavings(seed):
+def test_queued_frontier_matches_jax_on_dyadic_interleavings(seed, use_native, tmp_path,
+                                                             monkeypatch):
     """omega 1 and eps 0 with dyadic |TD| and append priorities keep every
-    priority, sum and cdf exact in fp32 on both sides."""
+    priority, sum and cdf exact in fp32 on both sides; both run the NumPy
+    replay core or both the C++ one."""
     from rainbow_iqn_apex_tpu.parallel.sharded_replay import ShardedReplay as JaxShardedReplay
     from rainbow_iqn_apex_tpu.replay.frontier import DeviceSampleFrontier as JaxFrontier
 
-    kw = dict(omega=1.0, eps=0.0, dyadic=True)
+    if use_native:
+        from test_torch_train import _jax_native_core_in
+
+        _jax_native_core_in(tmp_path, monkeypatch)
+    kw = dict(omega=1.0, eps=0.0, dyadic=True, use_native=use_native)
     mj, mp = _memory(seed, cls=JaxShardedReplay, **kw), _memory(seed, **kw)
     fj = JaxFrontier.from_sharded(mj, seed=seed)
     fp = DeviceSampleFrontier.from_sharded(mp, seed=seed, device="cpu")
